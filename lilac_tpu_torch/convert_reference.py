@@ -1,0 +1,66 @@
+"""The JAX package's containers, handed over as numpy arrays and Python
+tuples, rebuilt as the port's containers.
+
+With these both packages compute on the same plan: a test (or a migration
+script) calls ``np.asarray`` on each field of the JAX container and passes
+the arrays here. This module imports neither package's JAX side.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from lilac_tpu_torch.formats.sparse import SegBucketELL
+from lilac_tpu_torch.kernels.factored import FactoredNPB
+from lilac_tpu_torch.kernels.routed_spmv import RoutedMat
+from lilac_tpu_torch.ops.dfloat import DF
+
+
+def _t(a, device, dtype=None):
+    # np.array copies: arrays handed over from JAX are read-only views
+    return torch.as_tensor(np.array(a, order="C"), dtype=dtype, device=device)
+
+
+def df_from_arrays(hi, lo, device="cuda") -> DF:
+    return DF(_t(hi, device, torch.float32), _t(lo, device, torch.float32))
+
+
+def routed_mat_from_arrays(
+    masks, vals, kinds, dists, chunks, inv_perm, shape, m, colmajor,
+    device="cuda",
+) -> RoutedMat:
+    """masks [B, P, R, 128] int8, vals [B, m] (or [B, m, 2]), inv_perm [n]
+    or None; kinds / dists / chunks as the reference's static tuples."""
+    return RoutedMat(
+        masks=_t(masks, device, torch.int8),
+        vals=_t(vals, device),
+        kinds=tuple(str(k) for k in kinds),
+        dists=tuple(int(d) for d in dists),
+        chunks=tuple((int(r), int(k)) for r, k in chunks),
+        inv_perm=None if inv_perm is None else _t(inv_perm, device, torch.int64),
+        shape=tuple(int(v) for v in shape),
+        m=int(m),
+        colmajor=bool(colmajor),
+    )
+
+
+def seg_bucket_ell_from_arrays(
+    data, indices, inv_perm, shape, parts, seg_size, identity_perm,
+    device="cuda",
+) -> SegBucketELL:
+    """data / indices: per-part arrays, aligned with parts."""
+    return SegBucketELL(
+        data=tuple(_t(v, device) for v in data),
+        indices=tuple(_t(i, device, torch.int64) for i in indices),
+        inv_perm=_t(inv_perm, device, torch.int64),
+        shape=tuple(int(v) for v in shape),
+        parts=tuple(tuple(int(v) for v in p) for p in parts),
+        seg_size=int(seg_size),
+        identity_perm=bool(identity_perm),
+    )
+
+
+def factored_from_arrays(V, VT, s, d0, device="cuda") -> FactoredNPB:
+    """V, VT: containers already converted by the functions above."""
+    return FactoredNPB(V=V, VT=VT, s=_t(s, device), d0=_t(d0, device))

@@ -1,0 +1,265 @@
+"""Factored SpMV for sum-of-sparse-outer-products matrices (NPB CG).
+
+Counterpart of lilac_tpu/kernels/factored.py. The NPB CG matrix is
+assembled as A = sum_i s_i a_i a_i^T + (rcond - shift) I with each a_i
+holding only nonzer+1 nonzeros (cg.f:650-905). The assembled matrix has
+about (nonzer+1)^2 nonzeros per row, but the FACTORED product
+
+    A x = V^T (s * (V x)) + d0 x        (V = stacked a_i^T)
+
+needs two narrow sparse passes: about (nonzer+1)/2 times fewer gathered
+elements than the assembled form.
+
+Two layouts are ported:
+
+* ``routed``: V and V^T as single-table routed plans (kernels/routed_spmv.py,
+  the hand-written CUDA kernels). Serves n <= 2^18, NPB classes S to C.
+* ``single``: V and V^T as single-segment SegBucketELL through plain torch
+  indexing (kernels/gather.py). No hand kernel: the independent operator
+  the routed one is held against.
+
+``auto`` is ``routed`` when the plan's device is CUDA and ``single`` on
+the CPU. The reference's ``scan`` and ``mixed`` layouts, its hierarchical
+plans (n > 2^18) and ``factored_vt=adj`` raise NotImplementedError until
+their kernels are ported.
+
+Exactly the same matrix: summation order differs from the assembled CSR
+by O(eps), far inside the zeta tolerance of 1e-10. Supports the f32 / f64
+/ df64 value policies.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import zipfile
+from typing import Tuple, Union
+
+import numpy as np
+import torch
+
+from lilac_tpu_torch.formats.sparse import SegBucketELL
+from lilac_tpu_torch.kernels.routed_spmv import RoutedMat
+from lilac_tpu_torch.ops import dfloat as df
+
+SINGLE_TABLE_MAX = 1 << 18  # largest n the reference serves with one table
+
+# what a damaged, truncated or foreign plan file raises while it is read
+_LOAD_ERRORS = (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile)
+
+
+@dataclasses.dataclass
+class FactoredNPB:
+    """Device containers for the factored operator."""
+
+    V: Union[RoutedMat, SegBucketELL]  # [n x n] sparse with rows a_i
+    VT: Union[RoutedMat, SegBucketELL]  # transpose
+    s: torch.Tensor  # [n] outer-product weights (f32/f64 or [n, 2] df)
+    d0: torch.Tensor  # scalar diagonal shift rcond - shift (or [2] df)
+
+
+def to_vals(v: np.ndarray, dtype: str) -> np.ndarray:
+    """Host f64 values in the storage form of a value policy."""
+    v = np.asarray(v, dtype=np.float64)
+    if dtype == "df64":
+        return df.split_f64_np(v)
+    return v.astype({"f32": np.float32, "f64": np.float64}[dtype])
+
+
+def _resolve_modes(conf, n: int, device) -> str:
+    mode = conf.factored_segmode
+    if mode == "auto":
+        mode = "routed" if torch.device(device).type == "cuda" else "single"
+    if mode in ("scan", "mixed"):
+        raise NotImplementedError(
+            f"factored_segmode={mode!r} is not ported: 'scan' needs the "
+            "SegELLScan gather layout and 'mixed' the hierarchical plans "
+            "(kernels routed_apply_sliced_b, butterfly_apply_b, "
+            "window_shift_apply_b, bigshift_apply_b)"
+        )
+    if mode not in ("routed", "single"):
+        raise ValueError(f"unknown factored_segmode {mode!r}")
+    vt_mode = conf.factored_vt
+    if vt_mode == "auto":
+        vt_mode = "adj" if mode == "routed" and n > SINGLE_TABLE_MAX else "plan"
+    if mode == "routed" and n > SINGLE_TABLE_MAX:
+        raise NotImplementedError(
+            f"n={n} > 2^18 needs the hierarchical routed plans, which are "
+            "not ported (kernels routed_apply_sliced_b, butterfly_apply_b, "
+            "window_shift_apply_b, bigshift_apply_b and their adjoints)"
+        )
+    if vt_mode == "adj":
+        raise NotImplementedError(
+            "factored_vt='adj' is not ported: it runs V's network in reverse "
+            "through the adjoint kernel routed_apply_t"
+        )
+    if vt_mode != "plan":
+        raise ValueError(f"unknown factored_vt {vt_mode!r}")
+    return mode
+
+
+def _load_plans(paths, device):
+    """Both plan files as RoutedMats, or None when either is missing,
+    unreadable, of another cache version or in the old row-major layout.
+    Only errors of reading the files are caught here."""
+    if not all(os.path.exists(p) for p in paths):
+        return None
+    from lilac_tpu_torch.kernels.routed_spmv import load_routed
+
+    try:
+        V, VT = (load_routed(p, device=device) for p in paths)
+    except _LOAD_ERRORS:
+        return None
+    if V is None or VT is None or not V.colmajor:
+        return None
+    return V, VT
+
+
+def build_factored(
+    class_name: str, dtype: str = "f64", device="cuda"
+) -> Tuple[FactoredNPB, int]:
+    """Host build from the exact makea factors. Returns (containers, nnz_eff)
+    where nnz_eff counts gathered elements per matvec (both passes)."""
+    from lilac_tpu_torch.config import cfg
+    from lilac_tpu_torch.formats.convert import (
+        coo_to_csr_arrays,
+        csr_to_seg_bucket_ell,
+    )
+    from lilac_tpu_torch.generate.npb import CLASSES, _generate_triples
+
+    cls = CLASSES[class_name.upper()]
+    n = cls.na
+    conf = cfg()
+    mode = _resolve_modes(conf, n, device)
+
+    def to_dev(v):
+        return torch.as_tensor(to_vals(v, dtype), device=device)
+
+    d0 = to_dev(np.asarray(cls.rcond - cls.shift))
+
+    paths = meta_path = None
+    if mode == "routed":
+        cache_dir = conf.resolved_data_dir()
+        os.makedirs(cache_dir, exist_ok=True)
+        # the reference's cache schema v2 names; single-table plans carry
+        # the net-mode tag (monotone schedules differ from Benes)
+        tag = "_m" if conf.net_mode == "monotone" else ""
+        paths = [
+            os.path.join(cache_dir, f"routed2_{cls.name}_{dtype}_{t}{tag}.npz")
+            for t in ("V", "VT")
+        ]
+        meta_path = os.path.join(
+            cache_dir, f"routed2_{cls.name}_{dtype}_meta{tag}.npz"
+        )
+        if os.path.exists(meta_path):
+            # full cache hit: the sidecar carries the already-permuted s
+            # and nnz_eff, so the makea triples are not regenerated
+            plans = _load_plans(paths, device)
+            try:
+                z = np.load(meta_path, allow_pickle=False)
+                s_meta, nnz_meta = z["s"], int(z["nnz_eff"])
+            except _LOAD_ERRORS:
+                plans = None
+            if plans is not None:
+                V, VT = plans
+                return FactoredNPB(V=V, VT=VT, s=to_dev(s_meta), d0=d0), nnz_meta
+
+    nzv_arr, ivc, vc = _generate_triples(cls)
+    rows_i = np.repeat(np.arange(n, dtype=np.int64), nzv_arr)
+    pos_j = ivc - 1
+
+    sigma_i = None
+    if mode == "routed":
+        # Run the whole solve in sigma-space: relabel the j (row/column)
+        # space by descending V-column multiplicity so VT's rows are
+        # already length-sorted and its per-matvec un-permute vanishes.
+        # A' = P A P^T for a permutation P leaves every CG scalar (dots,
+        # norms, zeta, rnorm) invariant, and the NPB main program feeds only
+        # permutation-invariant vectors (x0 = ones).
+        cnt_j = np.bincount(pos_j, minlength=n)
+        sigma = np.argsort(-cnt_j, kind="stable")
+        rank_s = np.empty(n, dtype=np.int64)
+        rank_s[sigma] = np.arange(n)
+        pos_j = rank_s[pos_j]
+        # i-space relabel: order V's rows by descending length so V's
+        # un-permute vanishes too. The i-space is internal to the factored
+        # product (V' = P_i V P_j^T, VT' = V'^T, S' = P_i S P_i^T give the
+        # same j-space similarity), so only s must be permuted to match.
+        sigma_i = np.argsort(-nzv_arr, kind="stable")
+        rank_i = np.empty(n, dtype=np.int64)
+        rank_i[sigma_i] = np.arange(n)
+        rows_i = rank_i[rows_i]
+    v_ip, v_ix, v_v = coo_to_csr_arrays(rows_i, pos_j, vc, (n, n), sum_duplicates=False)
+    t_ip, t_ix, t_v = coo_to_csr_arrays(pos_j, rows_i, vc, (n, n), sum_duplicates=False)
+
+    if mode == "routed":
+        from lilac_tpu_torch.kernels.routed_spmv import build_routed_csr, save_routed
+
+        plans = _load_plans(paths, device)
+        if plans is None:
+            V = build_routed_csr(v_ip, v_ix, v_v, (n, n), dtype=dtype, device=device)
+            VT = build_routed_csr(t_ip, t_ix, t_v, (n, n), dtype=dtype, device=device)
+            save_routed(paths[0], V)
+            save_routed(paths[1], VT)
+        else:
+            V, VT = plans
+    else:
+        V = csr_to_seg_bucket_ell(
+            v_ip, v_ix, to_vals(v_v, dtype), (n, n), seg_size=n, device=device
+        )
+        VT = csr_to_seg_bucket_ell(
+            t_ip, t_ix, to_vals(t_v, dtype), (n, n), seg_size=n, device=device
+        )
+
+    ratio = cls.rcond ** (1.0 / n)
+    s = np.empty(n, dtype=np.float64)
+    s[0] = 1.0
+    np.multiply.accumulate(np.full(n - 1, ratio), out=s[1:])
+    if sigma_i is not None:
+        s = s[sigma_i]  # S' = P_i S P_i^T
+
+    nnz_eff = int(nzv_arr.sum()) * 2
+    if mode == "routed":
+        np.savez(meta_path, s=s, nnz_eff=np.int64(nnz_eff))
+    return FactoredNPB(V=V, VT=VT, s=to_dev(s), d0=d0), nnz_eff
+
+
+# ---------------------------------------------------------------------------
+# matvec implementations
+# ---------------------------------------------------------------------------
+
+
+def _spmv_any(A, x):
+    from lilac_tpu_torch.kernels.gather import seg_bucket_ell_spmv
+    from lilac_tpu_torch.kernels.routed_spmv import routed_spmv
+
+    if isinstance(A, RoutedMat):
+        return routed_spmv(A, x)
+    return seg_bucket_ell_spmv(A, x)
+
+
+def _spmv_any_df(A, x):
+    from lilac_tpu_torch.kernels.gather import seg_bucket_ell_spmv_df
+    from lilac_tpu_torch.kernels.routed_spmv import routed_spmv_df
+
+    if isinstance(A, RoutedMat):
+        return routed_spmv_df(A, x)
+    return seg_bucket_ell_spmv_df(A, x)
+
+
+def factored_spmv(A: FactoredNPB, x: torch.Tensor) -> torch.Tensor:
+    """Plain-float factored product (f32/f64)."""
+    t = _spmv_any(A.V, x)
+    u = A.s * t
+    y = _spmv_any(A.VT, u)
+    return y + A.d0 * x
+
+
+def factored_spmv_df(A: FactoredNPB, x: df.DF) -> df.DF:
+    """df64 factored product: TwoProd per element, compensated reductions."""
+    t = _spmv_any_df(A.V, x)
+    s = df.DF(A.s[..., 0], A.s[..., 1])
+    u = df.mul(s, t)
+    y = _spmv_any_df(A.VT, u)
+    d0 = df.DF(A.d0[..., 0], A.d0[..., 1])
+    return df.add(y, df.mul(d0, x))
