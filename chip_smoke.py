@@ -5,27 +5,42 @@
 
 Drives lilac_tpu_torch's main path, NPB CG in df64 through the routed
 factored operator, at the full width of NPB class C (na = 150000, the
-widest class the single-table path serves), and proves on the card that
+widest class the single-table path serves) and of NPB class D
+(na = 1500000, through the hierarchical plans), and proves on the card that
 
 * the CUDA kernels build from csrc/ (nvcc, sm_90a),
 * TwoSum / TwoProd inside the df64 kernel's translation unit are exact,
-* each kernel agrees with its plain PyTorch version (and routed_apply with
-  the numpy applier of the routing networks) at the shapes the main path
-  gives it and at a small size,
-* NPB class S verifies in f32 / f64 / df64 through both operators, and
-  class C verifies (zeta rel. err <= 1e-10) in df64 through the routed
-  one, with both kernels launched on that run.
+* each kernel agrees with its plain PyTorch version (and the routing
+  appliers with the numpy applier of the networks) at the shapes the main
+  path gives it and at a small size; the routing kernels bit for bit,
+* a general sparse matrix (unsorted rows, a column dense enough to need
+  block-aligned shifts) multiplies right through the hierarchical plans,
+  packed (kernels K3-K6) and net by net (their un-batched forms K3u-K6u),
+* NPB class S verifies in f32 / f64 / df64 through both operators, class C
+  verifies (zeta rel. err <= 1e-10) in df64 through the single-table routed
+  operator and class D through the hierarchical one, with every kernel of
+  each path launched on that run.
 
 It prints one JSON line per phase, then the line {"kernels": [...]} with
 each kernel's measured time beside its bound, and last
 {"ok": true, "device": {...}}. Any failure raises: the exit code is then
 non-zero and no result line is printed. There is no CPU fall-back: with no
 GPU the script fails at once.
+
+Depth, never width, may be cut to keep the script inside its time limit:
+CHIP_SMOKE_C_STEPS / CHIP_SMOKE_D_STEPS set the outer steps of the class C
+and class D runs (default: all). A cut run cannot claim NPB's verification
+and is held instead to the native-f64 gather operator's zeta history on the
+card, to 1e-10 relative. Arguments name phases to run alone, for finding a
+fault ("hier" = the small hierarchical checks and the general matrix, "d" =
+the class D plan, its kernels and its run); such a run exits 2 without the
+last line.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -320,6 +335,400 @@ def phase_kernels(plan_c) -> dict:
     return {"routed_apply": k1, "dfmulred": k2}
 
 
+# ---------------------------------------------------------------------------
+# hierarchical networks: kernels K3-K6 (net-batched) and K3u-K6u (one net)
+# ---------------------------------------------------------------------------
+
+# pass kind -> (net-batched wrapper, un-batched wrapper, plain version)
+PASS_FNS = {
+    "inner": ("routed_apply_sliced_b", "routed_apply_sliced",
+              "routed_apply_sliced_plain"),
+    "butterfly": ("butterfly_apply_b", "butterfly_apply", "butterfly_apply_plain"),
+    "window": ("window_shift_apply_b", "window_shift_apply",
+               "window_shift_apply_plain"),
+    "bigshift": ("bigshift_apply_b", "bigshift_apply", "bigshift_apply_plain"),
+}
+# line of the pl.pallas_call each wrapper's TPU kernel reaches
+REPLACES = {
+    "routed_apply_sliced_b": 976, "butterfly_apply_b": 1094,
+    "window_shift_apply_b": 1182, "bigshift_apply_b": 1255,
+    "routed_apply_sliced": 398, "butterfly_apply": 503,
+    "window_shift_apply": 591, "bigshift_apply": 662,
+}
+FORMATS = ((np.float32, 1), (np.float32, 2), (np.float64, 1))
+
+
+def _call_pass(fn, meta, planes, mk, bl, layout):
+    """One pass through `fn` (a wrapper or a plain version): (planes,
+    layout the next pass reads through; None = natural order)."""
+    kind = meta[0]
+    if kind == "inner":
+        return fn(planes, mk, meta[1], meta[2], layout=layout), None
+    if kind == "butterfly":
+        out, lay = fn(planes, mk, meta[1], bl, layout=layout)
+        return out, (None if tuple(lay) == tuple(range(len(lay))) else tuple(lay))
+    return fn(planes, mk, meta[1], bl, layout=layout), None
+
+
+def _walk_schedule(rd, planes, metas, masks, bl, batched: bool, what: str,
+                   timed: dict | None = None, reps: int = 10) -> tuple:
+    """Run a pass schedule through the kernels, holding EVERY pass bit for
+    bit against its plain version on the same input and layout. With
+    `timed` (a dict), one pass of each kind is also timed (kernel and plain)
+    and its row written there under the wrapper's name: the first one, or
+    the second where the first is the schedule's opening pass, whose input
+    is the one plane all nets share and not a plane per net as in every
+    later pass. Returns the planes after the last pass and their layout."""
+    layout = None
+    N = masks[0].shape[0] if batched and masks else 1
+    kinds = [meta[0] for meta in metas]
+    for j, (meta, mk) in enumerate(zip(metas, masks)):
+        kind = meta[0]
+        name_b, name_u, name_p = PASS_FNS[kind]
+        name = name_b if batched else name_u
+        fn, plain = getattr(rd, name), getattr(rd, name_p)
+        got, new_layout = _call_pass(fn, meta, planes, mk, bl, layout)
+        torch.cuda.synchronize()
+        want, plain_layout = _call_pass(plain, meta, planes, mk, bl, layout)
+        if new_layout != plain_layout:
+            raise AssertionError(f"{what}: pass {j} {name} layout {new_layout} "
+                                 f"!= plain {plain_layout}")
+        for g, w in zip(got, want):
+            if g.shape != w.shape or not torch.equal(g, w):
+                raise AssertionError(
+                    f"{what}: pass {j} {name} != {name_p} (layout {layout})")
+        del want
+        opening = batched and j == 0 and kind in kinds[1:]
+        if timed is not None and name not in timed and not opening:
+            esize = planes[0].element_size()
+            m = planes[0].shape[-2] * 128
+            nbytes = (sum(p.numel() for p in planes) * esize + mk.numel()
+                      + N * m * esize * len(planes))
+            ms = time_ms(lambda: _call_pass(fn, meta, planes, mk, bl, layout), reps)
+            plain_ms = time_ms(
+                lambda: _call_pass(plain, meta, planes, mk, bl, layout), 2)
+            timed[name] = {
+                "name": name, "route": "cuda",
+                "source": "lilac_tpu_torch/csrc/hier.cu",
+                "replaces": f"lilac_tpu/kernels/routed.py:{REPLACES[name]}",
+                "launches": 0, "max_abs_err": 0.0,
+                "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": nbytes / PEAK_BYTES_S * 1e3, "bound_by": "bytes",
+                "library_ms": None,
+                "shape": {"m": m, "N": N, "bl": bl, "planes": len(planes),
+                          "dtype": str(planes[0].dtype).replace("torch.", ""),
+                          "input": "shared" if planes[0].dim() == 2 and batched
+                          else "per net", "pass": [str(v) for v in meta],
+                          "read_layout": layout},
+                "bytes": nbytes, "timed_on": what,
+            }
+        planes, layout = got, new_layout
+    return planes, layout
+
+
+def _plane(x: torch.Tensor, m: int) -> torch.Tensor:
+    """A vector zero-padded to m slots as one [m // 128, 128] plane."""
+    return torch.nn.functional.pad(x, (0, m - x.shape[0])).view(m // 128, 128)
+
+
+def _reset_hier_counts(rd, dfk) -> None:
+    for w in rd.HIER_WRAPPERS:
+        w.launches = 0
+    rd.routed_apply.launches = 0
+    rd.routed_apply.stage_launches = 0
+    dfk.dfmulred.launches = 0
+
+
+def _hier_counts(rd) -> dict:
+    return {w.__name__: w.launches for w in rd.HIER_WRAPPERS}
+
+
+def _planes_for(rng, m, dtype, nplanes, lead=()):
+    shape = tuple(lead) + (m // 128, 128)
+    xs = [rng.standard_normal(int(np.prod(shape))).astype(dtype).reshape(shape)
+          for _ in range(nplanes)]
+    return xs, tuple(torch.as_tensor(x, device=DEVICE) for x in xs)
+
+
+def phase_hier_small() -> dict:
+    """K3-K6 and K3u-K6u at a small size (bl = 256, m = 8192: 5 block bits).
+
+    (a) every kernel on random masks, read through the identity and through
+    a scrambled block layout, input shared by the nets and per net, in all
+    three word formats, bit for bit against its plain version;
+    (b) real schedules from compile_hier at gmax 1, 2, 3 (one column dense
+    enough for block-aligned shifts): every pass against its plain version,
+    and hier_apply_batched / hier_apply against the numpy applier of the
+    network and against x[idx]."""
+    from lilac_tpu_torch.kernels import routed as rd
+    from lilac_tpu_torch.kernels import routenet as rn
+
+    rng = np.random.default_rng(11)
+    bl, m, N = 256, 8192, 3
+    nblocks, R = m // bl, bl // 128
+    checks = 0
+
+    def rand_mask(shape, bits):
+        return torch.as_tensor(
+            rng.integers(0, 1 << bits, size=shape, dtype=np.uint8).view(np.int8),
+            device=DEVICE)
+
+    inner_d = (1, 128, 2, 64, 4, 32, 8, 16, 1, 128)
+    cases = [
+        (("inner", ("xor",) * len(inner_d), inner_d), (nblocks, 2, R, 128), 8),
+        (("butterfly", (3,)), (nblocks // 2, 2 * R, 128), 1),
+        (("butterfly", (4, 0)), (nblocks // 4, 4 * R, 128), 2),
+        (("butterfly", (1, 4, 2)), (nblocks // 8, 8 * R, 128), 3),
+        (("window", (1, 2, 4, 8, 16, 32, 64, 100)), (nblocks, 2 * R, 128), 8),
+        (("window", (255,)), (nblocks, 2 * R, 128), 1),
+        (("bigshift", 3 * bl), (nblocks, R, 128), 1),
+        (("bigshift", 16 * bl), (nblocks, R, 128), 1),
+    ]
+    for meta, mshape, bits in cases:
+        name_b, name_u, name_p = PASS_FNS[meta[0]]
+        plain = getattr(rd, name_p)
+        for layout in (None, (3, 0, 4, 1, 2)):
+            for dtype, nplanes in FORMATS:
+                for batched, per_net in ((True, False), (True, True), (False, False)):
+                    mk = rand_mask(((N,) if batched else ()) + mshape, bits)
+                    _, planes = _planes_for(
+                        rng, m, dtype, nplanes, (N,) if per_net else ())
+                    fn = getattr(rd, name_b if batched else name_u)
+                    got, lay = _call_pass(fn, meta, planes, mk, bl, layout)
+                    torch.cuda.synchronize()
+                    want, lay_p = _call_pass(plain, meta, planes, mk, bl, layout)
+                    if lay != lay_p or not all(
+                            torch.equal(g, w) for g, w in zip(got, want)):
+                        raise AssertionError(
+                            f"small: {fn.__name__} != {name_p} ({meta[:2]}, layout "
+                            f"{layout}, {dtype.__name__} x{nplanes}, per_net={per_net})")
+                    checks += 1
+
+    ncol = 3000
+    idx = rng.integers(0, ncol, size=(N, m))
+    for b in range(N):  # one column wanted by ~1500 slots: runs beyond bl
+        idx[b, rng.choice(m, size=1500, replace=False)] = 5 + b
+    net = rn.build_gather_network(idx, ncol, m, drop_empty=False)
+    kinds_seen = set()
+    for gmax in (1, 2, 3):
+        per_net = [rd.compile_hier(net.kinds, net.dists, net.masks[:, b, :], bl,
+                                   gmax=gmax) for b in range(N)]
+        metas = tuple(p[:-1] for p in per_net[0])
+        if any(tuple(p[:-1] for p in pn) != metas for pn in per_net):
+            raise AssertionError("nets of one network differ in pass schedule")
+        kinds_seen |= {mt[0] for mt in metas}
+        stacked = tuple(
+            torch.as_tensor(np.stack([pn[j][-1] for pn in per_net]), device=DEVICE)
+            for j in range(len(metas)))
+        for dtype, nplanes in FORMATS:
+            xs, planes = _planes_for(rng, m, dtype, nplanes)
+            _walk_schedule(rd, planes, metas, stacked, bl, True, f"small g={gmax}")
+            outs = rd.hier_apply_batched(planes, metas, stacked, bl)
+            passes0 = [mt + (mk[0].contiguous(),) for mt, mk in zip(metas, stacked)]
+            _walk_schedule(rd, planes, metas, [p[-1] for p in passes0], bl, False,
+                           f"small g={gmax} N=1")
+            outs0 = rd.hier_apply(planes, passes0, bl)
+            torch.cuda.synchronize()
+            for x, o, o0 in zip(xs, outs, outs0):
+                host = net.apply_host(np.broadcast_to(x.reshape(m), (N, m)))
+                got = o.cpu().numpy().reshape(N, m)
+                if not (np.array_equal(got, host)
+                        and np.array_equal(got, x.reshape(m)[idx])):
+                    raise AssertionError(
+                        f"small g={gmax}: hier_apply_batched != apply_host")
+                if not np.array_equal(o0.cpu().numpy().reshape(m), host[0]):
+                    raise AssertionError(f"small g={gmax}: hier_apply != apply_host")
+            checks += 1
+    if kinds_seen != set(PASS_FNS):
+        raise AssertionError(f"small schedules lack a pass kind: {kinds_seen}")
+    line = {"phase": "hier_small", "bl": bl, "m": m, "nets": N,
+            "random_mask_checks": checks, "gmax": [1, 2, 3],
+            "formats": ["float32 x1", "float32 x2", "float64 x1"]}
+    emit(line)
+    return line
+
+
+def phase_hier_general(kernels: dict, n: int = 400_000, bl: int | None = None) -> dict:
+    """The second driven path: y = A x for a general sparse matrix through
+    build_routed_csr_hier at the default block length. Rows come unsorted (so
+    the un-permute network runs) and one column is dense enough that its
+    broadcast run needs block-aligned shifts. Run net by net (LILAC_HIER_PACK
+    =0: kernels K3u-K6u) and packed (K3-K6), in df64 and f64, against the
+    f64 CSR product; launch counts are set to 0 before each run and read
+    after it. K6 and the four un-batched kernels are timed here, on this
+    plan's own passes (every pass again held against its plain version)."""
+    import scipy.sparse as sp
+
+    from lilac_tpu_torch.kernels import dfmulred as dfk
+    from lilac_tpu_torch.kernels import routed as rd
+    from lilac_tpu_torch.kernels import routed_spmv as rs
+    from lilac_tpu_torch.ops import dfloat as df
+
+    rng = np.random.default_rng(23)
+    ncol = n
+    counts = rng.integers(1, 12, size=n)
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    indices = rng.integers(0, ncol, size=int(indptr[-1]))
+    dense_rows = rng.choice(n, size=n // 4, replace=False)
+    indices[indptr[dense_rows]] = 7  # column 7 stands in a quarter of the rows
+    data = rng.standard_normal(len(indices))
+    # scipy gets copies: abs() below merges duplicate entries in place
+    A = sp.csr_matrix((data.copy(), indices.copy(), indptr.copy()), shape=(n, ncol))
+    x = rng.standard_normal(ncol)
+    want = A @ x
+    scale = abs(A) @ np.abs(x)
+
+    line = {"phase": "hier_general", "n": n, "nnz": int(indptr[-1]), "runs": []}
+    timed: dict = {}
+    launches: dict = {}  # per kernel, from the df64 runs
+    for dtype, tol in (("df64", 4e-14), ("f64", 1e-13)):
+        t0 = time.time()
+        M = rs.build_routed_csr_hier(
+            indptr, indices, data, (n, ncol), dtype=dtype, bl=bl)
+        build_s = time.time() - t0
+        if M.unperm is None:
+            raise AssertionError("general matrix: rows came sorted, no un-permute")
+        for pack in (False, True):
+            os.environ["LILAC_HIER_PACK"] = "1" if pack else "0"
+            try:
+                P = rs.maybe_pack_hier(M, DEVICE)
+            finally:
+                del os.environ["LILAC_HIER_PACK"]
+            if isinstance(P, rs.RoutedMatHierP) != pack:
+                raise AssertionError("LILAC_HIER_PACK did not reach maybe_pack_hier")
+            _reset_hier_counts(rd, dfk)
+            if dtype == "df64":
+                got = df.to_f64(rs.routed_hier_spmv_df(P, df.from_f64(x, device=DEVICE)))
+            else:
+                got = rs.routed_hier_spmv(
+                    P, torch.as_tensor(x, device=DEVICE)).cpu().numpy()
+            torch.cuda.synchronize()
+            counts_run = _hier_counts(rd)
+            err = float((np.abs(got - want) / scale).max())
+            line["runs"].append({
+                "dtype": dtype, "packed": pack, "build_s": round(build_s, 2),
+                "m": M.m, "m_out": M.m_out, "bl": M.bl, "nets": len(M.nets),
+                "groups": len(P.groups) if pack else None,
+                "max_err_over_sum_abs": err, "tol": tol, "launches": counts_run,
+                "dfmulred_launches": dfk.dfmulred.launches})
+            if got.shape != (n,) or not np.isfinite(got).all() or err > tol:
+                raise AssertionError(f"general matrix {dtype} packed={pack}: {err}")
+            batched = [PASS_FNS[k][0] for k in PASS_FNS]
+            single = [PASS_FNS[k][1] for k in PASS_FNS]
+            for name in single if not pack else batched:
+                if counts_run[name] <= 0:
+                    raise AssertionError(
+                        f"general matrix {dtype} packed={pack}: {name} not launched")
+            if not pack and any(counts_run[name] for name in batched):
+                raise AssertionError("net-by-net run launched a net-batched kernel")
+            if dtype == "df64":
+                launches.update(
+                    {name: counts_run[name] for name in (batched if pack else single)})
+                # time on this plan's own passes, on the first net (or packed
+                # group) whose schedule holds a block-aligned shift
+                xh, xl = df.from_f64(x, device=DEVICE)
+                planes = (_plane(xh, M.m), _plane(xl, M.m))
+                net = next(g for g in (P.groups if pack else P.nets)
+                           if any(mt[0] == "bigshift" for mt in g.pass_meta))
+                _walk_schedule(
+                    rd, planes, net.pass_meta, net.pass_masks, M.bl, pack,
+                    "general matrix, " + ("packed group" if pack else "one net"),
+                    timed, 10)
+            del P
+        del M
+        torch.cuda.empty_cache()
+    for name in [PASS_FNS[k][1] for k in PASS_FNS] + ["bigshift_apply_b"]:
+        if name not in timed:
+            raise AssertionError(f"general matrix: no {name} pass to time")
+        kernels[name] = timed[name]
+        kernels[name]["launches"] = launches[name]
+        kernels[name]["launches_on"] = "general-matrix hier SpMV (df64)"
+    line["general_launches"] = launches
+    emit(line)
+    return line
+
+
+def phase_hier_class_d(plan_d, kernels: dict) -> dict:
+    """K3, K4, K5 (and K6 where the plan has such a pass) at class D's own
+    shapes: the largest packed group of the V plan, every pass of its
+    schedule held bit for bit against the plain version on all its nets, the
+    first pass of each kind timed."""
+    from lilac_tpu_torch.kernels import routed as rd
+
+    V = plan_d.A.V
+    grp = max(V.groups, key=lambda g: len(g.net_ids))
+    rng = np.random.default_rng(29)
+    xh = torch.as_tensor(rng.standard_normal(V.shape[1]).astype(np.float32),
+                         device=DEVICE)
+    xl = (xh * 2.0 ** -25).contiguous()
+    planes = (_plane(xh, V.m), _plane(xl, V.m))
+    timed: dict = {}
+    _walk_schedule(rd, planes, grp.pass_meta, grp.pass_masks, V.bl, True,
+                   f"class D V plan, group of {len(grp.net_ids)} nets", timed, 10)
+    for name, row in timed.items():
+        if name == "bigshift_apply_b" and name in kernels:
+            continue  # K6's row stays the general matrix's, where it is launched
+        kernels[name] = row
+    # the same schedule for one net through the un-batched wrappers
+    _walk_schedule(rd, planes, grp.pass_meta,
+                   [mk[0].contiguous() for mk in grp.pass_masks], V.bl, False,
+                   "class D V plan, one net")
+    # NPB's broadcast runs are short, so its plans hold no block-aligned
+    # shift: K6 meets class D's shapes on a random 0/1 mask instead, planes
+    # per net, read through the layout a butterfly pass leaves
+    shift_extra = {}
+    if not any(mt[0] == "bigshift" for mt in grp.pass_meta):
+        N0, R = len(grp.net_ids), V.bl // 128
+        nblocks = V.m // V.bl
+        per_net = tuple(p.unsqueeze(0).expand(N0, -1, -1).contiguous() for p in planes)
+        meta = ("bigshift", 5 * V.bl)
+        lay = tuple(range(3, nblocks.bit_length() - 1)) + (0, 1, 2)
+        for batched in (True, False):
+            mk = torch.as_tensor(
+                rng.integers(0, 2, size=((N0,) if batched else ())
+                             + (nblocks, R, 128), dtype=np.int8), device=DEVICE)
+            xs = per_net if batched else planes
+            name = PASS_FNS["bigshift"][0 if batched else 1]
+            got, _ = _call_pass(getattr(rd, name), meta, xs, mk, V.bl, lay)
+            want, _ = _call_pass(rd.bigshift_apply_plain, meta, xs, mk, V.bl, lay)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"{name} != plain at class D shapes")
+            del got, want
+            nets = N0 if batched else 1
+            nbytes = 2 * nets * V.m * 4 * len(planes) + mk.numel()
+            shift_extra[name] = {
+                "ms": time_ms(lambda: _call_pass(
+                    getattr(rd, name), meta, xs, mk, V.bl, lay), 10),
+                "bound_ms": nbytes / PEAK_BYTES_S * 1e3, "bytes": nbytes,
+                "N": nets, "m": V.m, "mask": "random 0/1"}
+        del per_net
+    # the whole schedule against the gather it encodes. Routing the slot
+    # numbers (exact in f32 up to 2^24) gives idx with out[n, k] = x[idx[n, k]];
+    # x[idx] needs idx, which the network only encodes, so it is a yardstick
+    # beside the schedule, not a library counterpart of any one pass.
+    N = len(grp.net_ids)
+    iota = torch.arange(V.m, dtype=torch.float32, device=DEVICE).view(-1, 128)
+    (routed_iota,) = rd.hier_apply_batched((iota,), grp.pass_meta, grp.pass_masks, V.bl)
+    gidx = routed_iota.view(N, V.m).to(torch.int64)
+    del routed_iota
+    flat = [p.view(V.m) for p in planes]
+    outs = rd.hier_apply_batched(planes, grp.pass_meta, grp.pass_masks, V.bl)
+    if not all(torch.equal(o.view(N, V.m), f[gidx]) for o, f in zip(outs, flat)):
+        raise AssertionError("class D V schedule differs from its composed gather")
+    del outs
+    schedule_ms = time_ms(lambda: rd.hier_apply_batched(
+        planes, grp.pass_meta, grp.pass_masks, V.bl), 5)
+    gather_ms = time_ms(lambda: [f[gidx] for f in flat], 5)
+    line = {"phase": "hier_class_d", "group_nets": N, "m": V.m, "bl": V.bl,
+            "passes_checked": len(grp.pass_meta),
+            "timed": {k: v["ms"] for k, v in timed.items()},
+            "schedule_ms": schedule_ms, "index_gather_ms": gather_ms,
+            "bigshift_at_class_d_shapes": shift_extra}
+    emit(line)
+    return line
+
+
 def _npb_line(res, **extra) -> dict:
     return {"class": res.class_name, "dtype": res.dtype, "kernel": res.kernel,
             "verified": bool(res.verified), "zeta": res.zeta,
@@ -359,48 +768,170 @@ def phase_npb_small() -> list:
     return lines
 
 
-def phase_main_path(kernels: dict, class_name: str) -> dict:
-    """The main path: npb_cg.run in df64 through the routed operator, with
-    every launch count set to 0 just before and read just after."""
+def _with_env(env: dict, fn):
+    """fn() with the given LILAC_* variables set, restored after."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def _steps(env_name: str, class_name: str) -> int:
     from lilac_tpu_torch.generate.npb import CLASSES
+
+    full = CLASSES[class_name].niter
+    return max(1, min(full, int(os.environ.get(env_name, full))))
+
+
+def _check_npb(res, line, class_name: str, steps: int) -> None:
+    """An uncut run must pass NPB's verification. A run cut in depth is held
+    to the native-f64 gather operator's zeta history on the card instead."""
+    from lilac_tpu_torch.generate.npb import CLASSES
+    from lilac_tpu_torch.workloads import npb_cg
+
+    if res.kernel != "factored_routed_df":
+        raise AssertionError(f"main path ran {res.kernel}, not the routed operator")
+    if res.niter != steps or not np.isfinite(
+            [res.zeta, res.rnorm_last, *res.zeta_history]).all():
+        raise AssertionError(f"class {class_name}: {res.niter} steps, not finite?")
+    if steps == CLASSES[class_name].niter:
+        if not res.verified:
+            raise AssertionError(f"class {class_name} df64 failed verification: {line}")
+        return
+    t0 = time.time()
+    ref = _with_env(
+        {"LILAC_FACTORED_SEGMODE": "single"},
+        lambda: npb_cg.run(class_name, dtype="f64", niter=steps, device=DEVICE))
+    rel = np.abs(res.zeta_history - ref.zeta_history) / np.abs(ref.zeta_history)
+    cut = {"phase": "npb_cut", "class": class_name, "outer_steps": steps,
+           "of": CLASSES[class_name].niter, "reference": ref.kernel + " f64",
+           "zeta_history_max_rel_diff": float(rel.max()),
+           "reference_wall_s": round(time.time() - t0, 1)}
+    emit(cut)
+    if ref.kernel != "factored_gather" or not rel.max() <= 1e-10:
+        raise AssertionError(f"class {class_name} cut run disagrees: {cut}")
+
+
+def phase_main_path_c(kernels: dict) -> dict:
+    """Main path through the single-table plans: npb_cg.run("C") in df64 through
+    the routed operator, launch counts set to 0 just before and read just
+    after (kernels K1 and K2)."""
     from lilac_tpu_torch.kernels import dfmulred as dfk
     from lilac_tpu_torch.kernels import routed as rd
     from lilac_tpu_torch.workloads import npb_cg
 
-    rd.routed_apply.launches = 0
-    rd.routed_apply.stage_launches = 0
-    dfk.dfmulred.launches = 0
+    steps = _steps("CHIP_SMOKE_C_STEPS", "C")
+    _reset_hier_counts(rd, dfk)
     t0 = time.time()
-    res = npb_cg.run(class_name, dtype="df64", kernel="factored", device=DEVICE)
+    res = npb_cg.run("C", dtype="df64", kernel="factored", niter=steps, device=DEVICE)
     wall = time.time() - t0
     kernels["routed_apply"]["launches"] = rd.routed_apply.launches
     kernels["routed_apply"]["grid_launches"] = rd.routed_apply.stage_launches
-    kernels["dfmulred"]["launches"] = dfk.dfmulred.launches
+    k2_c = dfk.dfmulred.launches
     matvecs = (res.niter + 1) * 26  # the untimed warm-up step included
     line = _npb_line(
         res, phase="npb", wall_s=wall, matvecs=matvecs,
         routed_apply_launches=rd.routed_apply.launches,
         routed_apply_grid_launches=rd.routed_apply.stage_launches,
-        dfmulred_launches=dfk.dfmulred.launches,
-        full_width=f"class {class_name}",
-    )
+        dfmulred_launches=k2_c, full_width="class C", outer_steps=steps)
     emit(line)
-    if res.kernel != "factored_routed_df":
-        raise AssertionError(f"main path ran {res.kernel}, not the routed operator")
-    if not (res.verified and np.isfinite([res.zeta, res.rnorm_last]).all()):
-        raise AssertionError(f"class {class_name} df64 failed verification: {line}")
-    if res.niter != CLASSES[class_name].niter:
-        raise AssertionError("main path did not run the full iteration count")
+    _check_npb(res, line, "C", steps)
     if rd.routed_apply.launches != 2 * matvecs:
         raise AssertionError(
             f"routed_apply launched {rd.routed_apply.launches} times on "
             f"{matvecs} matvecs (two per matvec expected)")
-    if dfk.dfmulred.launches < 2 * matvecs:
-        raise AssertionError(f"dfmulred launched only {dfk.dfmulred.launches} times")
+    if k2_c < 2 * matvecs:
+        raise AssertionError(f"dfmulred launched only {k2_c} times")
+    kernels["dfmulred"]["launches"] = k2_c
+    kernels["dfmulred"]["launches_class_c"] = k2_c
     return line
 
 
-def main() -> int:
+def phase_main_path_d(kernels: dict, plan_d) -> dict:
+    """Main path through the hierarchical plans: npb_cg.run("D") in df64 at full
+    na = 1 500 000 through the two hierarchical plans (kernels K3, K4, K5
+    and K2; K6 where a plan holds a block-aligned shift)."""
+    from lilac_tpu_torch.kernels import dfmulred as dfk
+    from lilac_tpu_torch.kernels import routed as rd
+    from lilac_tpu_torch.workloads import npb_cg
+
+    steps = _steps("CHIP_SMOKE_D_STEPS", "D")
+    _reset_hier_counts(rd, dfk)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    res = npb_cg.run("D", dtype="df64", niter=steps, plan=plan_d)
+    wall = time.time() - t0
+    counts = _hier_counts(rd)
+    k2_d = dfk.dfmulred.launches
+    matvecs = (res.niter + 1) * 26
+    line = _npb_line(
+        res, phase="npb", wall_s=wall, matvecs=matvecs, launches=counts,
+        dfmulred_launches=k2_d, full_width="class D, na = 1500000",
+        outer_steps=steps, factored_vt="plan",
+        peak_device_bytes=torch.cuda.max_memory_allocated())
+    emit(line)
+    _check_npb(res, line, "D", steps)
+    if rd.routed_apply.launches:
+        raise AssertionError("class D went through the single-table kernel")
+    for name in ("routed_apply_sliced_b", "butterfly_apply_b", "window_shift_apply_b"):
+        if counts[name] < 2 * matvecs:
+            raise AssertionError(f"{name} launched {counts[name]} times on "
+                                 f"{matvecs} matvecs of class D")
+        kernels[name]["launches"] = counts[name]
+        kernels[name]["launches_on"] = f"NPB class D, {steps} outer steps"
+    if counts["bigshift_apply_b"]:
+        kernels["bigshift_apply_b"]["launches_class_d"] = counts["bigshift_apply_b"]
+    if k2_d < 2 * matvecs:
+        raise AssertionError(f"dfmulred launched only {k2_d} times on class D")
+    kernels["dfmulred"]["launches_class_d"] = k2_d
+    kernels["dfmulred"]["launches"] += k2_d
+    return line
+
+
+def _pass_census(P) -> dict:
+    """Kernel launches one matvec makes through a packed hier plan, by kind."""
+    census = {k: 0 for k in PASS_FNS}
+    for g in P.groups:
+        for mt in g.pass_meta:
+            census[mt[0]] += 1
+    return census
+
+
+def build_plan_d():
+    """Class D's two hierarchical plans through the entry point a user calls
+    (FactoredNPBPlan), with factored_vt=plan stated."""
+    from lilac_tpu_torch.kernels import routed_spmv as rs
+    from lilac_tpu_torch.plan import FactoredNPBPlan
+
+    t0 = time.time()
+    plan_d = _with_env(
+        {"LILAC_FACTORED_VT": "plan"},
+        lambda: FactoredNPBPlan("D", dtype="df64", device=DEVICE))
+    build_s = time.time() - t0
+    V, VT = plan_d.A.V, plan_d.A.VT
+    if plan_d.kernel != "factored_routed_df" or not all(
+            isinstance(p, rs.RoutedMatHierP) for p in (V, VT)):
+        raise AssertionError(f"class D plan is {plan_d.kernel} / {type(V).__name__}")
+    emit({"phase": "plan", "class": "D", "build_s": round(build_s, 2),
+          "m": V.m, "bl": V.bl,
+          "gmax": max(len(mt[1]) for p in (V, VT) for g in p.groups
+                      for mt in g.pass_meta if mt[0] == "butterfly"),
+          "nets": [len(V.chunks), len(VT.chunks)],
+          "groups": [[len(g.net_ids) for g in p.groups] for p in (V, VT)],
+          "passes_per_matvec": [_pass_census(V), _pass_census(VT)],
+          "unperm": [V.unperm is not None, VT.unperm is not None],
+          "plan_bytes_on_card": [rs.plan_bytes(V), rs.plan_bytes(VT)],
+          "device_bytes_allocated": torch.cuda.memory_allocated()})
+    return plan_d
+
+
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: this script runs on the GPU only",
               file=sys.stderr)
@@ -408,8 +939,25 @@ def main() -> int:
     t_start = time.time()
     from lilac_tpu_torch.plan import FactoredNPBPlan
 
+    only = set(argv[1:])  # phases to run alone, for finding a fault
+    if only - {"hier", "d"}:
+        raise SystemExit(f"unknown phase {sorted(only - {'hier', 'd'})}: hier | d")
     phase_device()
     phase_build()
+    kernels: dict = {}
+    if "hier" in only:
+        phase_hier_small()
+        phase_hier_general(kernels)
+    if "d" in only:
+        plan_d = build_plan_d()
+        phase_hier_class_d(plan_d, kernels)
+        kernels.setdefault("dfmulred", {"name": "dfmulred", "launches": 0})
+        phase_main_path_d(kernels, plan_d)
+    if only:
+        emit({"phase": "total", "seconds": round(time.time() - t_start, 1)})
+        emit({"kernels": [k for k in kernels.values() if "ms" in k]})
+        return 2  # a partial run proves nothing: never the contract's last line
+
     phase_eft()
 
     t0 = time.time()
@@ -424,16 +972,24 @@ def main() -> int:
     del plan_c
     torch.cuda.empty_cache()
 
+    phase_hier_small()
+    phase_hier_general(kernels)
     phase_npb_small()
 
-    # the main path at full width
-    phase_main_path(kernels, "C")
+    # the main paths at full width: class C (single table), class D (hier)
+    phase_main_path_c(kernels)
+    plan_d = build_plan_d()
+    phase_hier_class_d(plan_d, kernels)
+    phase_main_path_d(kernels, plan_d)
 
-    for k in kernels.values():
+    names = ["routed_apply", "dfmulred"] + [
+        PASS_FNS[k][i] for i in (0, 1) for k in PASS_FNS]
+    for name in names:
+        k = kernels[name]
         if k["launches"] <= 0:
-            raise AssertionError(f"kernel {k['name']} was not launched on the main path")
+            raise AssertionError(f"kernel {name} was not launched on a driven path")
     emit({"phase": "total", "seconds": round(time.time() - t_start, 1)})
-    emit({"kernels": list(kernels.values())})
+    emit({"kernels": [kernels[name] for name in names]})
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})
@@ -441,4 +997,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv))

@@ -10,7 +10,8 @@ its Intel rig); values > 1 mean faster than that.
 
 The run uses df64 (double-word f32) arithmetic so the result is verified
 (zeta rel err <= 1e-10). LILAC_BENCH_CLASS forces one class instead of the
-ladder A, B, C; LILAC_BENCH_DTYPE / LILAC_BENCH_KERNEL override the value
+ladder A, B, C (class D, through the hierarchical plans, and class E run
+only when forced); LILAC_BENCH_DTYPE / LILAC_BENCH_KERNEL override the value
 policy and the operator; the ladder stops climbing once LILAC_BENCH_BUDGET_S
 seconds have passed. The process exits 1 when a df64 / f64 run fails
 verification and raises when no GPU is present.

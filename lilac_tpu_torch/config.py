@@ -47,6 +47,23 @@ KNOBS = (
          "= concentrate + interval-multicast shift phases (fewer stages; "
          "the broadcast phase folds away), 'benes' = Benes + "
          "run-broadcast schedule."),
+    Knob("hier_bl", "LILAC_HIER_BL", Optional[int], None,
+         "Hierarchical routed-network block length: the slots the inner "
+         "pass keeps resident in shared memory (power of two >= 128). None "
+         "= derived from the card's shared memory "
+         "(kernels/routed.py:default_hier_bl: 2^13 on an H100). The JAX "
+         "package's default, 2^16, fits a TPU's on-chip memory, not a "
+         "thread block's."),
+    Knob("hier_gmax", "LILAC_HIER_GMAX", Optional[int], None,
+         "Butterfly group exponent for hierarchical plans (None = 3, the "
+         "widest group the kernel takes: it holds nothing in shared "
+         "memory). Each butterfly pass costs about one mask byte per slot "
+         "whatever its stage count, so larger g = fewer passes = smaller "
+         "plans and fewer streams through device memory."),
+    Knob("hier_pack", "LILAC_HIER_PACK", bool, True,
+         "Pack hierarchical routed nets that share a pass schedule into "
+         "net-batched launches (one kernel launch per pass for the whole "
+         "group). Set 0 only to run the per-net appliers."),
     Knob("df_fused", "LILAC_DF_FUSED", bool, True,
          "Run the df64 multiply+row-sum glue of column-major routed plans "
          "as the fused CUDA kernel (kernels/dfmulred.py) instead of the "
@@ -58,12 +75,13 @@ KNOBS = (
     Knob("factored_segmode", "LILAC_FACTORED_SEGMODE", str, "auto",
          "Layout for the factored NPB operator: auto | routed | single "
          "(auto = routed when the plan's device is CUDA, single on CPU). "
-         "'scan' and 'mixed' are not ported yet."),
+         "Routed plans are single-table up to n = 2^18 and hierarchical "
+         "beyond. 'scan' and 'mixed' are not ported yet."),
     Knob("factored_vt", "LILAC_FACTORED_VT", str, "auto",
          "How the factored operator computes V^T u: 'plan' = stage a "
          "dedicated VT routed plan (two plans resident); 'adj' (run V's "
-         "network in reverse) is not ported yet. 'auto' = plan for "
-         "single-table classes."),
+         "network in reverse) is not ported yet. 'auto' = plan, for the "
+         "hierarchical classes too until the adjoint kernels are ported."),
     Knob("bench_budget_s", "LILAC_BENCH_BUDGET_S", float, 480.0,
          "bench_npb wall budget in seconds; the class ladder stops before "
          "exceeding it."),
@@ -80,6 +98,9 @@ KNOBS = (
 class Config:
     data_dir: Optional[str]
     net_mode: str
+    hier_bl: Optional[int]
+    hier_gmax: Optional[int]
+    hier_pack: bool
     df_fused: bool
     steps_per_dispatch: Optional[int]
     factored_segmode: str

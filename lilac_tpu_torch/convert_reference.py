@@ -13,7 +13,13 @@ import torch
 
 from lilac_tpu_torch.formats.sparse import SegBucketELL
 from lilac_tpu_torch.kernels.factored import FactoredNPB
-from lilac_tpu_torch.kernels.routed_spmv import RoutedMat
+from lilac_tpu_torch.kernels.routed_spmv import (
+    HierNet,
+    RoutedMat,
+    RoutedMatHier,
+    hier_to_device,
+    pack_hier,
+)
 from lilac_tpu_torch.ops.dfloat import DF
 
 
@@ -43,6 +49,40 @@ def routed_mat_from_arrays(
         m=int(m),
         colmajor=bool(colmajor),
     )
+
+
+def _detuple(x):
+    if isinstance(x, (list, tuple)):
+        return tuple(_detuple(v) for v in x)
+    return x.item() if isinstance(x, np.generic) else x
+
+
+def hier_mat_from_arrays(
+    nets_masks, nets_meta, vals, unperm_masks, unperm_meta, chunks, shape,
+    m, m_out, bl, n_nz, colmajor, device="cuda", pack=True,
+):
+    """A hierarchical plan from its per-net arrays, put on `device`.
+
+    nets_masks[i][j]: net i's pass j mask array (int8, the plan file's
+    layout); nets_meta[i]: its static pass descriptors; vals[i]: [m] or
+    [m, 2]; unperm_masks / unperm_meta: the un-permute network or None;
+    chunks[i] = ((slot0, rows_c, K), ...). pack: True = RoutedMatHierP
+    (pack_hier), False = RoutedMatHier net by net."""
+    def host(a):
+        return np.array(a, order="C")
+
+    def net(masks, meta):
+        return HierNet(pass_masks=tuple(host(mk) for mk in masks),
+                       pass_meta=_detuple(meta))
+
+    M = RoutedMatHier(
+        nets=tuple(net(mk, meta) for mk, meta in zip(nets_masks, nets_meta)),
+        vals=tuple(host(v) for v in vals),
+        unperm=None if unperm_meta is None else net(unperm_masks, unperm_meta),
+        chunks=_detuple(chunks), shape=tuple(int(v) for v in shape), m=int(m),
+        m_out=int(m_out), bl=int(bl), n_nz=int(n_nz), colmajor=bool(colmajor),
+    )
+    return pack_hier(M, device) if pack else hier_to_device(M, device)
 
 
 def seg_bucket_ell_from_arrays(

@@ -1,0 +1,518 @@
+// K3-K6: the four forward passes of a hierarchical gather network, for
+// Hopper (sm_90a). They replace the Pallas kernels of
+// lilac_tpu/kernels/routed.py:
+//   K3 routed_apply_sliced_b / routed_apply_sliced   (inner pass)
+//   K4 butterfly_apply_b     / butterfly_apply       (butterfly pass)
+//   K5 window_shift_apply_b  / window_shift_apply    (window pass)
+//   K6 bigshift_apply_b      / bigshift_apply        (block-aligned shift)
+// The un-batched functions are the same kernels at N = 1 net.
+//
+// A network of m = nblocks * bl slots is applied pass by pass. Every pass
+// reads N nets' planes (or one shared input plane for all N nets, net
+// stride 0) and writes N planes. A pass reads LOGICAL block b from physical
+// block phys(b), where phys is a permutation of the block-index bits
+// (`layout`: physical bit k holds logical bit layout[k]), because a
+// butterfly pass leaves its groups contiguous (group-major) instead of
+// moving them back. K3, K5 and K6 write natural order.
+//
+// The kernels only move words: they are instantiated on the word width (32
+// or 64 bit) and the plane count (one plane, or a df64 (hi, lo) pair routed
+// through identical switches), so results are bit-identical to the plain
+// PyTorch versions whatever the values are. Mask layouts are the plan
+// file's (see each kernel).
+//
+// Bound: bytes, for all four. A pass reads each slot's word(s) and its mask
+// byte(s) once and writes each word once. What the design does about it:
+//   K3 keeps one block of bl slots resident in shared memory and runs every
+//      stage of the pass there (25 stages at bl = 2^13 cost one read and
+//      one write of device memory, not 25), one thread per exchange pair,
+//      one barrier per stage, one mask plane of 8 stages resident at a time.
+//   K4 holds nothing on chip: a thread reads its offset's word from each of
+//      the 2^g member blocks, exchanges them in registers, writes them
+//      group-major.
+//   K5 needs no resident window. y[i] <- m_s[i] ? y[i - d_s] : y[i] over
+//      <= 8 stages composes into one gather: walking the stages backwards
+//      from output slot i through the mask bits gives the slot the value
+//      came from. Only the 2*bl mask bytes are staged in shared memory.
+//   K6 is one select between two blocks.
+// Shared memory therefore bounds bl through K3 alone:
+// nplanes * bl * wordsize + bl bytes (see kernels/routed.py).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+struct Layout {
+  int nbits;
+  unsigned char src[32];  // physical bit k <- logical bit src[k]
+};
+
+__device__ __forceinline__ long long phys_block(long long b, const Layout& l) {
+  long long out = 0;
+  for (int k = 0; k < l.nbits; ++k) {
+    out |= ((b >> l.src[k]) & 1ll) << k;
+  }
+  return out;
+}
+
+template <typename T>
+struct alignas(sizeof(T) * 4) Quad {
+  T v[4];
+};
+
+// ---------------------------------------------------------------- K3 inner
+
+struct Stages {
+  int n;
+  unsigned char lg[64];  // log2 of each xor distance
+};
+
+// grid (nblocks, N). masks [N, nblocks, P, bl] bytes: bit s%8 of plane s/8
+// is stage s's switch. Shared memory: NP * bl words, then bl mask bytes.
+template <typename T, int NP>
+__global__ void hier_inner_kernel(const T* __restrict__ s0,
+                                  const T* __restrict__ s1, long long sstride,
+                                  T* __restrict__ d0, T* __restrict__ d1,
+                                  long long m, int bl,
+                                  const uint8_t* __restrict__ masks, int P,
+                                  Stages st, Layout lay) {
+  extern __shared__ __align__(32) unsigned char smem_raw[];
+  T* y = reinterpret_cast<T*>(smem_raw);
+  uint8_t* mk = smem_raw + static_cast<size_t>(NP) * bl * sizeof(T);
+
+  const long long b = blockIdx.x;
+  const long long n = blockIdx.y;
+  const long long nblocks = gridDim.x;
+  const long long src_off = n * sstride + phys_block(b, lay) * bl;
+  const T* srcs[2] = {s0, s1};
+  T* dsts[2] = {d0, d1};
+
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    for (int i = threadIdx.x * 4; i < bl; i += blockDim.x * 4) {
+      *reinterpret_cast<Quad<T>*>(y + p * bl + i) =
+          *reinterpret_cast<const Quad<T>*>(srcs[p] + src_off + i);
+    }
+  }
+  const uint8_t* mbase = masks + (n * nblocks + b) * P * bl;
+  for (int s = 0; s < st.n; ++s) {
+    const int bit = s & 7;
+    if (bit == 0) {
+      // the barrier that ended the previous stage also ended its mask reads
+      const uint32_t* g =
+          reinterpret_cast<const uint32_t*>(mbase + static_cast<long long>(s >> 3) * bl);
+      uint32_t* w = reinterpret_cast<uint32_t*>(mk);
+      for (int i = threadIdx.x; i < bl / 4; i += blockDim.x) w[i] = g[i];
+      __syncthreads();
+    }
+    const int lg = st.lg[s];
+    const int d = 1 << lg;
+    for (int j = threadIdx.x; j < bl / 2; j += blockDim.x) {
+      const int i = ((j >> lg) << (lg + 1)) | (j & (d - 1));
+      const int q = i | d;
+      const bool mi = (mk[i] >> bit) & 1;
+      const bool mq = (mk[q] >> bit) & 1;
+      if (mi | mq) {
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          const T a = y[p * bl + i];
+          const T c = y[p * bl + q];
+          y[p * bl + i] = mi ? c : a;
+          y[p * bl + q] = mq ? a : c;
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (st.n == 0) __syncthreads();
+  const long long dst_off = n * m + b * bl;
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    for (int i = threadIdx.x * 4; i < bl; i += blockDim.x * 4) {
+      *reinterpret_cast<Quad<T>*>(dsts[p] + dst_off + i) =
+          *reinterpret_cast<const Quad<T>*>(y + p * bl + i);
+    }
+  }
+}
+
+// ------------------------------------------------------------ K4 butterfly
+
+struct BflyMap {
+  int nrest;                  // block bits outside the pass
+  unsigned char gid_pos[32];  // physical bit position of group-index bit i
+  int mem_phys[8];            // physical block bits set by member s
+};
+
+// grid (ceil(bl / (4 * threads)), ngroups, N). masks [N, ngroups, G, bl]
+// bytes, member-major: bit k of member s's byte is stage k's switch.
+template <typename T, int NP, int LG>
+__global__ void hier_butterfly_kernel(const T* __restrict__ s0,
+                                      const T* __restrict__ s1,
+                                      long long sstride, T* __restrict__ d0,
+                                      T* __restrict__ d1, long long m, int bl,
+                                      const uint8_t* __restrict__ masks,
+                                      BflyMap map) {
+  constexpr int G = 1 << LG;
+  const int off = (blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (off >= bl) return;
+  const long long gid = blockIdx.y;
+  const long long n = blockIdx.z;
+  const long long ngroups = gridDim.y;
+  long long pg = 0;
+  for (int i = 0; i < map.nrest; ++i) {
+    pg |= ((gid >> i) & 1ll) << map.gid_pos[i];
+  }
+  const T* srcs[2] = {s0, s1};
+  T* dsts[2] = {d0, d1};
+  Quad<T> cur[NP][G];
+  uint32_t mw[G];
+  const uint8_t* mbase = masks + (n * ngroups + gid) * G * bl + off;
+#pragma unroll
+  for (int s = 0; s < G; ++s) {
+    mw[s] = *reinterpret_cast<const uint32_t*>(mbase + static_cast<long long>(s) * bl);
+    const long long src = n * sstride + (pg | map.mem_phys[s]) * bl + off;
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      cur[p][s] = *reinterpret_cast<const Quad<T>*>(srcs[p] + src);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < LG; ++k) {
+#pragma unroll
+    for (int s = 0; s < G; ++s) {
+      if (s & (1 << k)) continue;
+      const int t = s | (1 << k);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool ms = (mw[s] >> (8 * j + k)) & 1u;
+        const bool mt = (mw[t] >> (8 * j + k)) & 1u;
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          const T a = cur[p][s].v[j];
+          const T c = cur[p][t].v[j];
+          cur[p][s].v[j] = ms ? c : a;
+          cur[p][t].v[j] = mt ? a : c;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int s = 0; s < G; ++s) {
+    const long long dst = n * m + (gid * G + s) * bl + off;
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      *reinterpret_cast<Quad<T>*>(dsts[p] + dst) = cur[p][s];
+    }
+  }
+}
+
+// --------------------------------------------------------------- K5 window
+
+struct Shifts {
+  int n;
+  int d[8];
+};
+
+// grid (nblocks, N). masks [N, nblocks, 2 * bl] bytes: the first bl are the
+// left neighbour's switches (zero for block 0), bit s is stage s. Shared
+// memory: the 2 * bl mask bytes.
+template <typename T, int NP>
+__global__ void hier_window_kernel(const T* __restrict__ s0,
+                                   const T* __restrict__ s1, long long sstride,
+                                   T* __restrict__ d0, T* __restrict__ d1,
+                                   long long m, int bl,
+                                   const uint8_t* __restrict__ masks,
+                                   Shifts sh, Layout lay) {
+  extern __shared__ __align__(32) unsigned char smem_raw[];
+  uint8_t* mk = smem_raw;
+  const long long b = blockIdx.x;
+  const long long n = blockIdx.y;
+  const long long nblocks = gridDim.x;
+  {
+    const uint32_t* g =
+        reinterpret_cast<const uint32_t*>(masks + (n * nblocks + b) * 2 * bl);
+    uint32_t* w = reinterpret_cast<uint32_t*>(mk);
+    for (int i = threadIdx.x; i < bl / 2; i += blockDim.x) w[i] = g[i];
+  }
+  __syncthreads();
+  // block 0's left neighbour is block nblocks - 1 (its switches are zero,
+  // but a switch of block 0 itself may still reach across)
+  const long long left = n * sstride + phys_block((b + nblocks - 1) % nblocks, lay) * bl;
+  const long long self = n * sstride + phys_block(b, lay) * bl;
+  const long long dst = n * m + b * bl;
+  const T* srcs[2] = {s0, s1};
+  T* dsts[2] = {d0, d1};
+  for (int i = threadIdx.x; i < bl; i += blockDim.x) {
+    int w = bl + i;  // position in the (left, self) window
+    for (int s = sh.n - 1; s >= 0; --s) {
+      if ((mk[w] >> s) & 1) w -= sh.d[s];  // sum(d) < bl keeps w > 0
+    }
+    const long long src = (w >= bl) ? self + (w - bl) : left + w;
+#pragma unroll
+    for (int p = 0; p < NP; ++p) dsts[p][dst + i] = srcs[p][src];
+  }
+}
+
+// ------------------------------------------------------------- K6 bigshift
+
+// grid (ceil(bl / (4 * threads)), nblocks, N). masks [N, nblocks, bl]
+// bytes, non-zero = take the word of logical block b - db.
+template <typename T, int NP>
+__global__ void hier_bigshift_kernel(const T* __restrict__ s0,
+                                     const T* __restrict__ s1,
+                                     long long sstride, T* __restrict__ d0,
+                                     T* __restrict__ d1, long long m, int bl,
+                                     const uint8_t* __restrict__ masks,
+                                     long long db, Layout lay) {
+  const int off = (blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (off >= bl) return;
+  const long long b = blockIdx.y;
+  const long long n = blockIdx.z;
+  const long long nblocks = gridDim.y;
+  const long long far = n * sstride + phys_block((b + nblocks - db) % nblocks, lay) * bl + off;
+  const long long self = n * sstride + phys_block(b, lay) * bl + off;
+  const long long dst = n * m + b * bl + off;
+  const uint32_t mw =
+      *reinterpret_cast<const uint32_t*>(masks + (n * nblocks + b) * bl + off);
+  const T* srcs[2] = {s0, s1};
+  T* dsts[2] = {d0, d1};
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    Quad<T> q = *reinterpret_cast<const Quad<T>*>(srcs[p] + self);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if ((mw >> (8 * j)) & 0xffu) q.v[j] = srcs[p][far + j];
+    }
+    *reinterpret_cast<Quad<T>*>(dsts[p] + dst) = q;
+  }
+}
+
+// ------------------------------------------------------------- launchers
+
+bool fill_layout(Layout* lay, int nbits, const unsigned char* src) {
+  if (nbits < 0 || nbits > 32) return false;
+  lay->nbits = nbits;
+  for (int k = 0; k < 32; ++k) lay->src[k] = k < nbits ? src[k] : 0;
+  return true;
+}
+
+// raises a kernel's dynamic shared memory limit (48 KB unless asked) once
+// per device and size it has seen
+struct SmemAllowed {
+  size_t bytes[64] = {};
+};
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes, SmemAllowed* allowed) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  size_t* seen = &allowed->bytes[dev & 63];
+  if (bytes <= *seen) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+  if (err == cudaSuccess) *seen = bytes;
+  return err;
+}
+
+int block_threads(int work) {
+  int t = 1024;
+  while (t > 32 && t > work) t >>= 1;
+  return t;
+}
+
+template <typename T, int NP>
+cudaError_t launch_inner(const void* s0, const void* s1, long long sstride,
+                         void* d0, void* d1, long long m, int N, int bl,
+                         const void* masks, int P, const Stages& st,
+                         const Layout& lay, cudaStream_t stream) {
+  static SmemAllowed allowed;
+  const size_t smem = static_cast<size_t>(NP) * bl * sizeof(T) + bl;
+  cudaError_t err = allow_smem(hier_inner_kernel<T, NP>, smem, &allowed);
+  if (err != cudaSuccess) return err;
+  dim3 grid(static_cast<unsigned>(m / bl), static_cast<unsigned>(N));
+  hier_inner_kernel<T, NP><<<grid, block_threads(bl / 2), smem, stream>>>(
+      static_cast<const T*>(s0), static_cast<const T*>(s1), sstride,
+      static_cast<T*>(d0), static_cast<T*>(d1), m, bl,
+      static_cast<const uint8_t*>(masks), P, st, lay);
+  return cudaGetLastError();
+}
+
+template <typename T, int NP, int LG>
+cudaError_t launch_butterfly_g(const void* s0, const void* s1,
+                               long long sstride, void* d0, void* d1,
+                               long long m, int N, int bl, const void* masks,
+                               const BflyMap& map, cudaStream_t stream) {
+  const int threads = block_threads(bl / 4) > 256 ? 256 : block_threads(bl / 4);
+  dim3 grid(static_cast<unsigned>((bl / 4 + threads - 1) / threads),
+            static_cast<unsigned>((m / bl) >> LG), static_cast<unsigned>(N));
+  hier_butterfly_kernel<T, NP, LG><<<grid, threads, 0, stream>>>(
+      static_cast<const T*>(s0), static_cast<const T*>(s1), sstride,
+      static_cast<T*>(d0), static_cast<T*>(d1), m, bl,
+      static_cast<const uint8_t*>(masks), map);
+  return cudaGetLastError();
+}
+
+template <typename T, int NP>
+cudaError_t launch_butterfly(int g, const void* s0, const void* s1,
+                             long long sstride, void* d0, void* d1,
+                             long long m, int N, int bl, const void* masks,
+                             const BflyMap& map, cudaStream_t stream) {
+  if (g == 1) {
+    return launch_butterfly_g<T, NP, 1>(s0, s1, sstride, d0, d1, m, N, bl, masks, map, stream);
+  }
+  if (g == 2) {
+    return launch_butterfly_g<T, NP, 2>(s0, s1, sstride, d0, d1, m, N, bl, masks, map, stream);
+  }
+  return launch_butterfly_g<T, NP, 3>(s0, s1, sstride, d0, d1, m, N, bl, masks, map, stream);
+}
+
+template <typename T, int NP>
+cudaError_t launch_window(const void* s0, const void* s1, long long sstride,
+                          void* d0, void* d1, long long m, int N, int bl,
+                          const void* masks, const Shifts& sh,
+                          const Layout& lay, cudaStream_t stream) {
+  static SmemAllowed allowed;
+  const size_t smem = 2 * static_cast<size_t>(bl);
+  cudaError_t err = allow_smem(hier_window_kernel<T, NP>, smem, &allowed);
+  if (err != cudaSuccess) return err;
+  dim3 grid(static_cast<unsigned>(m / bl), static_cast<unsigned>(N));
+  hier_window_kernel<T, NP><<<grid, block_threads(bl), smem, stream>>>(
+      static_cast<const T*>(s0), static_cast<const T*>(s1), sstride,
+      static_cast<T*>(d0), static_cast<T*>(d1), m, bl,
+      static_cast<const uint8_t*>(masks), sh, lay);
+  return cudaGetLastError();
+}
+
+template <typename T, int NP>
+cudaError_t launch_bigshift(const void* s0, const void* s1, long long sstride,
+                            void* d0, void* d1, long long m, int N, int bl,
+                            const void* masks, long long db,
+                            const Layout& lay, cudaStream_t stream) {
+  const int threads = block_threads(bl / 4) > 256 ? 256 : block_threads(bl / 4);
+  dim3 grid(static_cast<unsigned>((bl / 4 + threads - 1) / threads),
+            static_cast<unsigned>(m / bl), static_cast<unsigned>(N));
+  hier_bigshift_kernel<T, NP><<<grid, threads, 0, stream>>>(
+      static_cast<const T*>(s0), static_cast<const T*>(s1), sstride,
+      static_cast<T*>(d0), static_cast<T*>(d1), m, bl,
+      static_cast<const uint8_t*>(masks), db, lay);
+  return cudaGetLastError();
+}
+
+// bl a power of two >= 128, m a power-of-two multiple of bl; blocks, groups
+// and nets go into grid.y / grid.z (at most 65535 each; K3 and K5 could
+// take more blocks, the limit is kept common); one or two planes of 4- or
+// 8-byte words
+bool shape_ok(long long m, int N, int bl, int nplanes, int esize) {
+  if (bl < 128 || (bl & (bl - 1)) != 0 || m < bl || (m & (m - 1)) != 0) return false;
+  if (m / bl > 65535 || N < 1 || N > 65535) return false;
+  return (nplanes == 1 || nplanes == 2) && (esize == 4 || esize == 8);
+}
+
+}  // namespace
+
+#define LILAC_DISPATCH(FN, ...)                                               \
+  (esize == 4 ? (nplanes == 1 ? FN<uint32_t, 1>(__VA_ARGS__)                  \
+                              : FN<uint32_t, 2>(__VA_ARGS__))                 \
+              : (nplanes == 1 ? FN<unsigned long long, 1>(__VA_ARGS__)        \
+                              : FN<unsigned long long, 2>(__VA_ARGS__)))
+
+// Common arguments: s0/s1 input planes (s1 unused when nplanes == 1) with
+// `sstride` words between nets (0: one shared plane for all nets), d0/d1
+// output planes [N, m], esize 4 or 8 bytes a word, masks in the layout each
+// kernel states, layout[nbits] the block-bit permutation of the input.
+// Every function returns the cudaError_t of its launch.
+
+extern "C" int lilac_hier_inner(const void* s0, const void* s1, int nplanes,
+                                int esize, long long sstride, void* d0,
+                                void* d1, long long m, int N, int bl,
+                                const void* masks, int P, int S,
+                                const unsigned char* lg, int nbits,
+                                const unsigned char* layout, void* stream) {
+  Stages st;
+  Layout lay;
+  if (!shape_ok(m, N, bl, nplanes, esize) || S < 0 || S > 64 ||
+      (S > 0 && P != (S + 7) / 8) || !fill_layout(&lay, nbits, layout)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  st.n = S;
+  for (int s = 0; s < 64; ++s) {
+    st.lg[s] = s < S ? lg[s] : 0;
+    if (s < S && (1 << lg[s]) >= bl) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(LILAC_DISPATCH(launch_inner, s0, s1, sstride, d0, d1,
+                                         m, N, bl, masks, P, st, lay, cs));
+}
+
+// gid_pos[nrest]: physical bit position of each group-index bit;
+// mem_phys[2^g]: physical block bits of each member.
+extern "C" int lilac_hier_butterfly(const void* s0, const void* s1, int nplanes,
+                                    int esize, long long sstride, void* d0,
+                                    void* d1, long long m, int N, int bl,
+                                    const void* masks, int g, int nrest,
+                                    const unsigned char* gid_pos,
+                                    const int* mem_phys, void* stream) {
+  if (!shape_ok(m, N, bl, nplanes, esize) || g < 1 || g > 3 || nrest < 0 ||
+      nrest > 32 || (m / bl) >> g < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  BflyMap map;
+  map.nrest = nrest;
+  for (int i = 0; i < 32; ++i) map.gid_pos[i] = i < nrest ? gid_pos[i] : 0;
+  for (int s = 0; s < 8; ++s) map.mem_phys[s] = s < (1 << g) ? mem_phys[s] : 0;
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(LILAC_DISPATCH(launch_butterfly, g, s0, s1, sstride,
+                                         d0, d1, m, N, bl, masks, map, cs));
+}
+
+extern "C" int lilac_hier_window(const void* s0, const void* s1, int nplanes,
+                                 int esize, long long sstride, void* d0,
+                                 void* d1, long long m, int N, int bl,
+                                 const void* masks, int S, const int* dists,
+                                 int nbits, const unsigned char* layout,
+                                 void* stream) {
+  Shifts sh;
+  Layout lay;
+  if (!shape_ok(m, N, bl, nplanes, esize) || S < 0 || S > 8 ||
+      !fill_layout(&lay, nbits, layout)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  long long total = 0;
+  sh.n = S;
+  for (int s = 0; s < 8; ++s) {
+    sh.d[s] = s < S ? dists[s] : 0;
+    if (s < S && dists[s] < 1) return static_cast<int>(cudaErrorInvalidValue);
+    total += sh.d[s];
+  }
+  if (total >= bl) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(LILAC_DISPATCH(launch_window, s0, s1, sstride, d0, d1,
+                                         m, N, bl, masks, sh, lay, cs));
+}
+
+extern "C" int lilac_hier_bigshift(const void* s0, const void* s1, int nplanes,
+                                   int esize, long long sstride, void* d0,
+                                   void* d1, long long m, int N, int bl,
+                                   const void* masks, long long db, int nbits,
+                                   const unsigned char* layout, void* stream) {
+  Layout lay;
+  if (!shape_ok(m, N, bl, nplanes, esize) || db < 0 || db >= m / bl ||
+      !fill_layout(&lay, nbits, layout)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(LILAC_DISPATCH(launch_bigshift, s0, s1, sstride, d0,
+                                         d1, m, N, bl, masks, db, lay, cs));
+}
+
+// The current device's opt-in limit of dynamic shared memory per block.
+extern "C" int lilac_hier_smem_optin(int* bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaDeviceGetAttribute(
+      bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev));
+}

@@ -26,7 +26,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(os.path.dirname(_PKG), "build", "lilac_tpu_torch")
 
-SOURCES = ("routed", "dfmulred")
+SOURCES = ("routed", "dfmulred", "hier")
 
 # --fmad=false: no contraction of a*b+c into FMA anywhere (the df64 kernel's
 # error-free transformations need every step rounded on its own; the source

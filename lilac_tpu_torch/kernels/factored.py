@@ -12,16 +12,18 @@ elements than the assembled form.
 
 Two layouts are ported:
 
-* ``routed``: V and V^T as single-table routed plans (kernels/routed_spmv.py,
-  the hand-written CUDA kernels). Serves n <= 2^18, NPB classes S to C.
+* ``routed``: V and V^T as routed plans (kernels/routed_spmv.py, the
+  hand-written CUDA kernels): single-table for n <= 2^18 (NPB classes S to
+  C), hierarchical beyond (classes D and E), each with a dedicated forward
+  plan for V^T (``factored_vt=plan``).
 * ``single``: V and V^T as single-segment SegBucketELL through plain torch
   indexing (kernels/gather.py). No hand kernel: the independent operator
   the routed one is held against.
 
 ``auto`` is ``routed`` when the plan's device is CUDA and ``single`` on
-the CPU. The reference's ``scan`` and ``mixed`` layouts, its hierarchical
-plans (n > 2^18) and ``factored_vt=adj`` raise NotImplementedError until
-their kernels are ported.
+the CPU. The reference's ``scan`` and ``mixed`` layouts and
+``factored_vt=adj`` raise NotImplementedError until their kernels are
+ported.
 
 Exactly the same matrix: summation order differs from the assembled CSR
 by O(eps), far inside the zeta tolerance of 1e-10. Supports the f32 / f64
@@ -39,7 +41,25 @@ import numpy as np
 import torch
 
 from lilac_tpu_torch.formats.sparse import SegBucketELL
-from lilac_tpu_torch.kernels.routed_spmv import RoutedMat
+from lilac_tpu_torch.kernels.gather import (
+    seg_bucket_ell_spmv,
+    seg_bucket_ell_spmv_df,
+)
+from lilac_tpu_torch.kernels.routed_spmv import (
+    RoutedMat,
+    RoutedMatHier,
+    RoutedMatHierP,
+    hier_bl_cfg,
+    build_routed_csr,
+    build_routed_csr_hier,
+    load_routed,
+    maybe_pack_hier,
+    routed_hier_spmv,
+    routed_hier_spmv_df,
+    routed_spmv,
+    routed_spmv_df,
+    save_routed,
+)
 from lilac_tpu_torch.ops import dfloat as df
 
 SINGLE_TABLE_MAX = 1 << 18  # largest n the reference serves with one table
@@ -52,8 +72,9 @@ _LOAD_ERRORS = (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile)
 class FactoredNPB:
     """Device containers for the factored operator."""
 
-    V: Union[RoutedMat, SegBucketELL]  # [n x n] sparse with rows a_i
-    VT: Union[RoutedMat, SegBucketELL]  # transpose
+    # [n x n] sparse with rows a_i, and its transpose
+    V: Union[RoutedMat, RoutedMatHier, RoutedMatHierP, SegBucketELL]
+    VT: Union[RoutedMat, RoutedMatHier, RoutedMatHierP, SegBucketELL]
     s: torch.Tensor  # [n] outer-product weights (f32/f64 or [n, 2] df)
     d0: torch.Tensor  # scalar diagonal shift rcond - shift (or [2] df)
 
@@ -73,25 +94,23 @@ def _resolve_modes(conf, n: int, device) -> str:
     if mode in ("scan", "mixed"):
         raise NotImplementedError(
             f"factored_segmode={mode!r} is not ported: 'scan' needs the "
-            "SegELLScan gather layout and 'mixed' the hierarchical plans "
-            "(kernels routed_apply_sliced_b, butterfly_apply_b, "
-            "window_shift_apply_b, bigshift_apply_b)"
+            "SegELLScan gather layout and 'mixed' the jagged-diagonal "
+            "gather layout (JagELLT) beside a hierarchical plan"
         )
     if mode not in ("routed", "single"):
         raise ValueError(f"unknown factored_segmode {mode!r}")
     vt_mode = conf.factored_vt
     if vt_mode == "auto":
-        vt_mode = "adj" if mode == "routed" and n > SINGLE_TABLE_MAX else "plan"
-    if mode == "routed" and n > SINGLE_TABLE_MAX:
-        raise NotImplementedError(
-            f"n={n} > 2^18 needs the hierarchical routed plans, which are "
-            "not ported (kernels routed_apply_sliced_b, butterfly_apply_b, "
-            "window_shift_apply_b, bigshift_apply_b and their adjoints)"
-        )
+        # The reference picks 'adj' for n > 2^18 (one hier plan serves both
+        # directions, half the plan bytes). Until the adjoint kernels are
+        # ported, auto stays 'plan' there too: two forward hier plans.
+        vt_mode = "plan"
     if vt_mode == "adj":
         raise NotImplementedError(
             "factored_vt='adj' is not ported: it runs V's network in reverse "
-            "through the adjoint kernel routed_apply_t"
+            "through the adjoint kernels (routed_apply_t for a single table; "
+            "routed_apply_sliced_bt, butterfly_apply_bt, window_shift_apply_bt "
+            "and bigshift_apply_bt for a hierarchical plan)"
         )
     if vt_mode != "plan":
         raise ValueError(f"unknown factored_vt {vt_mode!r}")
@@ -99,13 +118,12 @@ def _resolve_modes(conf, n: int, device) -> str:
 
 
 def _load_plans(paths, device):
-    """Both plan files as RoutedMats, or None when either is missing,
-    unreadable, of another cache version or in the old row-major layout.
-    Only errors of reading the files are caught here."""
+    """Both plan files as RoutedMats (or host-staged RoutedMatHiers), or
+    None when either is missing, unreadable, of another cache version, in
+    the old row-major layout or infeasible on this device. Only errors of
+    reading the files are caught here."""
     if not all(os.path.exists(p) for p in paths):
         return None
-    from lilac_tpu_torch.kernels.routed_spmv import load_routed
-
     try:
         V, VT = (load_routed(p, device=device) for p in paths)
     except _LOAD_ERRORS:
@@ -113,6 +131,13 @@ def _load_plans(paths, device):
     if V is None or VT is None or not V.colmajor:
         return None
     return V, VT
+
+
+def _build_hier_plan(path, indptr, indices, vals, n, dtype, device):
+    M = build_routed_csr_hier(
+        indptr, indices, vals, (n, n), dtype=dtype, bl=hier_bl_cfg(), verbose=True)
+    save_routed(path, M)
+    return maybe_pack_hier(M, device)
 
 
 def build_factored(
@@ -142,8 +167,15 @@ def build_factored(
         cache_dir = conf.resolved_data_dir()
         os.makedirs(cache_dir, exist_ok=True)
         # the reference's cache schema v2 names; single-table plans carry
-        # the net-mode tag (monotone schedules differ from Benes)
-        tag = "_m" if conf.net_mode == "monotone" else ""
+        # the net-mode tag (monotone schedules differ from Benes). Hier
+        # plans always build Benes and ALWAYS carry their (bl, gmax) tag:
+        # the port's default block length differs from the reference's, so
+        # an untagged name would alias a plan of another geometry.
+        if n <= SINGLE_TABLE_MAX:
+            tag = "_m" if conf.net_mode == "monotone" else ""
+        else:
+            g = conf.hier_gmax if conf.hier_gmax is not None else "a"
+            tag = f"_bl{hier_bl_cfg()}g{g}"
         paths = [
             os.path.join(cache_dir, f"routed2_{cls.name}_{dtype}_{t}{tag}.npz")
             for t in ("V", "VT")
@@ -161,7 +193,7 @@ def build_factored(
             except _LOAD_ERRORS:
                 plans = None
             if plans is not None:
-                V, VT = plans
+                V, VT = (maybe_pack_hier(p, device) for p in plans)
                 return FactoredNPB(V=V, VT=VT, s=to_dev(s_meta), d0=d0), nnz_meta
 
     nzv_arr, ivc, vc = _generate_triples(cls)
@@ -193,16 +225,23 @@ def build_factored(
     t_ip, t_ix, t_v = coo_to_csr_arrays(pos_j, rows_i, vc, (n, n), sum_duplicates=False)
 
     if mode == "routed":
-        from lilac_tpu_torch.kernels.routed_spmv import build_routed_csr, save_routed
-
         plans = _load_plans(paths, device)
-        if plans is None:
+        if plans is not None:
+            V, VT = (maybe_pack_hier(p, device) for p in plans)
+        elif n <= SINGLE_TABLE_MAX:
             V = build_routed_csr(v_ip, v_ix, v_v, (n, n), dtype=dtype, device=device)
             VT = build_routed_csr(t_ip, t_ix, t_v, (n, n), dtype=dtype, device=device)
             save_routed(paths[0], V)
             save_routed(paths[1], VT)
         else:
-            V, VT = plans
+            # beyond one table: hierarchical networks, one plan a direction.
+            # Each is built and saved on the host, then uploaded (packed)
+            # and its host copy dropped before the next one is built.
+            V, VT = (
+                _build_hier_plan(path, ip, ix, vv, n, dtype, device)
+                for path, (ip, ix, vv) in zip(
+                    paths, ((v_ip, v_ix, v_v), (t_ip, t_ix, t_v)))
+            )
     else:
         V = csr_to_seg_bucket_ell(
             v_ip, v_ix, to_vals(v_v, dtype), (n, n), seg_size=n, device=device
@@ -230,20 +269,18 @@ def build_factored(
 
 
 def _spmv_any(A, x):
-    from lilac_tpu_torch.kernels.gather import seg_bucket_ell_spmv
-    from lilac_tpu_torch.kernels.routed_spmv import routed_spmv
-
     if isinstance(A, RoutedMat):
         return routed_spmv(A, x)
+    if isinstance(A, (RoutedMatHier, RoutedMatHierP)):
+        return routed_hier_spmv(A, x)
     return seg_bucket_ell_spmv(A, x)
 
 
 def _spmv_any_df(A, x):
-    from lilac_tpu_torch.kernels.gather import seg_bucket_ell_spmv_df
-    from lilac_tpu_torch.kernels.routed_spmv import routed_spmv_df
-
     if isinstance(A, RoutedMat):
         return routed_spmv_df(A, x)
+    if isinstance(A, (RoutedMatHier, RoutedMatHierP)):
+        return routed_hier_spmv_df(A, x)
     return seg_bucket_ell_spmv_df(A, x)
 
 

@@ -1,8 +1,11 @@
 """Device applier for plan-time gather routing networks.
 
 Counterpart of lilac_tpu/kernels/routed.py for the single-table network
-(`routed_apply`, kernel K1, and `masks_device`). The hierarchical appliers
-and the adjoint of that module are not ported yet.
+(`routed_apply`, kernel K1, and `masks_device`) and for the forward
+hierarchical networks (second half of this file: `compile_hier`, the four
+pass appliers K3-K6 with their un-batched twins, `hier_apply` and
+`hier_apply_batched`). The adjoint appliers of that module are not ported
+yet.
 
 Stage primitive (same semantics as routenet.GatherPlanHost.apply_host):
     xor    d: y[i] <- mask[i] ? y[i ^ d] : y[i]
@@ -11,7 +14,8 @@ Stage primitive (same semantics as routenet.GatherPlanHost.apply_host):
 
 `routed_apply` launches the CUDA kernel of csrc/routed.cu for tensors on
 the card and takes `routed_apply_plain` only for tensors that lie on the
-CPU. Both only move values, so they agree bit for bit.
+CPU. Both only move values, so they agree bit for bit. The same holds for
+each hierarchical applier and its `*_plain` version (csrc/hier.cu).
 """
 
 from __future__ import annotations
@@ -204,3 +208,774 @@ def routed_apply(
 # wrapper calls that launched the kernel / CUDA grids those calls launched
 routed_apply.launches = 0
 routed_apply.stage_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Hierarchical networks (m beyond one resident table).
+#
+# A stage schedule over m = nblocks * bl slots is cut into passes by stage
+# distance d against the block length bl:
+#
+#   xor,   d <  bl -> inner pass (K3): all consecutive block-local stages of
+#                     one block run in shared memory
+#   xor,   d >= bl -> butterfly pass (K4): g <= gmax stages at distances
+#                     bl * 2^bit exchange whole blocks elementwise inside
+#                     groups of 2^g blocks
+#   shift, d <  bl -> window pass (K5): <= 8 shift stages with sum(d) < bl
+#                     over the window (block b - 1, block b)
+#   shift, d >= bl -> bigshift pass (K6): one block-aligned shift
+#
+# A butterfly pass writes each group's 2^g member blocks contiguously
+# (group-major), so the physical block order leaves the pass scrambled; the
+# next pass reads logical block b at physical block _phys_expr(b, layout).
+# `layout` is a permutation of the block-index bits: physical bit k holds
+# logical bit layout[k]; None is the identity. Inner, window and bigshift
+# passes write natural order.
+#
+# Mask layouts are the plan file's and the JAX package's, per pass:
+#   inner     [nblocks, P, R, 128] int8, bit s%8 of plane s//8 = stage s
+#   butterfly [ngroups, G*R, 128]  int8, bit k = stage k, member-major rows
+#   window    [nblocks, 2R, 128]   int8, bit s = stage s, rows [0, R) the
+#                                  left neighbour's switches (0 for block 0)
+#   bigshift  [nblocks, R, 128]    int8, 0 / 1
+# with R = bl // 128. The net-batched appliers (`*_b`) take the same arrays
+# stacked on a leading net axis N and planes shared by all nets
+# ([mrows, 128]) or per net ([N, mrows, 128]); they return [N, mrows, 128].
+# The un-batched appliers are the same kernels at N = 1.
+# ---------------------------------------------------------------------------
+
+# Dynamic shared memory one thread block of an H100 may ask for (227 KB of
+# the SM's 256 KB). Taken for plans staged on the CPU; on a card the limit is
+# read from the device (smem_optin_bytes).
+HOPPER_SMEM_OPTIN = 232448
+
+_smem_limits: dict = {}
+
+
+def _identity_bitmap(nbits: int) -> Tuple[int, ...]:
+    return tuple(range(nbits))
+
+
+def _phys_expr(idx, bitmap):
+    """Physical block index of logical block `idx` (int, numpy or tensor)
+    under a block bit-permutation: physical bit k holds logical bit
+    bitmap[k]."""
+    out = 0
+    for k, srcbit in enumerate(bitmap):
+        out = out + ((idx >> srcbit) & 1) * (1 << k)
+    return out
+
+
+def _nbits(nblocks: int) -> int:
+    if nblocks < 1 or nblocks & (nblocks - 1):
+        raise ValueError(f"block count {nblocks} must be a power of two")
+    return nblocks.bit_length() - 1
+
+
+def _norm_layout(layout, nblocks: int) -> Tuple[int, ...]:
+    nbits = _nbits(nblocks)
+    if layout is None:
+        return _identity_bitmap(nbits)
+    layout = tuple(int(b) for b in layout)
+    if sorted(layout) != list(range(nbits)):
+        raise ValueError(
+            f"layout {layout} is not a permutation of {nbits} block bits")
+    return layout
+
+
+def _phys_index(nblocks: int, layout, device) -> torch.Tensor:
+    """[nblocks] int64: physical block of each logical block."""
+    table = _phys_expr(np.arange(nblocks, dtype=np.int64),
+                       _norm_layout(layout, nblocks))
+    table = np.array(np.broadcast_to(table, (nblocks,)), dtype=np.int64)
+    return torch.as_tensor(table, device=device)
+
+
+def smem_optin_bytes(device="cuda") -> int:
+    """Dynamic shared memory a block may opt in to on `device`: asked of the
+    card (cudaDevAttrMaxSharedMemoryPerBlockOptin), HOPPER_SMEM_OPTIN for
+    the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return HOPPER_SMEM_OPTIN
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _smem_limits:
+        out = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            _cuda.check(_hier_lib().lilac_hier_smem_optin(ctypes.byref(out)),
+                        "smem_optin_bytes")
+        _smem_limits[index] = int(out.value)
+    return _smem_limits[index]
+
+
+def default_hier_bl(limit: int = HOPPER_SMEM_OPTIN) -> int:
+    """Block length of hierarchical plans when LILAC_HIER_BL is unset.
+
+    Only the inner pass (K3) keeps slots on chip: a block of bl slots at 8
+    bytes a slot (a df64 (hi, lo) pair or one f64 word, the widest the NPB
+    path routes) plus one resident mask plane of bl bytes, 9 * bl bytes.
+    The default is the largest power of two of which TWO such blocks fit
+    the opt-in limit, so that one block's barriers are covered by the
+    other's work: 2 * 9 * bl <= 232448 gives bl = 2^13 on an H100. The
+    window, butterfly and bigshift passes hold no slots on chip."""
+    bl = 128
+    while 2 * 9 * (2 * bl) <= limit:
+        bl *= 2
+    return bl
+
+
+def hier_gmax(bl: int, nplanes: int) -> int:
+    """Largest butterfly group exponent. The butterfly kernel holds its 2^g
+    words per offset in registers and nothing in shared memory, so no
+    on-chip budget depends on bl or nplanes: g = 3, the widest group the
+    kernel is instantiated for."""
+    return 3
+
+
+def pass_smem_bytes(p, bl: int, nplanes: int, esize: int = 4) -> int:
+    """Dynamic shared memory of one compiled pass descriptor's kernel."""
+    kind = p[0]
+    if kind == "inner":
+        return nplanes * bl * esize + bl  # the block + one mask plane
+    if kind == "window":
+        return 2 * bl  # the window's mask bytes; values are gathered
+    if kind in ("butterfly", "bigshift"):
+        return 0
+    raise ValueError(f"unknown pass kind {kind!r}")
+
+
+def check_smem_feasible(passes, bl: int, nplanes: int, esize: int = 4, *,
+                        limit: int | None = None, what: str = "") -> None:
+    """Raise at plan-build / load time when a pass cannot run: bl not a
+    power of two >= 128, a butterfly group wider than 2^3, or a pass whose
+    shared memory exceeds `limit` (default: an H100's opt-in limit)."""
+    if limit is None:
+        limit = HOPPER_SMEM_OPTIN
+    what = what or "config"
+    if bl < 128 or bl & (bl - 1):
+        raise ValueError(
+            f"routed plan {what}: block length bl={bl} must be a power of "
+            "two >= 128")
+    for p in passes:
+        if p[0] == "butterfly" and not 1 <= len(p[1]) <= 3:
+            raise ValueError(
+                f"routed plan {what}: butterfly group of {len(p[1])} stages "
+                "(the kernel takes 1 to 3; lower LILAC_HIER_GMAX)")
+    worst = max(((p[0], pass_smem_bytes(p, bl, nplanes, esize)) for p in passes),
+                key=lambda t: t[1], default=("none", 0))
+    if worst[1] > limit:
+        raise ValueError(
+            f"routed plan {what} does not fit shared memory: pass "
+            f"'{worst[0]}' needs {worst[1]} bytes a block at bl={bl}, "
+            f"{nplanes} plane(s) of {esize}-byte words; the limit is {limit}. "
+            "Lower LILAC_HIER_BL.")
+
+
+def compile_hier(kinds, dists, masks_host, bl: int, *, gmax: int = 2):
+    """Split one network's stage schedule into hierarchical passes.
+
+    masks_host: [S, m] bool (one network). Returns a tuple of pass
+    descriptors with HOST (numpy int8) mask arrays, bit-identical to the JAX
+    package's for the same bl / gmax:
+      ('inner', kinds, dists, masks [nblocks, P, R, 128] bit-packed)
+      ('butterfly', block_bits, masks [ngroups, G*R, 128] bit-packed)
+      ('window', dists, masks [nblocks, 2R, 128] bit-packed)
+      ('bigshift', d, masks [nblocks, R, 128] 0/1)
+    The arrays stay on the host so that a plan is uploaded once, stacked
+    (routed_spmv.pack_hier)."""
+    S, m = masks_host.shape
+    R = bl // 128
+    nblocks = m // bl
+    if gmax < 1:
+        raise ValueError("gmax must be >= 1")
+    if nblocks * bl != m or bl % 128:
+        raise ValueError(f"m={m} is not a multiple of bl={bl} (a multiple of 128)")
+    nbits = _nbits(nblocks)
+    # monotone ('shiftl') schedules are single-table-only by design: their
+    # shift stages cannot group into butterfly passes
+    if not all(k in ("xor", "shift") for k in kinds):
+        raise ValueError(f"hierarchical schedules take xor / shift stages, got {kinds}")
+
+    def flush_inner(buf, out):
+        if not buf:
+            return
+        ks = tuple(k for k, _, _ in buf)
+        ds = tuple(d for _, d, _ in buf)
+        Srun = len(buf)
+        P = (Srun + 7) // 8
+        packed = np.zeros((nblocks, P, R, 128), dtype=np.uint8)
+        for s, (_, _, mask) in enumerate(buf):
+            packed[:, s // 8] |= (
+                mask.reshape(nblocks, R, 128).astype(np.uint8) << (s % 8))
+        out.append(("inner", ks, ds, packed.view(np.int8)))
+        buf.clear()
+
+    def flush_outer(buf, out):
+        while buf:
+            grp = []
+            used_bits = set()
+            while buf and len(grp) < gmax:
+                d, _ = buf[0]
+                bit = int(np.log2(d // bl))
+                if bit in used_bits:
+                    break
+                used_bits.add(bit)
+                grp.append(buf.pop(0))
+            bits = tuple(int(np.log2(d // bl)) for d, _ in grp)
+            G = 1 << len(bits)
+            rest = [b for b in range(nbits) if b not in bits]
+            # member-major grouped mask rows: logical block of (group, member)
+            gid = np.arange(nblocks // G, dtype=np.int64)[:, None]
+            mem = np.arange(G, dtype=np.int64)[None, :]
+            bid = np.zeros((nblocks // G, G), dtype=np.int64)
+            for i, b in enumerate(rest):
+                bid |= ((gid >> i) & 1) << b
+            for kk, b in enumerate(bits):
+                bid |= ((mem >> kk) & 1) << b
+            packed = np.zeros((nblocks // G, G, R, 128), dtype=np.uint8)
+            for k, (_, mask) in enumerate(grp):
+                packed |= mask.reshape(nblocks, R, 128).astype(np.uint8)[bid] << k
+            out.append(("butterfly", bits,
+                        packed.reshape(nblocks // G, G * R, 128).view(np.int8)))
+
+    def flush_window(buf, out):
+        if not buf:
+            return
+        ds = tuple(d for d, _ in buf)
+        assert sum(ds) < bl and len(buf) <= 8
+        packed = np.zeros((nblocks, 2 * R, 128), dtype=np.uint8)
+        for s, (_, mask) in enumerate(buf):
+            mk = mask.reshape(nblocks, R, 128).astype(np.uint8)
+            packed[:, R:] |= mk << s
+            packed[1:, :R] |= mk[:-1] << s  # left neighbour; block 0's left = 0
+        out.append(("window", ds, packed.view(np.int8)))
+        buf.clear()
+
+    passes: list = []
+    inner_buf: list = []
+    outer_buf: list = []
+    win_buf: list = []
+    for s in range(S):
+        k, d, mk = kinds[s], int(dists[s]), masks_host[s]
+        if k == "xor" and d < bl:
+            flush_outer(outer_buf, passes)
+            flush_window(win_buf, passes)
+            inner_buf.append((k, d, mk))
+        elif k == "xor":
+            flush_inner(inner_buf, passes)
+            flush_window(win_buf, passes)
+            outer_buf.append((d, mk))
+        elif d >= bl:  # block-aligned long shift (very long broadcast run)
+            if d % bl:
+                raise ValueError(f"shift distance {d} is not a multiple of bl={bl}")
+            flush_inner(inner_buf, passes)
+            flush_outer(outer_buf, passes)
+            flush_window(win_buf, passes)
+            passes.append(
+                ("bigshift", d, mk.reshape(nblocks, R, 128).astype(np.int8)))
+        else:  # short shift, fused into a window pass
+            flush_inner(inner_buf, passes)
+            flush_outer(outer_buf, passes)
+            if win_buf and (
+                sum(x for x, _ in win_buf) + d >= bl or len(win_buf) >= 8
+            ):
+                flush_window(win_buf, passes)
+            win_buf.append((d, mk))
+    flush_inner(inner_buf, passes)
+    flush_outer(outer_buf, passes)
+    flush_window(win_buf, passes)
+    return tuple(passes)
+
+
+# ---- arguments shared by the appliers --------------------------------------
+
+
+def _hier_planes(x_planes, N: int, nblocks: int, bl: int, device, what: str):
+    """Validate value planes against a pass over N nets of nblocks blocks.
+    Returns (dtype, shared): shared = one [mrows, 128] plane for all nets."""
+    if not 1 <= len(x_planes) <= 2:
+        raise ValueError(f"{what} takes one or two value planes")
+    dtype = x_planes[0].dtype
+    if dtype not in _WORD_DTYPES:
+        raise ValueError(f"value planes must be float32 or float64, got {dtype}")
+    mrows = nblocks * (bl // 128)
+    shared = x_planes[0].dim() == 2
+    want = (mrows, 128) if shared else (N, mrows, 128)
+    for x in x_planes:
+        if x.dtype != dtype or tuple(x.shape) != want or x.device != device:
+            raise ValueError(
+                f"{what}: value plane {x.dtype} {tuple(x.shape)} on {x.device} "
+                f"does not match {dtype} {want} (or {(mrows, 128)} shared) on "
+                f"{device}")
+    return dtype, shared
+
+
+def _net_masks(masks: torch.Tensor, net_axis: bool, inner: bool, what: str):
+    """Masks with the net axis in front ([N, ...]); un-batched masks get
+    N = 1 as a view."""
+    rank = (4 if inner else 3) + (1 if net_axis else 0)
+    if masks.dim() != rank or masks.shape[-1] != 128 or masks.dtype != torch.int8:
+        raise ValueError(
+            f"{what}: masks must be int8 with {rank} axes ending in 128, got "
+            f"{masks.dtype} {tuple(masks.shape)}")
+    return masks if net_axis else masks.unsqueeze(0)
+
+
+def _blocks(x: torch.Tensor, nblocks: int, bl: int) -> torch.Tensor:
+    """A [mrows, 128] or [N, mrows, 128] plane as [1 or N, nblocks, bl]."""
+    return x.reshape(1 if x.dim() == 2 else x.shape[0], nblocks, bl)
+
+
+def _finish(ys, N, nblocks, bl, net_axis):
+    outs = tuple(y.reshape(N, nblocks * (bl // 128), 128).contiguous() for y in ys)
+    return outs if net_axis else tuple(o[0] for o in outs)
+
+
+def _butterfly_maps(nblocks: int, block_bits, layout):
+    """Host tables of one butterfly pass: (rest, new_layout, gid_pos,
+    mem_phys). Group index bit i is logical block bit rest[i]; member s sets
+    logical bits block_bits[k] for the set bits k of s. gid_pos / mem_phys
+    give the same in PHYSICAL block bits under `layout`."""
+    nbits = _nbits(nblocks)
+    bits = tuple(int(b) for b in block_bits)
+    if len(set(bits)) != len(bits) or not all(0 <= b < nbits for b in bits):
+        raise ValueError(f"bad butterfly block bits {bits} for {nbits} block bits")
+    lay = _norm_layout(layout, nblocks)
+    rest = [b for b in range(nbits) if b not in bits]
+    pos_of = {logical: k for k, logical in enumerate(lay)}
+    gid_pos = [pos_of[b] for b in rest]
+    mem_phys = [
+        sum(((s >> k) & 1) << pos_of[b] for k, b in enumerate(bits))
+        for s in range(1 << len(bits))
+    ]
+    return rest, bits + tuple(rest), gid_pos, mem_phys
+
+
+# ---- plain PyTorch versions -------------------------------------------------
+
+
+def routed_apply_sliced_plain(x_planes, masks, kinds, dists, *, layout=None):
+    """Plain version of routed_apply_sliced(_b): every block runs the stage
+    loop of routed_apply_plain on its own bl slots (shifts are cyclic over
+    the block). masks [nblocks, P, R, 128], or [N, nblocks, P, R, 128] for
+    the net-batched form."""
+    net_axis = masks.dim() == 5
+    mk = _net_masks(masks, net_axis, True, "routed_apply_sliced")
+    N, nblocks, P, R, _ = mk.shape
+    bl = R * 128
+    S = len(kinds)
+    if S != len(dists) or (S and P != (S + 7) // 8):
+        raise ValueError(f"{S} kinds, {len(dists)} dists, {P} mask planes")
+    _hier_planes(x_planes, N, nblocks, bl, mk.device, "routed_apply_sliced")
+    phys = _phys_index(nblocks, layout, mk.device)
+    idx = torch.arange(bl, device=mk.device)
+    planes = mk.reshape(N, nblocks, P, bl)
+    ys = [_blocks(x, nblocks, bl)[:, phys].expand(N, nblocks, bl) for x in x_planes]
+    bits = None
+    for s, (kind, d) in enumerate(zip(kinds, dists)):
+        if kind not in _KIND_CODE or not 1 <= d < bl:
+            raise ValueError(f"bad stage ({kind!r}, {d}) for bl={bl}")
+        p, bit = divmod(s, 8)
+        if bit == 0:
+            bits = planes[:, :, p].to(torch.int32)
+        mask = ((bits >> bit) & 1) != 0
+        if kind == "xor":
+            src = idx ^ d
+        elif kind == "shiftl":
+            src = (idx + d) % bl
+        else:
+            src = (idx - d) % bl
+        ys = [torch.where(mask, y[..., src], y) for y in ys]
+    return _finish(ys, N, nblocks, bl, net_axis)
+
+
+def butterfly_apply_plain(x_planes, masks, block_bits, bl: int, *, layout=None):
+    """Plain version of butterfly_apply(_b). masks [ngroups, G*R, 128] or
+    [N, ngroups, G*R, 128]. Returns (planes, new_layout)."""
+    net_axis = masks.dim() == 4
+    mk = _net_masks(masks, net_axis, False, "butterfly_apply")
+    N, ngroups = mk.shape[:2]
+    g = len(block_bits)
+    G = 1 << g
+    nblocks = ngroups * G
+    if mk.shape[2] * 128 != G * bl:
+        raise ValueError(f"butterfly masks {tuple(mk.shape)} do not match G={G}, bl={bl}")
+    _hier_planes(x_planes, N, nblocks, bl, mk.device, "butterfly_apply")
+    rest, new_layout, _, _ = _butterfly_maps(nblocks, block_bits, layout)
+    gid = np.arange(ngroups, dtype=np.int64)[:, None]
+    mem = np.arange(G, dtype=np.int64)[None, :]
+    bid = np.zeros((ngroups, G), dtype=np.int64)
+    for i, b in enumerate(rest):
+        bid |= ((gid >> i) & 1) << b
+    for k, b in enumerate(block_bits):
+        bid |= ((mem >> k) & 1) << int(b)
+    src = _phys_index(nblocks, layout, mk.device)[
+        torch.as_tensor(bid, device=mk.device)]  # [ngroups, G] physical blocks
+    mbits = mk.reshape(N, ngroups, G, bl).to(torch.int32)
+    members = torch.arange(G, device=mk.device)
+    cur = [_blocks(x, nblocks, bl)[:, src].expand(N, ngroups, G, bl) for x in x_planes]
+    for k in range(g):
+        msk = ((mbits >> k) & 1) != 0
+        cur = [torch.where(msk, y[:, :, members ^ (1 << k)], y) for y in cur]
+    return _finish(cur, N, nblocks, bl, net_axis), new_layout
+
+
+def window_shift_apply_plain(x_planes, masks, dists, bl: int, *, layout=None):
+    """Plain version of window_shift_apply(_b): the stage loop over the
+    (left neighbour, self) window of 2 * bl slots, cyclic inside the window,
+    of which the upper half is kept. masks [nblocks, 2R, 128] or
+    [N, nblocks, 2R, 128]."""
+    net_axis = masks.dim() == 4
+    mk = _net_masks(masks, net_axis, False, "window_shift_apply")
+    N, nblocks = mk.shape[:2]
+    S = len(dists)
+    if mk.shape[2] * 128 != 2 * bl:
+        raise ValueError(f"window masks {tuple(mk.shape)} do not match bl={bl}")
+    if S > 8 or sum(dists) >= bl or any(d < 1 for d in dists):
+        raise ValueError(f"window pass takes <= 8 shifts with sum < bl, got {dists}")
+    _hier_planes(x_planes, N, nblocks, bl, mk.device, "window_shift_apply")
+    phys = _phys_index(nblocks, layout, mk.device)
+    left = phys[(torch.arange(nblocks, device=mk.device) + nblocks - 1) % nblocks]
+    mbits = mk.reshape(N, nblocks, 2 * bl).to(torch.int32)
+    outs = []
+    for x in x_planes:
+        xb = _blocks(x, nblocks, bl)
+        y = torch.cat([xb[:, left], xb[:, phys]], dim=-1).expand(N, nblocks, 2 * bl)
+        for s, d in enumerate(dists):
+            msk = ((mbits >> s) & 1) != 0
+            y = torch.where(msk, torch.roll(y, d, dims=-1), y)
+        outs.append(y[..., bl:])
+    return _finish(outs, N, nblocks, bl, net_axis)
+
+
+def bigshift_apply_plain(x_planes, masks, d: int, bl: int, *, layout=None):
+    """Plain version of bigshift_apply(_b): out = mask ? block b - d/bl :
+    block b. masks [nblocks, R, 128] or [N, nblocks, R, 128]."""
+    net_axis = masks.dim() == 4
+    mk = _net_masks(masks, net_axis, False, "bigshift_apply")
+    N, nblocks = mk.shape[:2]
+    if mk.shape[2] * 128 != bl or d % bl:
+        raise ValueError(f"bigshift masks {tuple(mk.shape)} / d={d} do not match bl={bl}")
+    _hier_planes(x_planes, N, nblocks, bl, mk.device, "bigshift_apply")
+    db = (d // bl) % nblocks
+    phys = _phys_index(nblocks, layout, mk.device)
+    far = phys[(torch.arange(nblocks, device=mk.device) + nblocks - db) % nblocks]
+    msk = mk.reshape(N, nblocks, bl) != 0
+    outs = []
+    for x in x_planes:
+        xb = _blocks(x, nblocks, bl)
+        outs.append(torch.where(msk, xb[:, far], xb[:, phys]))
+    return _finish(outs, N, nblocks, bl, net_axis)
+
+
+# ---- the CUDA kernels of csrc/hier.cu ---------------------------------------
+
+
+def _hier_lib():
+    lib = _cuda.load("hier")
+    if not getattr(lib, "_typed", False):
+        vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        ub = ctypes.POINTER(ctypes.c_ubyte)
+        head = [vp, vp, ci, ci, ll, vp, vp, ll, ci, ci, vp]
+        lib.lilac_hier_inner.argtypes = head + [ci, ci, ub, ci, ub, vp]
+        lib.lilac_hier_butterfly.argtypes = head + [
+            ci, ci, ub, ctypes.POINTER(ci), vp]
+        lib.lilac_hier_window.argtypes = head + [
+            ci, ctypes.POINTER(ci), ci, ub, vp]
+        lib.lilac_hier_bigshift.argtypes = head + [ll, ci, ub, vp]
+        lib.lilac_hier_smem_optin.argtypes = [ctypes.POINTER(ci)]
+        for fn in (lib.lilac_hier_inner, lib.lilac_hier_butterfly,
+                   lib.lilac_hier_window, lib.lilac_hier_bigshift,
+                   lib.lilac_hier_smem_optin):
+            fn.restype = ci
+        lib._typed = True
+    return lib
+
+
+def _ubytes(values):
+    return (ctypes.c_ubyte * max(len(values), 1))(*values)
+
+
+def _launch_hier(fn_name, what, x_planes, mk, N, nblocks, bl, tail):
+    """Common half of the four launches: checks the tensors, allocates the
+    [N, mrows, 128] outputs and calls the C function `fn_name` with the
+    arguments all four share, then the kernel's own (`tail`), then the
+    current stream."""
+    dtype, shared = _hier_planes(x_planes, N, nblocks, bl, mk.device, what)
+    if not mk.is_contiguous() or mk.data_ptr() % 4:
+        raise ValueError(f"{what}: masks must be contiguous and 4-byte aligned")
+    for x in x_planes:
+        if not x.is_contiguous() or x.data_ptr() % 32:
+            raise ValueError(
+                f"{what}: value planes must be contiguous and 32-byte aligned")
+    if N > _MAX_NETS or nblocks > _MAX_NETS:
+        raise ValueError(f"{what}: {N} nets x {nblocks} blocks (limit {_MAX_NETS} each)")
+    m = nblocks * bl
+    n = len(x_planes)
+    outs = [torch.empty((N, m // 128, 128), dtype=dtype, device=mk.device)
+            for _ in x_planes]
+    fn = getattr(_hier_lib(), fn_name)
+    with torch.cuda.device(mk.device):
+        err = fn(
+            x_planes[0].data_ptr(), x_planes[1].data_ptr() if n == 2 else None,
+            n, x_planes[0].element_size(), 0 if shared else m,
+            outs[0].data_ptr(), outs[1].data_ptr() if n == 2 else None,
+            m, N, bl, mk.data_ptr(), *tail,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _cuda.check(err, what)
+    return tuple(outs)
+
+
+def _inner(x_planes, masks, kinds, dists, layout, net_axis):
+    if not masks.is_cuda:
+        return routed_apply_sliced_plain(x_planes, masks, kinds, dists, layout=layout)
+    what = "routed_apply_sliced"
+    mk = _net_masks(masks, net_axis, True, what)
+    N, nblocks, P, R, _ = mk.shape
+    bl = R * 128
+    S = len(kinds)
+    if S != len(dists) or (S and P != (S + 7) // 8) or S > 64:
+        raise ValueError(
+            f"{what}: {S} kinds, {len(dists)} dists, {P} mask planes (at most "
+            "64 stages a pass)")
+    for k, d in zip(kinds, dists):
+        if k != "xor":
+            raise NotImplementedError(
+                f"{what}: the CUDA inner pass runs xor stages only (compile_hier "
+                f"builds no other kind into an inner pass), got {k!r}")
+        if not 1 <= d < bl or d & (d - 1):
+            raise ValueError(f"{what}: bad xor distance {d} for bl={bl}")
+    lay = _norm_layout(layout, nblocks)
+    check_smem_feasible(
+        (("inner", kinds, dists),), bl, len(x_planes), x_planes[0].element_size(),
+        limit=smem_optin_bytes(mk.device), what=what)
+    tail = (P, S, _ubytes([int(d).bit_length() - 1 for d in dists]),
+            len(lay), _ubytes(lay))
+    outs = _launch_hier("lilac_hier_inner", what, x_planes, mk, N, nblocks, bl, tail)
+    return outs if net_axis else tuple(o[0] for o in outs)
+
+
+def routed_apply_sliced_b(x_planes, masks, kinds, dists, *, layout=None):
+    """Net-batched inner pass (kernel K3). masks [N, nblocks, P, R, 128];
+    x_planes each [mrows, 128] (shared input) or [N, mrows, 128]. Logical
+    block b is read at physical block _phys_expr(b, layout); the result is
+    [N, mrows, 128] planes in natural block order.
+
+    CUDA tensors go through csrc/hier.cu (one launch, grid (nblocks, N)),
+    which runs xor stages only and raises NotImplementedError for others;
+    the launch error code is raised. Only CPU tensors take the plain
+    version."""
+    outs = _inner(x_planes, masks, kinds, dists, layout, True)
+    if masks.is_cuda:
+        routed_apply_sliced_b.launches += 1
+    return outs
+
+
+def routed_apply_sliced(x_planes, masks, kinds, dists, *, layout=None):
+    """Inner pass of one net (kernel K3u: K3 at N = 1). masks
+    [nblocks, P, R, 128]; planes [mrows, 128] in and out."""
+    outs = _inner(x_planes, masks, kinds, dists, layout, False)
+    if masks.is_cuda:
+        routed_apply_sliced.launches += 1
+    return outs
+
+
+def _butterfly(x_planes, masks, block_bits, bl, layout, net_axis):
+    if not masks.is_cuda:
+        return butterfly_apply_plain(x_planes, masks, block_bits, bl, layout=layout)
+    what = "butterfly_apply"
+    mk = _net_masks(masks, net_axis, False, what)
+    N, ngroups = mk.shape[:2]
+    g = len(block_bits)
+    if not 1 <= g <= 3:
+        raise ValueError(f"{what}: the kernel takes 1 to 3 stages a pass, got {g}")
+    G = 1 << g
+    nblocks = ngroups * G
+    if mk.shape[2] * 128 != G * bl:
+        raise ValueError(f"{what}: masks {tuple(mk.shape)} do not match G={G}, bl={bl}")
+    rest, new_layout, gid_pos, mem_phys = _butterfly_maps(nblocks, block_bits, layout)
+    tail = (g, len(rest), _ubytes(gid_pos), (ctypes.c_int * 8)(*mem_phys))
+    outs = _launch_hier("lilac_hier_butterfly", what, x_planes, mk, N, nblocks,
+                        bl, tail)
+    return (outs if net_axis else tuple(o[0] for o in outs)), new_layout
+
+
+def butterfly_apply_b(x_planes, masks, block_bits, bl: int, *, layout=None):
+    """Net-batched butterfly pass (kernel K4): g = len(block_bits) <= 3 xor
+    stages at distances bl * 2^block_bits[k], k in stage order. masks
+    [N, ngroups, G*R, 128]. Writes each group's 2^g member blocks
+    contiguously; returns (planes [N, mrows, 128], new_layout) with
+    new_layout = block_bits + the remaining bits. CUDA tensors take the
+    kernel, CPU tensors the plain version."""
+    out = _butterfly(x_planes, masks, block_bits, bl, layout, True)
+    if masks.is_cuda:
+        butterfly_apply_b.launches += 1
+    return out
+
+
+def butterfly_apply(x_planes, masks, block_bits, bl: int, *, layout=None):
+    """Butterfly pass of one net (kernel K4u: K4 at N = 1). masks
+    [ngroups, G*R, 128]. Returns (planes [mrows, 128], new_layout)."""
+    out = _butterfly(x_planes, masks, block_bits, bl, layout, False)
+    if masks.is_cuda:
+        butterfly_apply.launches += 1
+    return out
+
+
+def _window(x_planes, masks, dists, bl, layout, net_axis):
+    if not masks.is_cuda:
+        return window_shift_apply_plain(x_planes, masks, dists, bl, layout=layout)
+    what = "window_shift_apply"
+    mk = _net_masks(masks, net_axis, False, what)
+    N, nblocks = mk.shape[:2]
+    S = len(dists)
+    if mk.shape[2] * 128 != 2 * bl:
+        raise ValueError(f"{what}: masks {tuple(mk.shape)} do not match bl={bl}")
+    if S > 8 or sum(dists) >= bl or any(d < 1 for d in dists):
+        raise ValueError(f"{what}: takes <= 8 shifts with sum < bl, got {dists}")
+    lay = _norm_layout(layout, nblocks)
+    check_smem_feasible(
+        (("window", dists),), bl, len(x_planes), x_planes[0].element_size(),
+        limit=smem_optin_bytes(mk.device), what=what)
+    tail = (S, (ctypes.c_int * 8)(*[int(d) for d in dists]), len(lay), _ubytes(lay))
+    outs = _launch_hier("lilac_hier_window", what, x_planes, mk, N, nblocks, bl, tail)
+    return outs if net_axis else tuple(o[0] for o in outs)
+
+
+def window_shift_apply_b(x_planes, masks, dists, bl: int, *, layout=None):
+    """Net-batched window pass (kernel K5): <= 8 fused shift stages
+    y[i] <- y[i - d] where mask, sum(d) < bl, over the window (block b - 1,
+    block b); writes block b in natural order. masks [N, nblocks, 2R, 128].
+    CUDA tensors take the kernel, CPU tensors the plain version."""
+    outs = _window(x_planes, masks, dists, bl, layout, True)
+    if masks.is_cuda:
+        window_shift_apply_b.launches += 1
+    return outs
+
+
+def window_shift_apply(x_planes, masks, dists, bl: int, *, layout=None):
+    """Window pass of one net (kernel K5u: K5 at N = 1). masks
+    [nblocks, 2R, 128]."""
+    outs = _window(x_planes, masks, dists, bl, layout, False)
+    if masks.is_cuda:
+        window_shift_apply.launches += 1
+    return outs
+
+
+def _bigshift(x_planes, masks, d, bl, layout, net_axis):
+    if not masks.is_cuda:
+        return bigshift_apply_plain(x_planes, masks, d, bl, layout=layout)
+    what = "bigshift_apply"
+    mk = _net_masks(masks, net_axis, False, what)
+    N, nblocks = mk.shape[:2]
+    if mk.shape[2] * 128 != bl or d % bl:
+        raise ValueError(f"{what}: masks {tuple(mk.shape)} / d={d} do not match bl={bl}")
+    lay = _norm_layout(layout, nblocks)
+    tail = ((d // bl) % nblocks, len(lay), _ubytes(lay))
+    outs = _launch_hier("lilac_hier_bigshift", what, x_planes, mk, N, nblocks, bl, tail)
+    return outs if net_axis else tuple(o[0] for o in outs)
+
+
+def bigshift_apply_b(x_planes, masks, d: int, bl: int, *, layout=None):
+    """Net-batched block-aligned shift (kernel K6): d a multiple of bl,
+    out = mask ? logical block b - d/bl : logical block b, natural order.
+    masks [N, nblocks, R, 128] 0/1. CUDA tensors take the kernel, CPU
+    tensors the plain version."""
+    outs = _bigshift(x_planes, masks, d, bl, layout, True)
+    if masks.is_cuda:
+        bigshift_apply_b.launches += 1
+    return outs
+
+
+def bigshift_apply(x_planes, masks, d: int, bl: int, *, layout=None):
+    """Block-aligned shift of one net (kernel K6u: K6 at N = 1). masks
+    [nblocks, R, 128]."""
+    outs = _bigshift(x_planes, masks, d, bl, layout, False)
+    if masks.is_cuda:
+        bigshift_apply.launches += 1
+    return outs
+
+
+# wrapper calls that launched their kernel
+HIER_WRAPPERS = (
+    routed_apply_sliced_b, butterfly_apply_b, window_shift_apply_b,
+    bigshift_apply_b, routed_apply_sliced, butterfly_apply,
+    window_shift_apply, bigshift_apply,
+)
+for _w in HIER_WRAPPERS:
+    _w.launches = 0
+
+
+# ---- whole schedules ---------------------------------------------------------
+
+
+def _run_passes(planes, metas, masks, bl, fns):
+    """Apply passes in order, tracking the block layout across butterfly
+    passes; returns (planes, layout) with layout None = natural order."""
+    inner, butterfly, window, bigshift = fns
+    layout = None
+    for meta, mk in zip(metas, masks):
+        kind = meta[0]
+        if kind == "inner":
+            planes = inner(planes, mk, meta[1], meta[2], layout=layout)
+            layout = None
+        elif kind == "butterfly":
+            planes, layout = butterfly(planes, mk, meta[1], bl, layout=layout)
+            if tuple(layout) == tuple(range(len(layout))):
+                layout = None
+        elif kind == "bigshift":
+            planes = bigshift(planes, mk, meta[1], bl, layout=layout)
+            layout = None
+        elif kind == "window":
+            planes = window(planes, mk, meta[1], bl, layout=layout)
+            layout = None
+        else:
+            raise ValueError(f"unknown pass kind {kind!r}")
+    return planes, layout
+
+
+def _relayout(planes, layout, bl):
+    """Static block relayout after a schedule that ends scrambled: logical
+    block b lives at physical block _phys_expr(b, layout)."""
+    R = bl // 128
+    nblocks = planes[0].shape[-2] // R
+    phys = _phys_index(nblocks, layout, planes[0].device)
+    out = []
+    for pp in planes:
+        lead = pp.shape[:-2]
+        blocks = pp.reshape(*lead, nblocks, R, 128)
+        out.append(blocks.index_select(len(lead), phys).reshape(pp.shape))
+    return tuple(out)
+
+
+def hier_apply_batched(x_planes, pass_meta, pass_masks, bl: int):
+    """Apply one shared pass schedule to N nets at once.
+
+    x_planes: shared [mrows, 128] planes (every net routes the same input).
+    pass_meta: the static HierNet.pass_meta tuple shared by all N nets;
+    pass_masks: per pass, the N nets' masks stacked on a leading axis.
+    Returns per-net [N, mrows, 128] planes in natural order. Each pass
+    allocates its output and drops its input, so two [N, m] buffers a plane
+    are live at a time (three during the final relayout)."""
+    planes, layout = _run_passes(
+        tuple(x_planes), pass_meta, pass_masks, bl,
+        (routed_apply_sliced_b, butterfly_apply_b, window_shift_apply_b,
+         bigshift_apply_b))
+    if planes and planes[0].dim() == 2:  # an empty schedule: N copies
+        N = pass_masks[0].shape[0] if pass_masks else 1
+        planes = tuple(p.unsqueeze(0).expand(N, *p.shape).contiguous() for p in planes)
+    if layout is not None:
+        planes = _relayout(planes, layout, bl)
+    return planes
+
+
+def hier_apply(x_planes, passes, bl: int):
+    """Apply a compile_hier pass sequence (descriptors with their masks as
+    tensors on the planes' device) to [m // 128, 128] planes of one net."""
+    planes, layout = _run_passes(
+        tuple(x_planes), [p[:-1] for p in passes], [p[-1] for p in passes], bl,
+        (routed_apply_sliced, butterfly_apply, window_shift_apply, bigshift_apply))
+    if layout is not None:
+        planes = _relayout(planes, layout, bl)
+    return planes

@@ -1,18 +1,23 @@
-"""SpMV through plan-time routing networks (single table).
+"""SpMV through plan-time routing networks (single table and hierarchical).
 
-Counterpart of the single-table part of lilac_tpu/kernels/routed_spmv.py.
-Pipeline per matvec: pad x into the network input slots ([m] = [R, 128]
-planes), run every row-chunk's gather network in one routed_apply call
-(kernels/routed.py), then multiply by the values, pre-arranged at PLAN
-time into the routed slot order, and reduce each chunk's [rows_c, K_c]
-block (df64: the fused kernel of kernels/dfmulred.py).
+Counterpart of lilac_tpu/kernels/routed_spmv.py without its column
+segments and its adjoint products. Pipeline per matvec: pad x into the
+network input slots ([m] = [R, 128] planes), run every row-chunk's gather
+network in one routed_apply call (kernels/routed.py), then multiply by the
+values, pre-arranged at PLAN time into the routed slot order, and reduce
+each chunk's [rows_c, K_c] block (df64: the fused kernel of
+kernels/dfmulred.py).
 
 Rows are chunked after sorting by row length (descending), so each chunk
 pads to its own max length; the row order is restored by one [n]-sized
 gather at the end. Matrices with near-uniform rows skip the sort.
 
-Single column segment: requires ncols <= m (the network input table holds
-all of x). The hierarchical plans for larger tables are not ported yet.
+Single-table plans (RoutedMat) need ncols <= m with the whole table in one
+kernel call. Hierarchical plans (RoutedMatHier, second half of this file)
+serve larger tables: one full-size network per m-slot super-block of
+terms, applied pass by pass (kernels/routed.py), rows globally sorted by
+length, an un-permute network at the end where the rows were not sorted
+already.
 
 Plan files (`save_routed` / `load_routed`) use the JAX package's npz
 format, so a plan written by either package loads in the other.
@@ -22,8 +27,10 @@ from __future__ import annotations
 
 import dataclasses
 import glob
+import json
 import os
 import time
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Tuple
 
 import numpy as np
@@ -325,13 +332,89 @@ def _savez_atomic(path: str, **kv) -> None:
             os.unlink(tmp)
 
 
-def _np(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
+def _np(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
-def save_routed(path: str, M: RoutedMat) -> None:
+def _detuple(x):
+    if isinstance(x, list):
+        return tuple(_detuple(v) for v in x)
+    return x
+
+
+def _save_hier(path: str, M: "RoutedMatHier") -> None:
+    kv = {"version": _CACHE_VERSION, "cls": "RoutedMatHier",
+          "shape": np.asarray(M.shape), "m": M.m}
+    kv["meta"] = json.dumps({
+        "chunks": M.chunks,
+        "m_out": M.m_out,
+        "bl": M.bl,
+        "n_nz": M.n_nz,
+        "colmajor": bool(M.colmajor),
+        "nets_meta": [net.pass_meta for net in M.nets],
+        "unperm_meta": M.unperm.pass_meta if M.unperm is not None else None,
+        "nets_npass": [len(net.pass_masks) for net in M.nets],
+    })
+    for i, net in enumerate(M.nets):
+        kv[f"vals{i}"] = _np(M.vals[i])
+        for j, mk in enumerate(net.pass_masks):
+            kv[f"net{i}_mask{j}"] = _np(mk)
+    for j, mk in enumerate(M.unperm.pass_masks if M.unperm is not None else ()):
+        kv[f"unperm_mask{j}"] = _np(mk)
+    _savez_atomic(path, **kv)
+
+
+def _hier_words(vals) -> Tuple[int, int]:
+    """(planes, bytes a word) that a hier plan's networks route: df64 values
+    [m, 2] go as a (hi, lo) pair of f32 planes."""
+    v = vals[0]
+    return (2, 4) if v.ndim == 2 else (1, int(v.dtype.itemsize))
+
+
+def _load_hier(path: str, z, device) -> "RoutedMatHier":
+    meta = json.loads(str(z["meta"]))
+    # masks and vals stay HOST numpy here: pack_hier stacks on the host and
+    # uploads each stacked pass once, so the plan is never twice on the card
+    nets, vals = [], []
+    for i, npass in enumerate(meta["nets_npass"]):
+        nets.append(HierNet(
+            pass_masks=tuple(np.asarray(z[f"net{i}_mask{j}"]) for j in range(npass)),
+            pass_meta=_detuple(meta["nets_meta"][i]),
+        ))
+        vals.append(np.asarray(z[f"vals{i}"]))
+    unperm = None
+    if meta["unperm_meta"] is not None:
+        umeta = _detuple(meta["unperm_meta"])
+        unperm = HierNet(
+            pass_masks=tuple(np.asarray(z[f"unperm_mask{j}"]) for j in range(len(umeta))),
+            pass_meta=umeta,
+        )
+    # a plan written for another machine (the JAX package's default block is
+    # 2^16 slots) may not fit this card's shared memory: refuse at load
+    nplanes, esize = _hier_words(vals) if vals else (1, 4)
+    for net in nets + ([unperm] if unperm is not None else []):
+        rd.check_smem_feasible(
+            net.pass_meta, int(meta["bl"]), nplanes, esize,
+            limit=rd.smem_optin_bytes(device), what=f"cached hier plan {path}")
+    return RoutedMatHier(
+        nets=tuple(nets), vals=tuple(vals), unperm=unperm,
+        chunks=_detuple(meta["chunks"]),
+        shape=tuple(int(v) for v in z["shape"]), m=int(z["m"]),
+        m_out=int(meta["m_out"]), bl=int(meta["bl"]), n_nz=int(meta["n_nz"]),
+        # plans from before the column-major layout carry no flag
+        colmajor=bool(meta.get("colmajor", False)),
+    )
+
+
+def save_routed(path: str, M) -> None:
+    """Write a RoutedMat or an unpacked RoutedMatHier in the JAX package's
+    npz format (hier plans per net, so packing happens after the save)."""
+    if isinstance(M, RoutedMatHier):
+        return _save_hier(path, M)
     if not isinstance(M, RoutedMat):
-        raise TypeError(f"save_routed takes a RoutedMat, got {type(M).__name__}")
+        raise TypeError(
+            f"save_routed takes a RoutedMat or an unpacked RoutedMatHier, got "
+            f"{type(M).__name__}")
     _savez_atomic(
         path,
         version=_CACHE_VERSION, cls="RoutedMat", shape=np.asarray(M.shape),
@@ -344,17 +427,21 @@ def save_routed(path: str, M: RoutedMat) -> None:
     )
 
 
-def load_routed(path: str, device="cuda") -> Optional[RoutedMat]:
-    """Load a RoutedMat plan file; None for another cache version. A file
-    of another container class (hierarchical, column-segmented) raises
-    NotImplementedError: those plans are not ported yet."""
+def load_routed(path: str, device="cuda"):
+    """Load a plan file; None for another cache version. A RoutedMat comes
+    back on `device`. A RoutedMatHier comes back host-staged (numpy leaves;
+    maybe_pack_hier uploads it) after its passes were checked against
+    `device`'s shared memory: a plan whose block length does not fit raises
+    ValueError. A column-segmented plan raises NotImplementedError."""
     z = np.load(path, allow_pickle=False)
     if int(z["version"]) != _CACHE_VERSION:
         return None
+    if str(z["cls"]) == "RoutedMatHier":
+        return _load_hier(path, z, device)
     if str(z["cls"]) != "RoutedMat":
         raise NotImplementedError(
-            f"{path}: plan class {str(z['cls'])} is not ported (hierarchical "
-            "plans come with the routed_apply_sliced_b family of kernels)"
+            f"{path}: plan class {str(z['cls'])} is not ported (column "
+            "segments, routed_seg_spmv)"
         )
     # pre-colmajor caches carry no flag and are row-major
     cm = bool(int(z["colmajor"])) if "colmajor" in z.files else False
@@ -372,3 +459,445 @@ def load_routed(path: str, device="cuda") -> Optional[RoutedMat]:
         shape=tuple(int(v) for v in z["shape"]),
         m=m, colmajor=cm,
     )
+
+
+# ---------------------------------------------------------------------------
+# hierarchical routing: one full-size network per term super-block (no
+# column segmentation: stage distances above the block length run as
+# butterfly / window / bigshift passes, see kernels/routed.py)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class HierNet:
+    """One network's compile_hier pass schedule.
+
+    pass_masks: one mask array per pass, numpy while the plan is staged on
+    the host (builder, load_routed), torch tensors once it is on a device.
+    pass_meta: static ("inner", kinds, dists) | ("butterfly", bits) |
+    ("bigshift", d) | ("window", dists), one per pass."""
+
+    pass_masks: tuple
+    pass_meta: tuple
+
+
+def _split_hier(passes) -> HierNet:
+    return HierNet(pass_masks=tuple(p[-1] for p in passes),
+                   pass_meta=tuple(p[:-1] for p in passes))
+
+
+def hier_net_apply(net: HierNet, planes, bl: int):
+    """One net through the un-batched appliers (kernels K3u-K6u)."""
+    passes = [m + (mk,) for m, mk in zip(net.pass_meta, net.pass_masks)]
+    return rd.hier_apply(planes, passes, bl)
+
+
+@dataclasses.dataclass
+class RoutedMatHier:
+    """Sparse matrix staged as hierarchical routing networks.
+
+    nets[i] gathers x into net i's term slots; vals[i] [m(, 2)] multiplies
+    in slot order; chunks[i] = ((slot0, rows_c, K_c), ...) describe the ELL
+    sub-blocks packed into the net. Rows are globally sorted by length
+    (tight K); `unperm` routes the chunk-concatenated sorted y back to
+    natural order and is None when the rows came sorted. colmajor: slot
+    layout inside a chunk, False = s0 + r*K + k, True = s0 + k*rows_c + r
+    (what the fused df64 reduction reads coalesced).
+
+    The builder and load_routed return it host-staged (numpy leaves);
+    maybe_pack_hier puts it on a device, packed or not."""
+
+    nets: tuple
+    vals: tuple
+    unperm: Optional[HierNet]
+    chunks: tuple
+    shape: Tuple[int, int]
+    m: int
+    m_out: int
+    bl: int
+    n_nz: int  # rows with nonzero count = length of the sorted concat
+    colmajor: bool = False
+
+
+@dataclasses.dataclass
+class HierGroup:
+    """A batch of hier nets sharing one pass schedule, masks stacked on a
+    leading net axis (see rd.hier_apply_batched). vals are plane-shaped:
+    [Ng, m//128, 128] (f32 / f64) or [2, Ng, m//128, 128] (df64; 0 = hi,
+    1 = lo)."""
+
+    pass_masks: tuple  # per pass: [Ng, ...] stacked device masks
+    vals: torch.Tensor
+    pass_meta: tuple  # static, shared by all Ng nets
+    net_ids: tuple  # static: original net indices (row-order bookkeeping)
+
+
+@dataclasses.dataclass
+class RoutedMatHierP:
+    """RoutedMatHier with its nets packed into schedule groups: each pass
+    over a group is ONE kernel launch (grid over blocks x nets) instead of
+    one per net. The plan file is unchanged (per-net masks); packing happens
+    at build / load (maybe_pack_hier), stacked on the host so the upload is
+    a few large transfers."""
+
+    groups: tuple  # HierGroup
+    unperm: Optional[HierNet]
+    chunks: tuple  # per ORIGINAL net id (same as RoutedMatHier.chunks)
+    shape: Tuple[int, int]
+    m: int
+    m_out: int
+    bl: int
+    n_nz: int
+    colmajor: bool = False
+
+
+def _net_to_device(net: Optional[HierNet], device) -> Optional[HierNet]:
+    if net is None:
+        return None
+    return HierNet(
+        pass_masks=tuple(torch.as_tensor(mk, device=device) for mk in net.pass_masks),
+        pass_meta=net.pass_meta,
+    )
+
+
+def plan_bytes(M) -> int:
+    """Bytes of a hier plan's masks and values (host-staged or on a device)."""
+    def nb(a):
+        return a.numel() * a.element_size() if isinstance(a, torch.Tensor) else a.nbytes
+
+    nets = M.groups if isinstance(M, RoutedMatHierP) else M.nets
+    total = sum(nb(mk) for net in nets for mk in net.pass_masks)
+    total += sum(nb(v) for v in (
+        [g.vals for g in M.groups] if isinstance(M, RoutedMatHierP) else M.vals))
+    if M.unperm is not None:
+        total += sum(nb(mk) for mk in M.unperm.pass_masks)
+    return total
+
+
+def _group_cap(M: RoutedMatHier, device) -> Optional[int]:
+    """Most nets a packed group may hold on `device`. A pass over a group
+    holds its [Ng, m] input and output planes, and the final relayout a
+    third copy; the cap keeps those within half of the device memory that is
+    free once the plan itself is resident. None (no cap) on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    nplanes, esize = _hier_words(M.vals)
+    free, _ = torch.cuda.mem_get_info(device)
+    per_net = 3 * M.m * nplanes * esize
+    return max(1, int((free - plan_bytes(M)) // 2 // per_net))
+
+
+def pack_hier(M: RoutedMatHier, device="cuda") -> RoutedMatHierP:
+    """Group nets by identical pass schedule and stack their masks / vals on
+    a leading net axis: a host-side stack, then one upload per pass. Groups
+    are split where their pass intermediates would not fit the device
+    (_group_cap)."""
+    cap = _group_cap(M, device)
+    order: list = []
+    by_key: dict = {}
+    for i, net in enumerate(M.nets):
+        if net.pass_meta not in by_key:
+            by_key[net.pass_meta] = []
+            order.append(net.pass_meta)
+        by_key[net.pass_meta].append(i)
+    id_lists = []
+    for key in order:
+        ids = by_key[key]
+        step = len(ids) if cap is None else cap
+        id_lists += [(key, ids[g0 : g0 + step]) for g0 in range(0, len(ids), step)]
+    R = M.m // 128
+    groups = []
+    for key, ids in id_lists:
+        stacked = tuple(
+            torch.as_tensor(
+                np.stack([_np(M.nets[i].pass_masks[j]) for i in ids]), device=device)
+            for j in range(len(key))
+        )
+        vh = np.stack([_np(M.vals[i]) for i in ids])  # [Ng, m(, 2)]
+        if vh.ndim == 3:  # df64: split words, plane-shape each
+            vh = np.stack([vh[..., 0].reshape(len(ids), R, 128),
+                           vh[..., 1].reshape(len(ids), R, 128)])
+        else:
+            vh = vh.reshape(len(ids), R, 128)
+        groups.append(HierGroup(
+            pass_masks=stacked, vals=torch.as_tensor(vh, device=device),
+            pass_meta=key, net_ids=tuple(ids)))
+    return RoutedMatHierP(
+        groups=tuple(groups), unperm=_net_to_device(M.unperm, device),
+        chunks=M.chunks, shape=M.shape, m=M.m, m_out=M.m_out, bl=M.bl,
+        n_nz=M.n_nz, colmajor=M.colmajor,
+    )
+
+
+def hier_to_device(M: RoutedMatHier, device="cuda") -> RoutedMatHier:
+    """An unpacked hier plan with every leaf as a tensor on `device`."""
+    return dataclasses.replace(
+        M,
+        nets=tuple(_net_to_device(net, device) for net in M.nets),
+        vals=tuple(torch.as_tensor(v, device=device) for v in M.vals),
+        unperm=_net_to_device(M.unperm, device),
+    )
+
+
+def maybe_pack_hier(M, device="cuda"):
+    """Put a hier plan on `device`: packed when the (default-on)
+    LILAC_HIER_PACK knob is set, else net by net. Anything that is not a
+    RoutedMatHier passes through unchanged. Either way the plan ends with
+    exactly one copy on the device."""
+    from lilac_tpu_torch.config import cfg
+
+    if not isinstance(M, RoutedMatHier):
+        return M
+    return pack_hier(M, device) if cfg().hier_pack else hier_to_device(M, device)
+
+
+def hier_bl_cfg() -> int:
+    """Block length of new hier plans: LILAC_HIER_BL, else the default
+    derived from the card's shared memory (rd.default_hier_bl)."""
+    from lilac_tpu_torch.config import cfg
+
+    bl = cfg().hier_bl
+    return int(bl) if bl is not None else rd.default_hier_bl()
+
+
+def _hier_gmax_cfg(bl: int, dtype: str) -> int:
+    """Butterfly group exponent: an explicit LILAC_HIER_GMAX wins, else
+    rd.hier_gmax. A butterfly pass costs about one mask byte per slot
+    whatever its stage count, so a larger g means fewer passes, smaller
+    plans and fewer streams through device memory."""
+    from lilac_tpu_torch.config import cfg
+
+    g = cfg().hier_gmax
+    if g is not None:
+        return int(g)
+    return rd.hier_gmax(bl, 2 if dtype == "df64" else 1)
+
+
+def build_routed_csr_hier(
+    indptr: np.ndarray,
+    indices: np.ndarray,
+    data: np.ndarray,
+    shape: Tuple[int, int],
+    *,
+    dtype: str = "f32",
+    bl: int | None = None,
+    m: int | None = None,
+    host_batch: int = 4,
+    verbose: bool = False,
+    colmajor: bool = True,
+) -> RoutedMatHier:
+    """Stage a host CSR matrix as a host-staged RoutedMatHier (all host
+    work; maybe_pack_hier puts the result on a device). For one (bl, gmax)
+    the arrays are bit-identical to the JAX package's builder. Nets are
+    routed `host_batch` at a time; a batch's Benes colourings and pass
+    compilations run on threads (the C router and numpy release the GIL)."""
+    n, ncol = shape
+    if bl is None:
+        bl = hier_bl_cfg()
+    counts = np.diff(indptr).astype(np.int64)
+    kmax = int(counts.max()) if n else 1
+    if m is None:
+        m = max(2 * bl, _pow2_at_least(max(ncol, kmax)))
+    if m < ncol or m % bl:
+        raise ValueError(f"table size m={m} must hold {ncol} columns in blocks of {bl}")
+    # fail on an infeasible bl / gmax BEFORE the expensive network build
+    nplanes = 2 if dtype == "df64" else 1
+    esize = 8 if dtype == "f64" else 4
+    gmax = _hier_gmax_cfg(bl, dtype)
+    rd.check_smem_feasible(
+        (("butterfly", tuple(range(gmax))), ("window", ()), ("inner", (), ())),
+        bl, nplanes, esize, what=f"hier bl={bl} gmax={gmax}",
+    )
+
+    order = np.argsort(-counts, kind="stable")
+    sorted_counts = counts[order]
+    n_nz = int(np.searchsorted(-sorted_counts, 0, side="left"))
+
+    # pack (rows_c, K) chunks into m-slot nets; K = first (max) count in
+    # chunk, rows capped where counts fall below 3/4 K to keep K tight
+    nets_chunks = []  # per net: list of (slot0, rows_c, K)
+    cur, used = [], 0
+    i = 0
+    while i < n_nz:
+        K = int(sorted_counts[i])
+        space = m - used
+        if space < K:
+            nets_chunks.append(cur)
+            cur, used = [], 0
+            continue
+        lim = int(np.searchsorted(-sorted_counts, -max(1, (3 * K) // 4), side="right"))
+        rows_c = min(space // K, n_nz - i, max(lim - i, 1))
+        cur.append((used, rows_c, K))
+        used += rows_c * K
+        i += rows_c
+    if cur:
+        nets_chunks.append(cur)
+    nnets = len(nets_chunks)
+
+    if dtype == "df64":
+        dvals = df.split_f64_np(data)
+    else:
+        dvals = data.astype({"f32": np.float32, "f64": np.float64}[dtype])
+
+    # slot assignment (vectorized): entry e of row r -> net / slot. Row-major
+    # chunks put entry k of local row r at s0 + r*K + k, column-major at
+    # s0 + k*rows_c + r
+    net_of = np.zeros(n, dtype=np.int64)
+    slot0_of = np.zeros(n, dtype=np.int64)
+    stride_of = np.ones(n, dtype=np.int64)
+    pos = 0
+    for b, chlist in enumerate(nets_chunks):
+        for (s0, rows_c, K) in chlist:
+            rows_b = order[pos : pos + rows_c]
+            net_of[rows_b] = b
+            if colmajor:
+                slot0_of[rows_b] = s0 + np.arange(rows_c)
+                stride_of[rows_b] = rows_c
+            else:
+                slot0_of[rows_b] = s0 + np.arange(rows_c) * K
+            pos += rows_c
+    rows_rep = np.repeat(np.arange(n), counts)
+    slot_in_row = np.arange(len(indices)) - np.repeat(indptr[:-1], counts)
+    b_e = net_of[rows_rep]
+    t_e = slot0_of[rows_rep] + slot_in_row * stride_of[rows_rep]
+
+    # padding slots gather (slot % ncol): bounded broadcast runs, value 0
+    idx_all = np.tile(np.arange(m, dtype=np.int64) % ncol, (nnets, 1))
+    idx_all[b_e, t_e] = indices
+    vals = np.zeros((nnets, m) + dvals.shape[1:], dtype=dvals.dtype)
+    vals[b_e, t_e] = dvals
+
+    def compile_nets(net_h):
+        B = net_h.masks.shape[1]
+
+        def one(b):
+            return _split_hier(rd.compile_hier(
+                net_h.kinds, net_h.dists, net_h.masks[:, b, :], bl, gmax=gmax))
+
+        if B == 1:
+            return [one(0)]
+        with ThreadPoolExecutor(max_workers=min(B, os.cpu_count() or 1)) as pool:
+            return list(pool.map(one, range(B)))
+
+    nets = []
+    for g0 in range(0, nnets, host_batch):
+        g1 = min(g0 + host_batch, nnets)
+        net_h = rn.build_gather_network(idx_all[g0:g1], ncol, m, drop_empty=False)
+        nets += compile_nets(net_h)
+        if verbose:
+            print(f"  hier nets {g0}..{g1 - 1}/{nnets} built", flush=True)
+
+    # un-permute network: y_nat[r] = y_sorted[rank[r]]; zero-count rows read
+    # the zero pad slot n_nz. When the matrix is already stored in
+    # length-sorted row order the un-permute is the identity and is skipped.
+    rank = np.full(n, n_nz, dtype=np.int64)
+    rank[order[:n_nz]] = np.arange(n_nz)
+    m_out = max(2 * bl, _pow2_at_least(max(n, n_nz + 1)))
+    if np.array_equal(order[:n_nz], np.arange(n_nz)):
+        unperm = None
+    else:
+        unet = rn.build_gather_network(rank[None], n_nz + 1, m_out, drop_empty=False)
+        (unperm,) = compile_nets(unet)
+    if verbose:
+        print(f"hier: n={n} m={m} bl={bl} gmax={gmax} nets={nnets} "
+              f"slots/nnz={nnets * m / max(len(indices), 1):.2f}", flush=True)
+    return RoutedMatHier(
+        nets=tuple(nets), vals=tuple(vals), unperm=unperm,
+        chunks=tuple(tuple(ch) for ch in nets_chunks), shape=tuple(shape),
+        m=m, m_out=m_out, bl=bl, n_nz=n_nz, colmajor=colmajor,
+    )
+
+
+def _chunk_reduce_net(prod_1d, chlist, colmajor=False):
+    """Per-net ELL sub-block row sums: prod [m] -> concatenated row sums."""
+    segs = [
+        prod_1d[s0 : s0 + rows_c * K]
+        .view((K, rows_c) if colmajor else (rows_c, K))
+        .sum(dim=0 if colmajor else 1)
+        for (s0, rows_c, K) in chlist
+    ]
+    return segs[0] if len(segs) == 1 else torch.cat(segs)
+
+
+def _pad_to(y: torch.Tensor, n: int) -> torch.Tensor:
+    return y if y.shape[0] == n else torch.nn.functional.pad(y, (0, n - y.shape[0]))
+
+
+def _require_device_plan(A) -> None:
+    leaf = A.groups[0].vals if isinstance(A, RoutedMatHierP) else A.vals[0]
+    if not isinstance(leaf, torch.Tensor):
+        raise TypeError(
+            "hier plan is staged on the host (numpy): put it on a device with "
+            "maybe_pack_hier(M, device) first")
+
+
+def _hier_unperm(A, ys):
+    """Sorted chunk-concatenated row sums -> natural row order (the unperm
+    network through the un-batched appliers), cut or padded to n rows."""
+    n = A.shape[0]
+    if A.unperm is None:
+        return tuple(_pad_to(y, n) for y in ys)
+    outs = hier_net_apply(
+        A.unperm, tuple(_pad_plane(y, A.m_out) for y in ys), A.bl)
+    return tuple(u.reshape(A.m_out)[:n] for u in outs)
+
+
+def routed_hier_spmv(A, x: torch.Tensor) -> torch.Tensor:
+    """y = A x for a RoutedMatHier (net by net, kernels K3u-K6u) or a
+    RoutedMatHierP (group by group, kernels K3-K6), plain floats."""
+    _require_device_plan(A)
+    if isinstance(A, RoutedMatHierP):
+        return _routed_hier_spmv_packed(A, x)
+    xp = _pad_plane(x.to(A.vals[0].dtype), A.m)
+    parts = []
+    for net, vals, chlist in zip(A.nets, A.vals, A.chunks):
+        (o,) = hier_net_apply(net, (xp,), A.bl)
+        parts.append(_chunk_reduce_net(vals * o.reshape(A.m), chlist, A.colmajor))
+    return _hier_unperm(A, (torch.cat(parts),))[0]
+
+
+def _routed_hier_spmv_packed(A: RoutedMatHierP, x):
+    xp = _pad_plane(x.to(A.groups[0].vals.dtype), A.m)
+    parts = [None] * len(A.chunks)
+    for grp in A.groups:
+        (o,) = rd.hier_apply_batched((xp,), grp.pass_meta, grp.pass_masks, A.bl)
+        prod = grp.vals * o  # both [Ng, m//128, 128]
+        for li, ni in enumerate(grp.net_ids):
+            parts[ni] = _chunk_reduce_net(
+                prod[li].reshape(A.m), A.chunks[ni], A.colmajor)
+    return _hier_unperm(A, (torch.cat(parts),))[0]
+
+
+def _routed_hier_spmv_packed_df(A: RoutedMatHierP, x: df.DF) -> df.DF:
+    planes = (_pad_plane(x.hi, A.m), _pad_plane(x.lo, A.m))
+    nnets = len(A.chunks)
+    parts_h = [None] * nnets
+    parts_l = [None] * nnets
+    for grp in A.groups:
+        oh, ol = rd.hier_apply_batched(planes, grp.pass_meta, grp.pass_masks, A.bl)
+        for li, ni in enumerate(grp.net_ids):
+            parts_h[ni], parts_l[ni] = dfk.chunk_mulreduce_df(
+                (grp.vals[0, li].reshape(A.m), grp.vals[1, li].reshape(A.m)),
+                oh[li].reshape(A.m), ol[li].reshape(A.m),
+                A.chunks[ni], A.colmajor,
+            )
+    return df.DF(*_hier_unperm(A, (torch.cat(parts_h), torch.cat(parts_l))))
+
+
+def routed_hier_spmv_df(A, x: df.DF) -> df.DF:
+    """df64 y = A x for a RoutedMatHier or a RoutedMatHierP: the (hi, lo)
+    planes go through identical switches, then the fused multiply + row sum
+    (kernels/dfmulred.py) per chunk."""
+    _require_device_plan(A)
+    if isinstance(A, RoutedMatHierP):
+        return _routed_hier_spmv_packed_df(A, x)
+    planes = (_pad_plane(x.hi, A.m), _pad_plane(x.lo, A.m))
+    his, los = [], []
+    for net, vals, chlist in zip(A.nets, A.vals, A.chunks):
+        oh, ol = hier_net_apply(net, planes, A.bl)
+        h, l_ = dfk.chunk_mulreduce_df(
+            vals, oh.reshape(A.m), ol.reshape(A.m), chlist, A.colmajor)
+        his.append(h)
+        los.append(l_)
+    return df.DF(*_hier_unperm(A, (torch.cat(his), torch.cat(los))))

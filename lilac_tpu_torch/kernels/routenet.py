@@ -33,6 +33,8 @@ operator the reference runs.
 from __future__ import annotations
 
 import dataclasses
+import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Tuple
 
 import numpy as np
@@ -134,29 +136,46 @@ def benes_route_batched(perm: np.ndarray) -> List[Tuple[int, np.ndarray]]:
     return stages
 
 
-def _benes_stages(perm2d: np.ndarray) -> List[Tuple[int, np.ndarray]]:
-    """Beneš switch masks for a batch of permutations.
+def _benes_stages_many(perms) -> List[List[Tuple[int, np.ndarray]]]:
+    """Beneš switch masks for several batches of permutations ([B, m] each,
+    one m), one stage list per batch.
 
-    Prefers the native C constructor (sequential cycle-walk coloring,
+    Prefers the native C constructor (sequential cycle-walk colouring,
     far faster on the host than the numpy pointer-jumping path);
-    falls back to benes_route_batched. Colorings (hence masks) differ
-    between the two, but both realize the same permutations."""
+    falls back to benes_route_batched. Colourings (hence masks) differ
+    between the two, but both realize the same permutations. The C router
+    runs outside the GIL, so the permutations of a call are routed on
+    threads; each result depends on its own permutation only."""
     from lilac_tpu_torch import native
 
-    if not native.available():  # pragma: no cover - toolchain missing
-        return benes_route_batched(perm2d)
-    B, m = perm2d.shape
-    if m < 4:
-        return benes_route_batched(perm2d)
+    m = perms[0].shape[1]
+    if m < 4 or not native.available():  # pragma: no cover - toolchain missing
+        return [benes_route_batched(p) for p in perms]
     nlev = int(np.log2(m))
     S = 2 * nlev - 1
-    masks = np.empty((S, B, m), dtype=bool)
-    for b in range(B):
-        masks[:, b, :] = native.benes_route(perm2d[b]).astype(bool)
     dists = [m >> (lv + 1) for lv in range(nlev)] + [
         m >> (nlev - lv) for lv in range(1, nlev)
     ]
-    return list(zip(dists, masks))
+    masks = [np.empty((S, p.shape[0], m), dtype=bool) for p in perms]
+    jobs = [(k, b) for k, p in enumerate(perms) for b in range(p.shape[0])]
+
+    def route(job):
+        k, b = job
+        masks[k][:, b, :] = native.benes_route(perms[k][b]).astype(bool)
+
+    workers = min(len(jobs), os.cpu_count() or 1)
+    if workers <= 1:
+        for job in jobs:
+            route(job)
+    else:
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            list(pool.map(route, jobs))
+    return [list(zip(dists, mk)) for mk in masks]
+
+
+def _benes_stages(perm2d: np.ndarray) -> List[Tuple[int, np.ndarray]]:
+    """Beneš switch masks for one batch of permutations."""
+    return _benes_stages_many([perm2d])[0]
 
 
 # ---------------------------------------------------------------------------
@@ -326,7 +345,6 @@ def build_gather_network(
             src = np.nonzero(unassigned_src[b])[0]
             tgt = np.nonzero(~tgt_taken[b])[0]
             perm1[b, src] = tgt
-        stages1 = _benes_stages(perm1)
 
         # ---- broadcast: offset within run, copy from k - 2^msb(o)
         run_first = np.maximum.accumulate(
@@ -350,7 +368,10 @@ def build_gather_network(
         # positions T..m carry don't-care values; ordv values < T so the
         # tail identity mapping keeps perm2 a permutation
         pass
-    stages2 = _benes_stages(perm2)
+    if mode == "benes":
+        stages1, stages2 = _benes_stages_many([perm1, perm2])
+    else:
+        stages2 = _benes_stages(perm2)
 
     kinds: List[str] = []
     dists: List[int] = []

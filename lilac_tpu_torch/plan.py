@@ -20,7 +20,11 @@ class FactoredNPBPlan:
     def __init__(self, class_name: str, *, dtype: str = "f64", device="cuda"):
         from lilac_tpu_torch.generate.npb import CLASSES
         from lilac_tpu_torch.kernels import factored as _f
-        from lilac_tpu_torch.kernels.routed_spmv import RoutedMat
+        from lilac_tpu_torch.kernels.routed_spmv import (
+            RoutedMat,
+            RoutedMatHier,
+            RoutedMatHierP,
+        )
 
         cls = CLASSES[class_name.upper()]
         self.shape = (cls.na, cls.na)
@@ -29,8 +33,9 @@ class FactoredNPBPlan:
         self.A, self.nnz = _f.build_factored(class_name, dtype=dtype, device=device)
         # label the sub-kernel serving the V / VT passes: "routed" = routing
         # networks through the CUDA kernels, "gather" = plain torch indexing
-        v_routed = isinstance(self.A.V, RoutedMat)
-        t_routed = isinstance(self.A.VT, RoutedMat)
+        routed = (RoutedMat, RoutedMatHier, RoutedMatHierP)
+        v_routed = isinstance(self.A.V, routed)
+        t_routed = isinstance(self.A.VT, routed)
         sub = ("routed" if v_routed and t_routed
                else "mixed" if v_routed or t_routed else "gather")
         self.kernel = f"factored_{sub}" + ("_df" if dtype == "df64" else "")

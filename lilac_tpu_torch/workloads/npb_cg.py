@@ -37,6 +37,7 @@ class NPBCGResult:
     dtype: str
     kernel: str
     rnorm_last: float
+    zeta_history: Optional[np.ndarray] = None  # zeta after each outer step
 
 
 def nnz_per_row_flops(cls) -> float:
@@ -137,6 +138,7 @@ def run(
         dtype=dtype,
         kernel=plan.kernel,
         rnorm_last=float(rnorm_hist[-1]),
+        zeta_history=zeta_hist,
     )
 
 

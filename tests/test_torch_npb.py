@@ -230,9 +230,10 @@ def test_unported_paths_raise(data_dirs, monkeypatch):
         with pytest.raises(NotImplementedError, match="routed_apply_sliced_b|SegELLScan"):
             tfac.build_factored("S", device="cpu")
     monkeypatch.setenv("LILAC_FACTORED_SEGMODE", "routed")
-    with pytest.raises(NotImplementedError, match="routed_apply_sliced_b"):
-        tfac.build_factored("D", device="cpu")
     monkeypatch.setenv("LILAC_FACTORED_VT", "adj")
+    # class D builds hierarchical plans now; its adjoint product does not
+    with pytest.raises(NotImplementedError, match="routed_apply_sliced_bt"):
+        tfac.build_factored("D", device="cpu")
     with pytest.raises(NotImplementedError, match="routed_apply_t"):
         tfac.build_factored("S", device="cpu")
     monkeypatch.setenv("LILAC_FACTORED_VT", "plan")
@@ -245,6 +246,13 @@ def test_config_is_a_subset_of_the_reference_catalogue(monkeypatch):
     ref = {k.attr: k for k in jcfg.KNOBS}
     for k in tcfg.KNOBS:
         assert k.attr in ref, k.attr  # no new knob
+        if k.attr == "hier_bl":
+            # same name, another default: the JAX package's 2^16 slots fit a
+            # TPU's on-chip memory; the port derives its block from a thread
+            # block's shared memory (None = derived, 2^13 on an H100)
+            assert k.env == ref[k.attr].env and k.default is None
+            assert ref[k.attr].default == 1 << 16
+            continue
         assert (k.env, k.typ, k.default) == (ref[k.attr].env, ref[k.attr].typ,
                                              ref[k.attr].default)
     monkeypatch.delenv("LILAC_DATA_DIR", raising=False)
