@@ -6,7 +6,9 @@
 Drives lilac_tpu_torch's main path, NPB CG in df64 through the routed
 factored operator, at the full width of NPB class C (na = 150000, the
 widest class the single-table path serves) and of NPB class D
-(na = 1500000, through the hierarchical plans), and proves on the card that
+(na = 1500000, through ONE hierarchical plan run forwards for V and in
+reverse for V^T, factored_vt=adj, which `auto` resolves to there), and
+proves on the card that
 
 * the CUDA kernels build from csrc/ (nvcc, sm_90a),
 * TwoSum / TwoProd inside the df64 kernel's translation unit are exact,
@@ -16,10 +18,15 @@ widest class the single-table path serves) and of NPB class D
 * a general sparse matrix (unsorted rows, a column dense enough to need
   block-aligned shifts) multiplies right through the hierarchical plans,
   packed (kernels K3-K6) and net by net (their un-batched forms K3u-K6u),
+  and its transpose through the same plans in reverse (kernels K7-K10),
+* a whole reversed schedule is the transpose of the gather it encodes
+  (index_add_ on the composed index, in f64) and <G x, u> = <x, G^T u>,
 * NPB class S verifies in f32 / f64 / df64 through both operators, class C
   verifies (zeta rel. err <= 1e-10) in df64 through the single-table routed
   operator and class D through the hierarchical one, with every kernel of
-  each path launched on that run.
+  each path launched on that run; each class also runs a few outer steps
+  in the other factored_vt mode (class C: adj, which launches K11; class D:
+  plan, two forward plans) and the two zeta histories agree to 1e-12.
 
 It prints one JSON line per phase, then the line {"kernels": [...]} with
 each kernel's measured time beside its bound, and last
@@ -32,9 +39,9 @@ CHIP_SMOKE_C_STEPS / CHIP_SMOKE_D_STEPS set the outer steps of the class C
 and class D runs (default: all). A cut run cannot claim NPB's verification
 and is held instead to the native-f64 gather operator's zeta history on the
 card, to 1e-10 relative. Arguments name phases to run alone, for finding a
-fault ("hier" = the small hierarchical checks and the general matrix, "d" =
-the class D plan, its kernels and its run); such a run exits 2 without the
-last line.
+fault ("hier" = the small hierarchical checks and the general matrix, "k11"
+= the single-table adjoint at a small size, "d" = the class D plan, its
+kernels and its runs); such a run exits 2 without the last line.
 """
 
 from __future__ import annotations
@@ -196,6 +203,66 @@ def _check_k1(masks, kinds, dists, host_net, rng, what: str) -> None:
                     f"routed_apply != apply_host ({what}, {dtype.__name__} x{nplanes})")
 
 
+def _adj_planes(rng, shape, dtype, nplanes, dfpair):
+    """Random per-net planes; a df64 pair gets a lo word below hi's last bit
+    and a few signed zeros."""
+    hi = rng.standard_normal(int(np.prod(shape))).astype(dtype).reshape(shape)
+    hi[rng.random(shape) < 0.02] = -0.0
+    xs = [hi]
+    if nplanes == 2:
+        xs.append((hi * dtype(2.0 ** -25)).astype(dtype) if dfpair
+                  else rng.standard_normal(int(np.prod(shape))).astype(dtype).reshape(shape))
+    return tuple(torch.as_tensor(x, device=DEVICE) for x in xs)
+
+
+def _check_k11(masks, kinds, dists, idx, rng, what: str) -> None:
+    """routed_apply_t == routed_apply_t_plain bit for bit in every value
+    format, and == the transpose of the gather idx [B, m] the network
+    encodes (index_add_ in f64; f32 planes to 1e-5, f64 and df64 to 1e-12
+    of sum|u|)."""
+    from lilac_tpu_torch.kernels import routed as rd
+
+    B, _, R, _ = masks.shape
+    flat = _net_offsets(idx)
+    for dtype, nplanes, dfpair in ADJ_FORMATS + ((np.float64, 2, True),):
+        xs = _adj_planes(rng, (B, R, 128), dtype, nplanes, dfpair)
+        got = rd.routed_apply_t(xs, masks, kinds, dists, dfpair=dfpair)
+        torch.cuda.synchronize()
+        want = rd.routed_apply_t_plain(xs, masks, kinds, dists, dfpair=dfpair)
+        fmt = f"{dtype.__name__} x{nplanes}{' df' if dfpair else ''}"
+        if not all(_bits_equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"routed_apply_t != plain ({what}, {fmt})")
+        tol = 1e-5 if dtype is np.float32 and not dfpair else 1e-12
+        for g, x in zip(_numbers(got, dfpair), _numbers(xs, dfpair)):
+            _check_transpose(g, flat, x, tol, f"routed_apply_t ({what}, {fmt})")
+
+
+def phase_k11_small() -> dict:
+    """K11 at m = 1024: a monotone network (all three stage kinds) and a
+    Benes one, every value format, against the plain version and against
+    the transpose of the gather."""
+    from lilac_tpu_torch.kernels import routed as rd
+    from lilac_tpu_torch.kernels import routenet as rn
+
+    rng = np.random.default_rng(13)
+    m, B, ncol = 1024, 3, 700
+    checked = []
+    for mode in ("monotone", "benes"):
+        idx = rng.integers(0, ncol, size=(B, m))
+        net = rn.build_gather_network(idx, ncol, m, mode=mode)
+        if mode == "monotone" and set(net.kinds) != {"xor", "shift", "shiftl"}:
+            raise AssertionError(f"expected all three stage kinds, got {set(net.kinds)}")
+        _check_k11(rd.masks_device(net, DEVICE), net.kinds, net.dists,
+                   torch.as_tensor(idx, device=DEVICE), rng, f"m={m} {mode}")
+        checked.append({"kernel": "routed_apply_t", "m": m, "B": B, "mode": mode,
+                        "stages": len(net.kinds)})
+    line = {"phase": "k11_small", "checked": checked,
+            "formats": ["float32 x1", "float32 x2", "float32 x2 df", "float64 x1",
+                        "float64 x2 df"]}
+    emit(line)
+    return line
+
+
 def _k2_bound(K: int, R: int):
     nbytes = 4 * K * R * 4 + 2 * R * 4
     # per term: TwoProd 17, cross terms 4, TwoSum 6, compensation 2
@@ -277,6 +344,36 @@ def phase_kernels(plan_c) -> dict:
         "bytes": k1_bytes, "grids_per_call": S, "index_gather_ms": gather_ms,
     }
 
+    # --- K11 on the class C plan: V's own network in reverse ----------------
+    # (monotone: xor, shift and shiftl stages; a df64 pair per net)
+    _check_k11(V.masks, V.kinds, V.dists, gidx, rng, "class C V plan")
+    checked.append({"kernel": "routed_apply_t", "m": m, "B": B,
+                    "mode": "class C V plan", "stages": S,
+                    "kinds": sorted(set(V.kinds))})
+    uh, ul = _adj_planes(rng, (B, R, 128), np.float32, 2, True)
+    k11_ms = time_ms(lambda: rd.routed_apply_t(
+        [uh, ul], V.masks, V.kinds, V.dists, dfpair=True), 20)
+    k11_plain_ms = time_ms(lambda: rd.routed_apply_t_plain(
+        [uh, ul], V.masks, V.kinds, V.dists, dfpair=True), 3)
+    flat = _net_offsets(gidx)
+    k11_lib_ms = time_ms(lambda: (_index_add(flat, uh), _index_add(flat, ul)), 20)
+    k11_bytes = 2 * 2 * B * m * 4 + B * P * m
+    k11 = {
+        "name": "routed_apply_t", "route": "cuda",
+        "source": "lilac_tpu_torch/csrc/adjoint.cu",
+        "replaces": "lilac_tpu/kernels/routed.py:287",
+        "launches": 0, "max_abs_err": 0.0,
+        "ms": k11_ms, "plain_ms": k11_plain_ms,
+        "bound_ms": k11_bytes / PEAK_BYTES_S * 1e3, "bound_by": "bytes",
+        "library_ms": k11_lib_ms,
+        "library": "index_add_ on the composed index, once per plane (other "
+                   "inputs: it needs idx; uncompensated)",
+        "shape": {"m": m, "B": B, "stages": S, "planes": 2, "dtype": "float32",
+                  "dfpair": True},
+        "bytes": k11_bytes, "grids_per_call": S,
+    }
+    del flat, uh, ul
+
     # --- K2: against plain and numpy f64 at K in {1, 16, 35} ----------------
     k2_err = 0.0
     R_c, K_c = V.chunks[0]
@@ -331,8 +428,10 @@ def phase_kernels(plan_c) -> dict:
     }
     emit({"phase": "kernels", "checked": checked,
           "times_ms": {"routed_apply": k1_ms, "routed_apply_plain": k1_plain_ms,
+                       "routed_apply_t": k11_ms, "routed_apply_t_plain": k11_plain_ms,
+                       "routed_apply_t_index_add": k11_lib_ms,
                        "dfmulred": k2_ms, "dfmulred_plain": k2_plain_ms}})
-    return {"routed_apply": k1, "dfmulred": k2}
+    return {"routed_apply": k1, "dfmulred": k2, "routed_apply_t": k11}
 
 
 # ---------------------------------------------------------------------------
@@ -354,8 +453,22 @@ REPLACES = {
     "window_shift_apply_b": 1182, "bigshift_apply_b": 1255,
     "routed_apply_sliced": 398, "butterfly_apply": 503,
     "window_shift_apply": 591, "bigshift_apply": 662,
+    "routed_apply_sliced_bt": 1490, "butterfly_apply_bt": 1602,
+    "window_shift_apply_bt": 1709, "bigshift_apply_bt": 1806,
 }
 FORMATS = ((np.float32, 1), (np.float32, 2), (np.float64, 1))
+# pass kind -> (adjoint wrapper, plain version); net-batched only, one net is N = 1
+ADJ_FNS = {
+    "inner": ("routed_apply_sliced_bt", "routed_apply_sliced_bt_plain"),
+    "butterfly": ("butterfly_apply_bt", "butterfly_apply_bt_plain"),
+    "window": ("window_shift_apply_bt", "window_shift_apply_bt_plain"),
+    "bigshift": ("bigshift_apply_bt", "bigshift_apply_bt_plain"),
+}
+ADJ_NAMES = [ADJ_FNS[k][0] for k in ADJ_FNS]
+# adjoint value formats: (dtype, planes, dfpair); a pair adds plane by plane
+# or, as one df64 (hi, lo) number, compensated
+ADJ_FORMATS = ((np.float32, 1, False), (np.float32, 2, False), (np.float32, 2, True),
+               (np.float64, 1, False))
 
 
 def _call_pass(fn, meta, planes, mk, bl, layout):
@@ -426,6 +539,129 @@ def _walk_schedule(rd, planes, metas, masks, bl, batched: bool, what: str,
     return planes, layout
 
 
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Same shape and the same bits (torch.equal would pass -0.0 for 0.0)."""
+    as_int = torch.int32 if a.element_size() == 4 else torch.int64
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(as_int), b.contiguous().view(as_int))
+
+
+def _call_pass_t(fn, meta, planes, mk, bl, layout, dfpair):
+    """One ADJOINT pass through `fn` (a wrapper or a plain version)."""
+    kind = meta[0]
+    if kind == "butterfly":  # a pure permutation: no merge, no dfpair
+        out, lay = fn(planes, mk, meta[1], bl, layout=layout)
+        return out, (None if tuple(lay) == tuple(range(len(lay))) else tuple(lay))
+    if kind == "inner":
+        return fn(planes, mk, meta[1], meta[2], dfpair=dfpair, layout=layout), None
+    return fn(planes, mk, meta[1], bl, dfpair=dfpair, layout=layout), None
+
+
+def _net_offsets(idx: torch.Tensor) -> torch.Tensor:
+    """idx [N, m] per-net slot numbers -> flat [N * m] into an [N * m] vector."""
+    N, m = idx.shape
+    return (idx + torch.arange(N, device=idx.device).view(N, 1) * m).reshape(-1)
+
+
+def _index_add(flat_idx, values: torch.Tensor) -> torch.Tensor:
+    """The transpose of out = x[idx] as PyTorch's one call: zeros.index_add_."""
+    return torch.zeros(flat_idx.numel(), dtype=values.dtype,
+                       device=values.device).index_add_(0, flat_idx, values.reshape(-1))
+
+
+def _numbers(planes, dfpair: bool) -> list:
+    """Planes grouped by the numbers they hold: one df64 (hi, lo) pair, or
+    every plane a number of its own."""
+    return [tuple(planes)] if dfpair else [(p,) for p in planes]
+
+
+def _df_sum64(planes) -> torch.Tensor:
+    return sum(p.to(torch.float64) for p in planes)
+
+
+def _check_transpose(got_planes, flat_idx, u_planes, tol: float, what: str) -> float:
+    """got == G^T u in f64 to tol * (G^T |u|), G the gather flat_idx encodes."""
+    u64 = _df_sum64(u_planes).reshape(-1)
+    want = _index_add(flat_idx, u64)
+    scale = _index_add(flat_idx, u64.abs())
+    err = (_df_sum64(got_planes).reshape(-1) - want).abs()
+    worst = float((err / scale.clamp_min(1e-300)).max())
+    if not bool((err <= tol * scale).all()):
+        raise AssertionError(f"{what}: G^T u differs from index_add_ by {worst:.3e} "
+                             f"of sum|u| (tolerance {tol})")
+    return worst
+
+
+def _walk_schedule_t(rd, planes, metas, masks, bl, dfpair: bool, what: str,
+                     timed: dict | None = None, reps: int = 10) -> tuple:
+    """Run a pass schedule IN REVERSE through the adjoint kernels, holding
+    every pass bit for bit against its plain version on the same per-net
+    input and the layout the reversed schedule really meets. With `timed`,
+    the first pass of each kind is timed (kernel, plain, and for the merging
+    passes index_add_ on the index the pass composes: the one PyTorch call
+    that computes the same sums, given an index the kernel does not need)
+    and its row written under the wrapper's name."""
+    layout = None
+    N = masks[0].shape[0]
+    for j in range(len(metas) - 1, -1, -1):
+        meta, mk = metas[j], masks[j]
+        kind = meta[0]
+        name, name_p = ADJ_FNS[kind]
+        fn, plain = getattr(rd, name), getattr(rd, name_p)
+        got, new_layout = _call_pass_t(fn, meta, planes, mk, bl, layout, dfpair)
+        torch.cuda.synchronize()
+        want, plain_layout = _call_pass_t(plain, meta, planes, mk, bl, layout, dfpair)
+        if new_layout != plain_layout:
+            raise AssertionError(f"{what}: pass {j} {name} layout {new_layout} "
+                                 f"!= plain {plain_layout}")
+        for g, w in zip(got, want):
+            if not _bits_equal(g, w):
+                raise AssertionError(
+                    f"{what}: pass {j} {name} != {name_p} (layout {layout})")
+        del want
+        if timed is not None and name not in timed:
+            esize = planes[0].element_size()
+            m = planes[0].shape[-2] * 128
+            # the window adjoint reads only the masks' self halves
+            mask_bytes = mk.numel() // 2 if kind == "window" else mk.numel()
+            nbytes = 2 * N * m * esize * len(planes) + mask_bytes
+            ms = time_ms(lambda: _call_pass_t(fn, meta, planes, mk, bl, layout, dfpair),
+                         reps)
+            plain_ms = time_ms(
+                lambda: _call_pass_t(plain, meta, planes, mk, bl, layout, dfpair), 2)
+            library_ms = None
+            if kind in ("window", "bigshift"):
+                # the index the pass composes, from routing the slot numbers
+                # forwards (exact in f32 up to 2^24), natural layout
+                iota = torch.arange(m, dtype=torch.float32, device=DEVICE).view(-1, 128)
+                (routed,), _ = _call_pass(
+                    getattr(rd, PASS_FNS[kind][0]), meta, (iota,), mk, bl, None)
+                flat = _net_offsets(routed.view(N, m).to(torch.int64))
+                del routed
+                nat, _ = _call_pass_t(fn, meta, planes, mk, bl, None, dfpair)
+                _check_transpose(nat, flat, planes, 1e-12, f"{what}: pass {j} {name}")
+                del nat
+                library_ms = time_ms(lambda: [_index_add(flat, p) for p in planes], reps)
+                del flat
+            timed[name] = {
+                "name": name, "route": "cuda",
+                "source": "lilac_tpu_torch/csrc/"
+                          + ("hier.cu" if kind in ("inner", "butterfly") else "adjoint.cu"),
+                "replaces": f"lilac_tpu/kernels/routed.py:{REPLACES[name]}",
+                "launches": 0, "max_abs_err": 0.0,
+                "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": nbytes / PEAK_BYTES_S * 1e3, "bound_by": "bytes",
+                "library_ms": library_ms,
+                "shape": {"m": m, "N": N, "bl": bl, "planes": len(planes),
+                          "dtype": str(planes[0].dtype).replace("torch.", ""),
+                          "dfpair": dfpair, "pass": [str(v) for v in meta],
+                          "read_layout": layout},
+                "bytes": nbytes, "timed_on": what,
+            }
+        planes, layout = got, new_layout
+    return planes, layout
+
+
 def _plane(x: torch.Tensor, m: int) -> torch.Tensor:
     """A vector zero-padded to m slots as one [m // 128, 128] plane."""
     return torch.nn.functional.pad(x, (0, m - x.shape[0])).view(m // 128, 128)
@@ -434,8 +670,9 @@ def _plane(x: torch.Tensor, m: int) -> torch.Tensor:
 def _reset_hier_counts(rd, dfk) -> None:
     for w in rd.HIER_WRAPPERS:
         w.launches = 0
-    rd.routed_apply.launches = 0
-    rd.routed_apply.stage_launches = 0
+    for w in (rd.routed_apply, rd.routed_apply_t):
+        w.launches = 0
+        w.stage_launches = 0
     dfk.dfmulred.launches = 0
 
 
@@ -459,14 +696,18 @@ def phase_hier_small() -> dict:
     (b) real schedules from compile_hier at gmax 1, 2, 3 (one column dense
     enough for block-aligned shifts): every pass against its plain version,
     and hier_apply_batched / hier_apply against the numpy applier of the
-    network and against x[idx]."""
+    network and against x[idx].
+    The adjoint kernels K7-K10 likewise: (a) on the same random masks with
+    per-net planes, N = 3 and N = 1, every value format; (b) the same
+    schedules in reverse, pass by pass, and hier_apply_batched_t against the
+    transpose of the gather (index_add_ in f64)."""
     from lilac_tpu_torch.kernels import routed as rd
     from lilac_tpu_torch.kernels import routenet as rn
 
     rng = np.random.default_rng(11)
     bl, m, N = 256, 8192, 3
     nblocks, R = m // bl, bl // 128
-    checks = 0
+    checks = adj_checks = 0
 
     def rand_mask(shape, bits):
         return torch.as_tensor(
@@ -503,6 +744,24 @@ def phase_hier_small() -> dict:
                             f"small: {fn.__name__} != {name_p} ({meta[:2]}, layout "
                             f"{layout}, {dtype.__name__} x{nplanes}, per_net={per_net})")
                     checks += 1
+            # the adjoint pass on the same masks: per-net planes, N nets and one
+            name_t, name_tp = ADJ_FNS[meta[0]]
+            for dtype, nplanes, dfpair in ADJ_FORMATS:
+                for nets in (N, 1):
+                    mk = rand_mask((nets,) + mshape, bits)
+                    planes = _adj_planes(rng, (nets, m // 128, 128), dtype, nplanes,
+                                         dfpair)
+                    got, lay = _call_pass_t(getattr(rd, name_t), meta, planes, mk, bl,
+                                            layout, dfpair)
+                    torch.cuda.synchronize()
+                    want, lay_p = _call_pass_t(getattr(rd, name_tp), meta, planes, mk,
+                                               bl, layout, dfpair)
+                    if lay != lay_p or not all(
+                            _bits_equal(g, w) for g, w in zip(got, want)):
+                        raise AssertionError(
+                            f"small: {name_t} != {name_tp} ({meta[:2]}, layout {layout}, "
+                            f"{dtype.__name__} x{nplanes} dfpair={dfpair}, N={nets})")
+                    adj_checks += 1
 
     ncol = 3000
     idx = rng.integers(0, ncol, size=(N, m))
@@ -539,11 +798,32 @@ def phase_hier_small() -> dict:
                 if not np.array_equal(o0.cpu().numpy().reshape(m), host[0]):
                     raise AssertionError(f"small g={gmax}: hier_apply != apply_host")
             checks += 1
+        # the same schedules in reverse: every adjoint pass against its plain
+        # version, the whole sweep against the transpose of x[idx]
+        flat = _net_offsets(torch.as_tensor(idx, device=DEVICE))
+        for dtype, nplanes, dfpair in ADJ_FORMATS:
+            us = _adj_planes(rng, (N, m // 128, 128), dtype, nplanes, dfpair)
+            _walk_schedule_t(rd, us, metas, stacked, bl, dfpair, f"small g={gmax} adjoint")
+            outs = rd.hier_apply_batched_t(us, metas, stacked, bl, dfpair=dfpair)
+            tol = 1e-5 if dtype is np.float32 and not dfpair else 1e-12
+            for o, u in zip(_numbers(outs, dfpair), _numbers(us, dfpair)):
+                _check_transpose(o, flat, u, tol, f"small g={gmax} hier_apply_batched_t")
+            # one net through the same kernels (N = 1)
+            one = tuple(u[:1].contiguous() for u in us)
+            outs1 = rd.hier_apply_batched_t(
+                one, metas, tuple(mk[:1].contiguous() for mk in stacked), bl,
+                dfpair=dfpair)
+            if not all(_bits_equal(o1[0], o[0]) for o1, o in zip(outs1, outs)):
+                raise AssertionError(f"small g={gmax}: adjoint at N = 1 != net 0 of N = 3")
+            adj_checks += 1
     if kinds_seen != set(PASS_FNS):
         raise AssertionError(f"small schedules lack a pass kind: {kinds_seen}")
     line = {"phase": "hier_small", "bl": bl, "m": m, "nets": N,
-            "random_mask_checks": checks, "gmax": [1, 2, 3],
-            "formats": ["float32 x1", "float32 x2", "float64 x1"]}
+            "random_mask_checks": checks, "adjoint_checks": adj_checks,
+            "gmax": [1, 2, 3],
+            "formats": ["float32 x1", "float32 x2", "float64 x1"],
+            "adjoint_formats": ["float32 x1", "float32 x2", "float32 x2 df",
+                                "float64 x1"]}
     emit(line)
     return line
 
@@ -556,7 +836,10 @@ def phase_hier_general(kernels: dict, n: int = 400_000, bl: int | None = None) -
     =0: kernels K3u-K6u) and packed (K3-K6), in df64 and f64, against the
     f64 CSR product; launch counts are set to 0 before each run and read
     after it. K6 and the four un-batched kernels are timed here, on this
-    plan's own passes (every pass again held against its plain version)."""
+    plan's own passes (every pass again held against its plain version).
+    The transpose product A^T u runs through the same plans in reverse
+    (kernels K7-K10, packed and at N = 1 net by net) against scipy's A^T u;
+    K10, which no NPB plan reaches, is timed and counted here."""
     import scipy.sparse as sp
 
     from lilac_tpu_torch.kernels import dfmulred as dfk
@@ -578,6 +861,9 @@ def phase_hier_general(kernels: dict, n: int = 400_000, bl: int | None = None) -
     x = rng.standard_normal(ncol)
     want = A @ x
     scale = abs(A) @ np.abs(x)
+    u = rng.standard_normal(n)
+    want_t = A.T @ u
+    scale_t = abs(A).T @ np.abs(u)
 
     line = {"phase": "hier_general", "n": n, "nnz": int(indptr[-1]), "runs": []}
     timed: dict = {}
@@ -622,6 +908,30 @@ def phase_hier_general(kernels: dict, n: int = 400_000, bl: int | None = None) -
                         f"general matrix {dtype} packed={pack}: {name} not launched")
             if not pack and any(counts_run[name] for name in batched):
                 raise AssertionError("net-by-net run launched a net-batched kernel")
+            # the transpose product through the same plan in reverse
+            _reset_hier_counts(rd, dfk)
+            if dtype == "df64":
+                got_t = df.to_f64(
+                    rs.routed_hier_spmv_adj_t_df(P, df.from_f64(u, device=DEVICE)))
+            else:
+                got_t = rs.routed_hier_spmv_adj_t(
+                    P, torch.as_tensor(u, device=DEVICE)).cpu().numpy()
+            torch.cuda.synchronize()
+            counts_t = _hier_counts(rd)
+            # columns no row touches have scale 0 and must come out exactly 0
+            err_t = float((np.abs(got_t - want_t) / np.maximum(scale_t, 1e-300)).max())
+            line["runs"][-1].update(
+                adjoint_max_err_over_sum_abs=err_t,
+                adjoint_launches={k: counts_t[k] for k in ADJ_NAMES})
+            if got_t.shape != (ncol,) or not np.isfinite(got_t).all() or err_t > tol:
+                raise AssertionError(
+                    f"general matrix {dtype} packed={pack}: adjoint error {err_t}")
+            if any(counts_t[name] <= 0 for name in ADJ_NAMES) or any(
+                    counts_t[name] for name in batched + single):
+                raise AssertionError(
+                    f"general matrix {dtype} packed={pack}: adjoint launches {counts_t}")
+            if dtype == "df64" and pack:
+                launches.update({name: counts_t[name] for name in ADJ_NAMES})
             if dtype == "df64":
                 launches.update(
                     {name: counts_run[name] for name in (batched if pack else single)})
@@ -635,15 +945,26 @@ def phase_hier_general(kernels: dict, n: int = 400_000, bl: int | None = None) -
                     rd, planes, net.pass_meta, net.pass_masks, M.bl, pack,
                     "general matrix, " + ("packed group" if pack else "one net"),
                     timed, 10)
+                # the same schedule in reverse on per-net cotangents (one net:
+                # the adjoint kernels at N = 1)
+                masks_t = (net.pass_masks if pack
+                           else tuple(mk.unsqueeze(0) for mk in net.pass_masks))
+                nets = masks_t[0].shape[0]
+                _walk_schedule_t(
+                    rd, _adj_planes(rng, (nets, M.m // 128, 128), np.float32, 2, True),
+                    net.pass_meta, masks_t, M.bl, True,
+                    "general matrix, " + ("packed group" if pack else "one net (N = 1)"),
+                    timed if pack else None, 10)
             del P
         del M
         torch.cuda.empty_cache()
-    for name in [PASS_FNS[k][1] for k in PASS_FNS] + ["bigshift_apply_b"]:
+    for name in [PASS_FNS[k][1] for k in PASS_FNS] + ["bigshift_apply_b"] + ADJ_NAMES:
         if name not in timed:
             raise AssertionError(f"general matrix: no {name} pass to time")
         kernels[name] = timed[name]
         kernels[name]["launches"] = launches[name]
-        kernels[name]["launches_on"] = "general-matrix hier SpMV (df64)"
+        kernels[name]["launches_on"] = "general-matrix hier SpMV (df64)" + (
+            ", transpose product, packed" if name in ADJ_NAMES else "")
     line["general_launches"] = launches
     emit(line)
     return line
@@ -653,7 +974,10 @@ def phase_hier_class_d(plan_d, kernels: dict) -> dict:
     """K3, K4, K5 (and K6 where the plan has such a pass) at class D's own
     shapes: the largest packed group of the V plan, every pass of its
     schedule held bit for bit against the plain version on all its nets, the
-    first pass of each kind timed."""
+    first pass of each kind timed. Then K7, K8, K9 on the same schedule in
+    reverse (a df64 pair per net, each pass with the layout the reversed
+    sweep meets), the whole reversed schedule against the transpose of the
+    gather it encodes, and <G x, u> = <x, G^T u> in f64."""
     from lilac_tpu_torch.kernels import routed as rd
 
     V = plan_d.A.V
@@ -674,32 +998,53 @@ def phase_hier_class_d(plan_d, kernels: dict) -> dict:
     _walk_schedule(rd, planes, grp.pass_meta,
                    [mk[0].contiguous() for mk in grp.pass_masks], V.bl, False,
                    "class D V plan, one net")
+    # the schedule in reverse through the adjoint kernels, a df64 pair per net
+    N = len(grp.net_ids)
+    timed_t: dict = {}
+    us = _adj_planes(rng, (N, V.m // 128, 128), np.float32, 2, True)
+    _walk_schedule_t(rd, us, grp.pass_meta, grp.pass_masks, V.bl, True,
+                     f"class D V plan, group of {N} nets, reversed", timed_t, 10)
+    for name, row in timed_t.items():
+        if name == "bigshift_apply_bt" and name in kernels:
+            continue  # K10's row stays the general matrix's
+        kernels[name] = row
+    _walk_schedule_t(rd, tuple(u[:1].contiguous() for u in us), grp.pass_meta,
+                     [mk[:1].contiguous() for mk in grp.pass_masks], V.bl, True,
+                     "class D V plan, one net (N = 1), reversed")
     # NPB's broadcast runs are short, so its plans hold no block-aligned
-    # shift: K6 meets class D's shapes on a random 0/1 mask instead, planes
-    # per net, read through the layout a butterfly pass leaves
+    # shift: K6 and K10 meet class D's shapes on a random 0/1 mask instead,
+    # planes per net, read through the layout a butterfly pass leaves
     shift_extra = {}
     if not any(mt[0] == "bigshift" for mt in grp.pass_meta):
-        N0, R = len(grp.net_ids), V.bl // 128
+        R = V.bl // 128
         nblocks = V.m // V.bl
-        per_net = tuple(p.unsqueeze(0).expand(N0, -1, -1).contiguous() for p in planes)
+        per_net = tuple(p.unsqueeze(0).expand(N, -1, -1).contiguous() for p in planes)
         meta = ("bigshift", 5 * V.bl)
         lay = tuple(range(3, nblocks.bit_length() - 1)) + (0, 1, 2)
-        for batched in (True, False):
+        for name, plain_name, batched in (
+                ("bigshift_apply_b", "bigshift_apply_plain", True),
+                ("bigshift_apply", "bigshift_apply_plain", False),
+                ("bigshift_apply_bt", "bigshift_apply_bt_plain", True)):
+            adjoint = name.endswith("_bt")
             mk = torch.as_tensor(
-                rng.integers(0, 2, size=((N0,) if batched else ())
+                rng.integers(0, 2, size=((N,) if batched else ())
                              + (nblocks, R, 128), dtype=np.int8), device=DEVICE)
-            xs = per_net if batched else planes
-            name = PASS_FNS["bigshift"][0 if batched else 1]
-            got, _ = _call_pass(getattr(rd, name), meta, xs, mk, V.bl, lay)
-            want, _ = _call_pass(rd.bigshift_apply_plain, meta, xs, mk, V.bl, lay)
-            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            xs = us if adjoint else per_net if batched else planes
+
+            def run(fn_name):
+                if adjoint:
+                    return _call_pass_t(getattr(rd, fn_name), meta, xs, mk, V.bl, lay, True)
+                return _call_pass(getattr(rd, fn_name), meta, xs, mk, V.bl, lay)
+
+            got, _ = run(name)
+            want, _ = run(plain_name)
+            if not all(_bits_equal(g, w) for g, w in zip(got, want)):
                 raise AssertionError(f"{name} != plain at class D shapes")
             del got, want
-            nets = N0 if batched else 1
+            nets = N if batched else 1
             nbytes = 2 * nets * V.m * 4 * len(planes) + mk.numel()
             shift_extra[name] = {
-                "ms": time_ms(lambda: _call_pass(
-                    getattr(rd, name), meta, xs, mk, V.bl, lay), 10),
+                "ms": time_ms(lambda: run(name), 10),
                 "bound_ms": nbytes / PEAK_BYTES_S * 1e3, "bytes": nbytes,
                 "N": nets, "m": V.m, "mask": "random 0/1"}
         del per_net
@@ -707,7 +1052,6 @@ def phase_hier_class_d(plan_d, kernels: dict) -> dict:
     # numbers (exact in f32 up to 2^24) gives idx with out[n, k] = x[idx[n, k]];
     # x[idx] needs idx, which the network only encodes, so it is a yardstick
     # beside the schedule, not a library counterpart of any one pass.
-    N = len(grp.net_ids)
     iota = torch.arange(V.m, dtype=torch.float32, device=DEVICE).view(-1, 128)
     (routed_iota,) = rd.hier_apply_batched((iota,), grp.pass_meta, grp.pass_masks, V.bl)
     gidx = routed_iota.view(N, V.m).to(torch.int64)
@@ -720,10 +1064,41 @@ def phase_hier_class_d(plan_d, kernels: dict) -> dict:
     schedule_ms = time_ms(lambda: rd.hier_apply_batched(
         planes, grp.pass_meta, grp.pass_masks, V.bl), 5)
     gather_ms = time_ms(lambda: [f[gidx] for f in flat], 5)
+    # the whole REVERSED schedule against the transpose of that gather:
+    # zeros.index_add_(0, idx, u) in f64, to 1e-12 of sum|u| per column (the
+    # compensated merges of a df64 pair round at about 2^-47 each)
+    flat_idx = _net_offsets(gidx)
+    outs_t = rd.hier_apply_batched_t(us, grp.pass_meta, grp.pass_masks, V.bl, dfpair=True)
+    transpose_err = _check_transpose(
+        outs_t, flat_idx, us, 1e-12, "class D V schedule, reversed")
+    del outs_t
+    schedule_t_ms = time_ms(lambda: rd.hier_apply_batched_t(
+        us, grp.pass_meta, grp.pass_masks, V.bl, dfpair=True), 5)
+    index_add_ms = time_ms(lambda: [_index_add(flat_idx, u) for u in us], 5)
+    del us, flat_idx
+    # <G x, u> = <x, G^T u> with f64 planes through the same kernels
+    x64 = torch.as_tensor(rng.standard_normal(V.m), device=DEVICE)
+    u64 = torch.as_tensor(rng.standard_normal((N, V.m)), device=DEVICE)
+    (gx,) = rd.hier_apply_batched(
+        (x64.view(-1, 128),), grp.pass_meta, grp.pass_masks, V.bl)
+    (gtu,) = rd.hier_apply_batched_t(
+        (u64.view(N, -1, 128),), grp.pass_meta, grp.pass_masks, V.bl)
+    lhs = (gx.view(N, V.m) * u64).sum(dim=1)
+    rhs = gtu.view(N, V.m) @ x64
+    dot_scale = (gx.view(N, V.m) * u64).abs().sum(dim=1)
+    adjoint_identity_err = float(((lhs - rhs).abs() / dot_scale).max())
+    if not adjoint_identity_err <= 1e-12:
+        raise AssertionError(
+            f"class D: <G x, u> != <x, G^T u>: {adjoint_identity_err:.3e} of sum|.|")
+    del x64, u64, gx, gtu
     line = {"phase": "hier_class_d", "group_nets": N, "m": V.m, "bl": V.bl,
             "passes_checked": len(grp.pass_meta),
             "timed": {k: v["ms"] for k, v in timed.items()},
+            "timed_adjoint": {k: v["ms"] for k, v in timed_t.items()},
             "schedule_ms": schedule_ms, "index_gather_ms": gather_ms,
+            "schedule_t_ms": schedule_t_ms, "index_add_ms": index_add_ms,
+            "transpose_max_err_over_sum_abs": transpose_err,
+            "adjoint_identity_err_over_sum_abs": adjoint_identity_err,
             "bigshift_at_class_d_shapes": shift_extra}
     emit(line)
     return line
@@ -818,10 +1193,28 @@ def _check_npb(res, line, class_name: str, steps: int) -> None:
         raise AssertionError(f"class {class_name} cut run disagrees: {cut}")
 
 
+def _compare_histories(a, b, what: str, tol: float = 1e-12) -> float:
+    """The zeta histories of two runs over their common outer steps, to
+    `tol` relative: the two factored_vt modes compute the same products in
+    another order of df64 sums."""
+    k = min(len(a.zeta_history), len(b.zeta_history))
+    rel = np.abs(a.zeta_history[:k] - b.zeta_history[:k]) / np.abs(b.zeta_history[:k])
+    worst = float(rel.max())
+    emit({"phase": "vt_modes", "what": what, "outer_steps_compared": k,
+          "factored_vt": [a.factored_vt, b.factored_vt],
+          "zeta_history_max_rel_diff": worst, "tol": tol})
+    if {a.factored_vt, b.factored_vt} != {"adj", "plan"} or not worst <= tol:
+        raise AssertionError(f"{what}: adj and plan disagree: {worst:.3e}")
+    return worst
+
+
 def phase_main_path_c(kernels: dict) -> dict:
     """Main path through the single-table plans: npb_cg.run("C") in df64 through
-    the routed operator, launch counts set to 0 just before and read just
-    after (kernels K1 and K2)."""
+    the routed operator with factored_vt as `auto` resolves it there (plan:
+    kernels K1 and K2), launch counts set to 0 just before and read just
+    after. Then a few outer steps with factored_vt=adj (V's plan forwards by
+    K1 and in reverse by K11), counts again set to 0 before and read after,
+    held against the first run's zeta history."""
     from lilac_tpu_torch.kernels import dfmulred as dfk
     from lilac_tpu_torch.kernels import routed as rd
     from lilac_tpu_torch.workloads import npb_cg
@@ -839,9 +1232,12 @@ def phase_main_path_c(kernels: dict) -> dict:
         res, phase="npb", wall_s=wall, matvecs=matvecs,
         routed_apply_launches=rd.routed_apply.launches,
         routed_apply_grid_launches=rd.routed_apply.stage_launches,
+        routed_apply_t_launches=rd.routed_apply_t.launches,
         dfmulred_launches=k2_c, full_width="class C", outer_steps=steps)
     emit(line)
     _check_npb(res, line, "C", steps)
+    if res.factored_vt != "plan" or rd.routed_apply_t.launches:
+        raise AssertionError("class C: auto did not resolve to factored_vt=plan")
     if rd.routed_apply.launches != 2 * matvecs:
         raise AssertionError(
             f"routed_apply launched {rd.routed_apply.launches} times on "
@@ -850,15 +1246,46 @@ def phase_main_path_c(kernels: dict) -> dict:
         raise AssertionError(f"dfmulred launched only {k2_c} times")
     kernels["dfmulred"]["launches"] = k2_c
     kernels["dfmulred"]["launches_class_c"] = k2_c
+
+    # the other mode, cut in depth: V^T through V's own plan in reverse
+    adj_steps = min(3, steps)
+    _reset_hier_counts(rd, dfk)
+    t0 = time.time()
+    adj = _with_env(
+        {"LILAC_FACTORED_VT": "adj"},
+        lambda: npb_cg.run("C", dtype="df64", niter=adj_steps, device=DEVICE))
+    k11 = rd.routed_apply_t.launches
+    matvecs_adj = (adj.niter + 1) * 26
+    emit(_npb_line(
+        adj, phase="npb", wall_s=time.time() - t0, matvecs=matvecs_adj,
+        factored_vt=adj.factored_vt, routed_apply_launches=rd.routed_apply.launches,
+        routed_apply_t_launches=k11,
+        routed_apply_t_grid_launches=rd.routed_apply_t.stage_launches,
+        full_width="class C", outer_steps=adj_steps))
+    if k11 != matvecs_adj or rd.routed_apply.launches != matvecs_adj:
+        raise AssertionError(
+            f"class C adj: routed_apply {rd.routed_apply.launches}, routed_apply_t "
+            f"{k11} launches on {matvecs_adj} matvecs (one each per matvec expected)")
+    _compare_histories(adj, res, "class C")
+    kernels["routed_apply_t"]["launches"] = k11
+    kernels["routed_apply_t"]["grid_launches"] = rd.routed_apply_t.stage_launches
+    kernels["routed_apply_t"]["launches_on"] = (
+        f"NPB class C, factored_vt=adj, {adj_steps} outer steps")
     return line
 
 
-def phase_main_path_d(kernels: dict, plan_d) -> dict:
-    """Main path through the hierarchical plans: npb_cg.run("D") in df64 at full
-    na = 1 500 000 through the two hierarchical plans (kernels K3, K4, K5
-    and K2; K6 where a plan holds a block-aligned shift)."""
+FWD_D = ("routed_apply_sliced_b", "butterfly_apply_b", "window_shift_apply_b")
+ADJ_D = ("routed_apply_sliced_bt", "butterfly_apply_bt", "window_shift_apply_bt")
+
+
+def phase_main_path_d(kernels: dict, plan_d):
+    """Main path through ONE hierarchical plan: npb_cg.run("D") in df64 at full
+    na = 1 500 000 with factored_vt=adj (V forwards by K3, K4, K5, in reverse
+    by K7, K8, K9, and K2; K6 / K10 where the plan holds a block-aligned
+    shift). Returns (line, result)."""
     from lilac_tpu_torch.kernels import dfmulred as dfk
     from lilac_tpu_torch.kernels import routed as rd
+    from lilac_tpu_torch.kernels import routed_spmv as rs
     from lilac_tpu_torch.workloads import npb_cg
 
     steps = _steps("CHIP_SMOKE_D_STEPS", "D")
@@ -873,24 +1300,76 @@ def phase_main_path_d(kernels: dict, plan_d) -> dict:
     line = _npb_line(
         res, phase="npb", wall_s=wall, matvecs=matvecs, launches=counts,
         dfmulred_launches=k2_d, full_width="class D, na = 1500000",
-        outer_steps=steps, factored_vt="plan",
+        outer_steps=steps, factored_vt=res.factored_vt,
+        plan_bytes_on_card=rs.plan_bytes(plan_d.A.V),
         peak_device_bytes=torch.cuda.max_memory_allocated())
     emit(line)
     _check_npb(res, line, "D", steps)
-    if rd.routed_apply.launches:
-        raise AssertionError("class D went through the single-table kernel")
-    for name in ("routed_apply_sliced_b", "butterfly_apply_b", "window_shift_apply_b"):
-        if counts[name] < 2 * matvecs:
+    if res.factored_vt != "adj":
+        raise AssertionError("class D main path did not run factored_vt=adj")
+    if rd.routed_apply.launches or rd.routed_apply_t.launches:
+        raise AssertionError("class D went through a single-table kernel")
+    for name in FWD_D + ADJ_D:
+        if counts[name] < matvecs:
             raise AssertionError(f"{name} launched {counts[name]} times on "
                                  f"{matvecs} matvecs of class D")
         kernels[name]["launches"] = counts[name]
-        kernels[name]["launches_on"] = f"NPB class D, {steps} outer steps"
-    if counts["bigshift_apply_b"]:
-        kernels["bigshift_apply_b"]["launches_class_d"] = counts["bigshift_apply_b"]
-    if k2_d < 2 * matvecs:
+        kernels[name]["launches_on"] = (
+            f"NPB class D, factored_vt=adj, {steps} outer steps")
+    for name in ("bigshift_apply_b", "bigshift_apply_bt"):
+        if counts[name]:
+            kernels[name]["launches_class_d"] = counts[name]
+    if k2_d < matvecs:
         raise AssertionError(f"dfmulred launched only {k2_d} times on class D")
     kernels["dfmulred"]["launches_class_d"] = k2_d
     kernels["dfmulred"]["launches"] += k2_d
+    return line, res
+
+
+def phase_plan_mode_d(kernels: dict, adj_res) -> dict:
+    """The other mode at class D, cut in depth: two forward hierarchical plans
+    (factored_vt=plan; V's comes from the file the adj build wrote, V^T's is
+    built), a few outer steps, held against the adj run's zeta history."""
+    from lilac_tpu_torch.kernels import dfmulred as dfk
+    from lilac_tpu_torch.kernels import routed as rd
+    from lilac_tpu_torch.kernels import routed_spmv as rs
+    from lilac_tpu_torch.plan import FactoredNPBPlan
+    from lilac_tpu_torch.workloads import npb_cg
+
+    steps = min(3, adj_res.niter)
+    t0 = time.time()
+    plan = _with_env(
+        {"LILAC_FACTORED_VT": "plan"},
+        lambda: FactoredNPBPlan("D", dtype="df64", device=DEVICE))
+    build_s = time.time() - t0
+    V, VT = plan.A.V, plan.A.VT
+    if plan.factored_vt != "plan" or not all(
+            isinstance(p, rs.RoutedMatHierP) for p in (V, VT)):
+        raise AssertionError(f"class D plan mode: {plan.factored_vt}, {type(VT).__name__}")
+    emit({"phase": "plan", "class": "D", "factored_vt": "plan",
+          "build_s": round(build_s, 2), "nets": [len(V.chunks), len(VT.chunks)],
+          "groups": [[len(g.net_ids) for g in p.groups] for p in (V, VT)],
+          "passes_per_matvec": [_pass_census(V), _pass_census(VT)],
+          "unperm": [V.unperm is not None, VT.unperm is not None],
+          "plan_bytes_on_card": [rs.plan_bytes(V), rs.plan_bytes(VT)]})
+    _reset_hier_counts(rd, dfk)
+    t0 = time.time()
+    res = npb_cg.run("D", dtype="df64", niter=steps, plan=plan)
+    counts = _hier_counts(rd)
+    matvecs = (res.niter + 1) * 26
+    line = _npb_line(
+        res, phase="npb", wall_s=time.time() - t0, matvecs=matvecs, launches=counts,
+        dfmulred_launches=dfk.dfmulred.launches, full_width="class D, na = 1500000",
+        outer_steps=steps, factored_vt=res.factored_vt)
+    emit(line)
+    for name in FWD_D:
+        if counts[name] < 2 * matvecs:
+            raise AssertionError(f"plan mode: {name} launched {counts[name]} times on "
+                                 f"{matvecs} matvecs of class D")
+        kernels[name]["launches_plan_mode"] = counts[name]
+    if any(counts[name] for name in ADJ_NAMES):
+        raise AssertionError(f"plan mode launched an adjoint kernel: {counts}")
+    _compare_histories(adj_res, res, "class D")
     return line
 
 
@@ -904,31 +1383,35 @@ def _pass_census(P) -> dict:
 
 
 def build_plan_d():
-    """Class D's two hierarchical plans through the entry point a user calls
-    (FactoredNPBPlan), with factored_vt=plan stated."""
+    """Class D's plan through the entry point a user calls (FactoredNPBPlan)
+    with factored_vt left at `auto`: it must resolve to adj and hold ONE
+    hierarchical plan for both directions."""
     from lilac_tpu_torch.kernels import routed_spmv as rs
     from lilac_tpu_torch.plan import FactoredNPBPlan
 
+    if "LILAC_FACTORED_VT" in os.environ:
+        raise AssertionError("LILAC_FACTORED_VT is set: the main path runs `auto`")
     t0 = time.time()
-    plan_d = _with_env(
-        {"LILAC_FACTORED_VT": "plan"},
-        lambda: FactoredNPBPlan("D", dtype="df64", device=DEVICE))
+    plan_d = FactoredNPBPlan("D", dtype="df64", device=DEVICE)
     build_s = time.time() - t0
-    V, VT = plan_d.A.V, plan_d.A.VT
-    if plan_d.kernel != "factored_routed_df" or not all(
-            isinstance(p, rs.RoutedMatHierP) for p in (V, VT)):
-        raise AssertionError(f"class D plan is {plan_d.kernel} / {type(V).__name__}")
-    emit({"phase": "plan", "class": "D", "build_s": round(build_s, 2),
-          "m": V.m, "bl": V.bl,
-          "gmax": max(len(mt[1]) for p in (V, VT) for g in p.groups
+    V = plan_d.A.V
+    if (plan_d.kernel != "factored_routed_df" or plan_d.factored_vt != "adj"
+            or plan_d.A.VT is not None or not isinstance(V, rs.RoutedMatHierP)):
+        raise AssertionError(
+            f"class D plan is {plan_d.kernel} / {plan_d.factored_vt} / {type(V).__name__}")
+    emit({"phase": "plan", "class": "D", "factored_vt": "adj",
+          "build_s": round(build_s, 2), "m": V.m, "bl": V.bl,
+          "gmax": max(len(mt[1]) for g in V.groups
                       for mt in g.pass_meta if mt[0] == "butterfly"),
-          "nets": [len(V.chunks), len(VT.chunks)],
-          "groups": [[len(g.net_ids) for g in p.groups] for p in (V, VT)],
-          "passes_per_matvec": [_pass_census(V), _pass_census(VT)],
-          "unperm": [V.unperm is not None, VT.unperm is not None],
-          "plan_bytes_on_card": [rs.plan_bytes(V), rs.plan_bytes(VT)],
+          "nets": len(V.chunks), "groups": [len(g.net_ids) for g in V.groups],
+          "passes_per_direction": _pass_census(V),
+          "unperm": V.unperm is not None,
+          "plan_bytes_on_card": rs.plan_bytes(V),
           "device_bytes_allocated": torch.cuda.memory_allocated()})
     return plan_d
+
+
+PARTS = {"hier", "k11", "d"}
 
 
 def main(argv) -> int:
@@ -940,11 +1423,13 @@ def main(argv) -> int:
     from lilac_tpu_torch.plan import FactoredNPBPlan
 
     only = set(argv[1:])  # phases to run alone, for finding a fault
-    if only - {"hier", "d"}:
-        raise SystemExit(f"unknown phase {sorted(only - {'hier', 'd'})}: hier | d")
+    if only - PARTS:
+        raise SystemExit(f"unknown phase {sorted(only - PARTS)}: " + " | ".join(sorted(PARTS)))
     phase_device()
     phase_build()
     kernels: dict = {}
+    if "k11" in only:
+        phase_k11_small()
     if "hier" in only:
         phase_hier_small()
         phase_hier_general(kernels)
@@ -952,7 +1437,10 @@ def main(argv) -> int:
         plan_d = build_plan_d()
         phase_hier_class_d(plan_d, kernels)
         kernels.setdefault("dfmulred", {"name": "dfmulred", "launches": 0})
-        phase_main_path_d(kernels, plan_d)
+        _, res_d = phase_main_path_d(kernels, plan_d)
+        del plan_d
+        torch.cuda.empty_cache()
+        phase_plan_mode_d(kernels, res_d)
     if only:
         emit({"phase": "total", "seconds": round(time.time() - t_start, 1)})
         emit({"kernels": [k for k in kernels.values() if "ms" in k]})
@@ -962,12 +1450,13 @@ def main(argv) -> int:
 
     t0 = time.time()
     plan_c = FactoredNPBPlan("C", dtype="df64", device=DEVICE)
-    if plan_c.kernel != "factored_routed_df":
-        raise AssertionError(f"class C plan is {plan_c.kernel}")
+    if plan_c.kernel != "factored_routed_df" or plan_c.factored_vt != "plan":
+        raise AssertionError(f"class C plan is {plan_c.kernel} / {plan_c.factored_vt}")
     emit({"phase": "plan", "class": "C", "build_s": round(time.time() - t0, 2),
           "m": plan_c.A.V.m, "nets": [len(plan_c.A.V.chunks), len(plan_c.A.VT.chunks)],
           "stages": [len(plan_c.A.V.kinds), len(plan_c.A.VT.kinds)],
           "mask_planes": list(plan_c.A.V.masks.shape)})
+    phase_k11_small()
     kernels = phase_kernels(plan_c)
     del plan_c
     torch.cuda.empty_cache()
@@ -976,14 +1465,19 @@ def main(argv) -> int:
     phase_hier_general(kernels)
     phase_npb_small()
 
-    # the main paths at full width: class C (single table), class D (hier)
+    # the main paths at full width: class C (single table; auto = plan, then a
+    # few steps of adj), class D (one hier plan; auto = adj, then a few steps
+    # of plan)
     phase_main_path_c(kernels)
     plan_d = build_plan_d()
     phase_hier_class_d(plan_d, kernels)
-    phase_main_path_d(kernels, plan_d)
+    _, res_d = phase_main_path_d(kernels, plan_d)
+    del plan_d
+    torch.cuda.empty_cache()
+    phase_plan_mode_d(kernels, res_d)
 
     names = ["routed_apply", "dfmulred"] + [
-        PASS_FNS[k][i] for i in (0, 1) for k in PASS_FNS]
+        PASS_FNS[k][i] for i in (0, 1) for k in PASS_FNS] + ADJ_NAMES + ["routed_apply_t"]
     for name in names:
         k = kernels[name]
         if k["launches"] <= 0:

@@ -58,6 +58,7 @@ def run_class(class_name: str, dtype: str, kernel: str, device="cuda") -> dict:
         "mops": round(res.mops, 1),
         "dtype": res.dtype,
         "kernel": res.kernel,
+        "factored_vt": res.factored_vt,
         "nnz": res.nnz,
         "device": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu"),

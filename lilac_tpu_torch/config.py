@@ -76,12 +76,14 @@ KNOBS = (
          "Layout for the factored NPB operator: auto | routed | single "
          "(auto = routed when the plan's device is CUDA, single on CPU). "
          "Routed plans are single-table up to n = 2^18 and hierarchical "
-         "beyond. 'scan' and 'mixed' are not ported yet."),
+         "beyond. 'scan' and 'mixed' are not ported yet ('mixed' with "
+         "factored_vt=adj is 'routed')."),
     Knob("factored_vt", "LILAC_FACTORED_VT", str, "auto",
-         "How the factored operator computes V^T u: 'plan' = stage a "
-         "dedicated VT routed plan (two plans resident); 'adj' (run V's "
-         "network in reverse) is not ported yet. 'auto' = plan, for the "
-         "hierarchical classes too until the adjoint kernels are ported."),
+         "How the routed factored operator computes V^T u: 'plan' = stage "
+         "a dedicated VT routed plan (two plans resident); 'adj' = run V's "
+         "own network in reverse with add-merges (one plan, half the plan "
+         "bytes). 'auto' = adj for the hierarchical classes (n > 2^18), "
+         "plan for the single-table ones."),
     Knob("bench_budget_s", "LILAC_BENCH_BUDGET_S", float, 480.0,
          "bench_npb wall budget in seconds; the class ladder stops before "
          "exceeding it."),

@@ -1,0 +1,487 @@
+// K9-K11: the adjoint passes of a gather network that ADD, for Hopper
+// (sm_90a). They replace the Pallas kernels of lilac_tpu/kernels/routed.py:
+//   K9  window_shift_apply_bt   (window pass, adjoint)
+//   K10 bigshift_apply_bt       (block-aligned shift, adjoint)
+//   K11 routed_apply_t          (single-table network, adjoint)
+// (The adjoint passes that only exchange words, K7 and K8, are in hier.cu.)
+//
+// A forward stage copies with fan-out: y[i] <- m[i] ? y[partner(i)] : y[i].
+// Its adjoint sums what the copies carried back:
+//     u'[i] = (m[i] ? 0 : u[i]) + (m[j] ? u[j] : 0),
+// where j is the slot whose forward partner is i: j = i + d for a `shift`
+// stage (partner i - d) and j = i - d for a `shiftl` stage. An xor stage is
+// an exchange and its own adjoint. A network's transpose runs its stages in
+// reverse order with these updates (_stage_adj of the reference).
+//
+// The sum is taken at EVERY slot, also where both terms or one of them is
+// the zero the mask put there: -0.0 + 0.0 is +0.0 and a df64 pair comes out
+// renormalised, so a shortcut "nothing moved in: copy" would differ from
+// the plain PyTorch version in the last bit. The stages are kept apart too:
+// composing a window's stages into one scatter-add would sum in another
+// order. One plane (f32, f64) or two independent planes add with one
+// rounding; a df64 (hi, lo) pair (DF) adds by Knuth's TwoSum of the hi
+// words and a renormalisation. Every step is an _rn intrinsic and the file
+// is compiled --fmad=false, so nothing is contracted or reassociated.
+//
+// Bound: bytes, for all three (a handful of additions per slot moved).
+// What the design does about it:
+//   K9  is the one pass that must keep slots on chip: up to 8 dependent
+//       stages over the window (block b, block b + 1). One thread block per
+//       (block, net) loads the bl slots of block b and only the sum(d)
+//       slots of block b + 1 that can reach them (sum(d) < bl is what keeps
+//       cyclic wrap-around out of the first bl outputs, so it is never
+//       computed), with the two mask rows, into shared memory; every stage
+//       runs there, in place. In place is safe because a stage reads only
+//       upwards (i and i + d): the block sweeps the window in ascending
+//       chunks of blockDim slots, each chunk read into registers, one
+//       barrier, then written; a later chunk never reads what an earlier
+//       one wrote. No second copy of the window is needed, which at
+//       bl = 2^13 and a df64 pair would not fit beside the first. Stage s
+//       produces only the slots the stages still to come can reach.
+//   K10 is one merge of two blocks read through the layout.
+//   K11 is K1's design run backwards: the table stays in device memory, one
+//       grid per stage, ping-pong between two [B, m] buffers, masks in the
+//       plan-file layout. A shift stage reads the partner's mask byte as
+//       well as its own. The input is per net; it is never written.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+struct Layout {
+  int nbits;
+  unsigned char src[32];  // physical bit k <- logical bit src[k]
+};
+
+__device__ __forceinline__ long long phys_block(long long b, const Layout& l) {
+  long long out = 0;
+  for (int k = 0; k < l.nbits; ++k) {
+    out |= ((b >> l.src[k]) & 1ll) << k;
+  }
+  return out;
+}
+
+template <typename T>
+struct alignas(sizeof(T) * 4) Quad {
+  T v[4];
+};
+
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+
+// kept + moved for NP planes of one slot. DF: the two planes are one
+// (hi, lo) pair: TwoSum of the hi words, the lo words and the error added,
+// quick-two-sum renormalisation (the reference's _stage_adj, step for step).
+template <typename T, int NP, bool DF>
+__device__ __forceinline__ void merge(const T* kept, const T* moved, T* out) {
+  if constexpr (DF && NP == 2) {
+    const T s = add_rn(kept[0], moved[0]);
+    const T bb = sub_rn(s, kept[0]);
+    const T e = add_rn(sub_rn(kept[0], sub_rn(s, bb)), sub_rn(moved[0], bb));
+    const T low = add_rn(e, add_rn(kept[1], moved[1]));
+    const T hi = add_rn(s, low);
+    out[0] = hi;
+    out[1] = sub_rn(low, sub_rn(hi, s));
+  } else {
+#pragma unroll
+    for (int p = 0; p < NP; ++p) out[p] = add_rn(kept[p], moved[p]);
+  }
+}
+
+// --------------------------------------------------------------- K9 window
+
+struct Shifts {
+  int n;
+  int d[8];
+  int lim[9];  // lim[s] = bl + d[0] + .. + d[s-1]: slots stage s must produce
+};
+
+// grid (nblocks, N). masks [N, nblocks, 2 * bl] bytes as the forward pass
+// reads them; the adjoint's window masks are the SECOND halves (a block's
+// own switches) of blocks b and b + 1, bit s = stage s. W = lim[n] rounded
+// up to 4 slots. Shared memory: NP planes of W words, then W mask bytes.
+template <typename T, int NP, bool DF>
+__global__ void adj_window_kernel(const T* __restrict__ s0,
+                                  const T* __restrict__ s1, long long sstride,
+                                  T* __restrict__ d0, T* __restrict__ d1,
+                                  long long m, int bl,
+                                  const uint8_t* __restrict__ masks, Shifts sh,
+                                  int W, Layout lay) {
+  extern __shared__ __align__(32) unsigned char smem_raw[];
+  T* u = reinterpret_cast<T*>(smem_raw);
+  uint8_t* mk = smem_raw + static_cast<size_t>(NP) * W * sizeof(T);
+
+  const long long b = blockIdx.x;
+  const long long n = blockIdx.y;
+  const long long nblocks = gridDim.x;
+  const long long rb = (b + 1) % nblocks;  // the last block's right is block 0
+  const long long self = n * sstride + phys_block(b, lay) * bl;
+  const long long right = n * sstride + phys_block(rb, lay) * bl;
+  const T* srcs[2] = {s0, s1};
+  T* dsts[2] = {d0, d1};
+
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    for (int i = threadIdx.x * 4; i < W; i += blockDim.x * 4) {
+      const T* g = i < bl ? srcs[p] + self + i : srcs[p] + right + (i - bl);
+      *reinterpret_cast<Quad<T>*>(u + p * W + i) =
+          *reinterpret_cast<const Quad<T>*>(g);
+    }
+  }
+  {
+    const uint8_t* mself = masks + ((n * nblocks + b) * 2 + 1) * bl;
+    const uint8_t* mright = masks + ((n * nblocks + rb) * 2 + 1) * bl;
+    uint32_t* w = reinterpret_cast<uint32_t*>(mk);
+    for (int i = threadIdx.x * 4; i < W; i += blockDim.x * 4) {
+      w[i >> 2] = *reinterpret_cast<const uint32_t*>(
+          i < bl ? mself + i : mright + (i - bl));
+    }
+  }
+  __syncthreads();
+
+  for (int s = sh.n - 1; s >= 0; --s) {
+    const int d = sh.d[s];
+    const int lim = sh.lim[s];  // i < lim reads i + d < lim[s + 1] <= W
+    for (int base = 0; base < lim; base += blockDim.x) {
+      const int i = base + threadIdx.x;
+      const bool active = i < lim;
+      T out[NP];
+      if (active) {
+        const bool mi = (mk[i] >> s) & 1;
+        const bool mj = (mk[i + d] >> s) & 1;
+        T kept[NP], moved[NP];
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          const T a = u[p * W + i];
+          const T c = u[p * W + i + d];
+          kept[p] = mi ? T(0) : a;
+          moved[p] = mj ? c : T(0);
+        }
+        merge<T, NP, DF>(kept, moved, out);
+      }
+      __syncthreads();  // the chunk is read: slots below base + blockDim may change
+      if (active) {
+#pragma unroll
+        for (int p = 0; p < NP; ++p) u[p * W + i] = out[p];
+      }
+    }
+    __syncthreads();  // the next stage starts again at slot 0
+  }
+
+  const long long dst = n * m + b * bl;
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    for (int i = threadIdx.x * 4; i < bl; i += blockDim.x * 4) {
+      *reinterpret_cast<Quad<T>*>(dsts[p] + dst + i) =
+          *reinterpret_cast<const Quad<T>*>(u + p * W + i);
+    }
+  }
+}
+
+// ------------------------------------------------------------ K10 bigshift
+
+// grid (ceil(bl / (4 * threads)), nblocks, N). masks [N, nblocks, bl] bytes,
+// non-zero = the forward took the word of block b - db: block b keeps its
+// unmasked words and adds the masked words of block b + db.
+template <typename T, int NP, bool DF>
+__global__ void adj_bigshift_kernel(const T* __restrict__ s0,
+                                    const T* __restrict__ s1,
+                                    long long sstride, T* __restrict__ d0,
+                                    T* __restrict__ d1, long long m, int bl,
+                                    const uint8_t* __restrict__ masks,
+                                    long long db, Layout lay) {
+  const int off = (blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (off >= bl) return;
+  const long long b = blockIdx.y;
+  const long long n = blockIdx.z;
+  const long long nblocks = gridDim.y;
+  const long long rb = (b + db) % nblocks;
+  const long long self = n * sstride + phys_block(b, lay) * bl + off;
+  const long long right = n * sstride + phys_block(rb, lay) * bl + off;
+  const long long dst = n * m + b * bl + off;
+  const uint32_t ms =
+      *reinterpret_cast<const uint32_t*>(masks + (n * nblocks + b) * bl + off);
+  const uint32_t mr =
+      *reinterpret_cast<const uint32_t*>(masks + (n * nblocks + rb) * bl + off);
+  const T* srcs[2] = {s0, s1};
+  T* dsts[2] = {d0, d1};
+  Quad<T> a[NP], c[NP], o[NP];
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    a[p] = *reinterpret_cast<const Quad<T>*>(srcs[p] + self);
+    c[p] = *reinterpret_cast<const Quad<T>*>(srcs[p] + right);
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const bool mi = (ms >> (8 * j)) & 0xffu;
+    const bool mj = (mr >> (8 * j)) & 0xffu;
+    T kept[NP], moved[NP], out[NP];
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      kept[p] = mi ? T(0) : a[p].v[j];
+      moved[p] = mj ? c[p].v[j] : T(0);
+    }
+    merge<T, NP, DF>(kept, moved, out);
+#pragma unroll
+    for (int p = 0; p < NP; ++p) o[p].v[j] = out[p];
+  }
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    *reinterpret_cast<Quad<T>*>(dsts[p] + dst) = o[p];
+  }
+}
+
+// ------------------------------------------------------- K11 single table
+
+enum { KIND_XOR = 0, KIND_SHIFT = 1, KIND_SHIFTL = 2, KIND_COPY = 3 };
+
+// One adjoint stage over all B nets of m slots; grid (ceil(m / (4 *
+// threads)), B). mask points at the stage's byte plane of net 0, mstride
+// bytes between nets; `kind` is the FORWARD stage's kind.
+template <typename T, int NP, bool DF>
+__global__ void adj_stage_kernel(const T* __restrict__ s0,
+                                 const T* __restrict__ s1, T* __restrict__ d0,
+                                 T* __restrict__ d1,
+                                 const uint8_t* __restrict__ mask,
+                                 long long mstride, int bit, int kind,
+                                 long long d, long long m) {
+  const long long i0 =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) * 4;
+  if (i0 >= m) return;
+  const long long b = blockIdx.y;
+  const T* srcs[2] = {s0 + b * m, NP == 2 ? s1 + b * m : nullptr};
+  T* dsts[2] = {d0 + b * m, NP == 2 ? d1 + b * m : nullptr};
+  Quad<T> q[NP];
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    q[p] = *reinterpret_cast<const Quad<T>*>(srcs[p] + i0);
+  }
+  if (kind != KIND_COPY) {
+    const uint8_t* mrow = mask + b * mstride;
+    const uint32_t mw = *reinterpret_cast<const uint32_t*>(mrow + i0);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const long long i = i0 + j;
+      const bool mi = (mw >> (8 * j + bit)) & 1u;
+      if (kind == KIND_XOR) {
+        if (mi) {
+#pragma unroll
+          for (int p = 0; p < NP; ++p) q[p].v[j] = srcs[p][i ^ d];
+        }
+      } else {
+        const long long pj = (kind == KIND_SHIFT ? i + d : i - d) & (m - 1);
+        const bool mj = (mrow[pj] >> bit) & 1;
+        T kept[NP], moved[NP], out[NP];
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          kept[p] = mi ? T(0) : q[p].v[j];
+          moved[p] = mj ? srcs[p][pj] : T(0);
+        }
+        merge<T, NP, DF>(kept, moved, out);
+#pragma unroll
+        for (int p = 0; p < NP; ++p) q[p].v[j] = out[p];
+      }
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    *reinterpret_cast<Quad<T>*>(dsts[p] + i0) = q[p];
+  }
+}
+
+// ------------------------------------------------------------- launchers
+
+bool fill_layout(Layout* lay, int nbits, const unsigned char* src) {
+  if (nbits < 0 || nbits > 32) return false;
+  lay->nbits = nbits;
+  for (int k = 0; k < 32; ++k) lay->src[k] = k < nbits ? src[k] : 0;
+  return true;
+}
+
+int block_threads(int work) {
+  int t = 1024;
+  while (t > 32 && t > work) t >>= 1;
+  return t;
+}
+
+// a kernel's dynamic shared memory limit (48 KB unless asked) raised once
+// per device and size it has seen
+struct SmemAllowed {
+  size_t bytes[64] = {};
+};
+
+template <typename T, int NP, bool DF>
+cudaError_t launch_window(const void* s0, const void* s1, long long sstride,
+                          void* d0, void* d1, long long m, int N, int bl,
+                          const void* masks, const Shifts& sh,
+                          cudaStream_t stream, const Layout& lay) {
+  static SmemAllowed allowed;
+  const int W = (sh.lim[sh.n] + 3) & ~3;
+  const size_t smem = static_cast<size_t>(NP) * W * sizeof(T) + W;
+  if (smem > 48 * 1024) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    size_t* seen = &allowed.bytes[dev & 63];
+    if (smem > *seen) {
+      err = cudaFuncSetAttribute(adj_window_kernel<T, NP, DF>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+      *seen = smem;
+    }
+  }
+  dim3 grid(static_cast<unsigned>(m / bl), static_cast<unsigned>(N));
+  adj_window_kernel<T, NP, DF><<<grid, block_threads(bl), smem, stream>>>(
+      static_cast<const T*>(s0), static_cast<const T*>(s1), sstride,
+      static_cast<T*>(d0), static_cast<T*>(d1), m, bl,
+      static_cast<const uint8_t*>(masks), sh, W, lay);
+  return cudaGetLastError();
+}
+
+template <typename T, int NP, bool DF>
+cudaError_t launch_bigshift(const void* s0, const void* s1, long long sstride,
+                            void* d0, void* d1, long long m, int N, int bl,
+                            const void* masks, long long db,
+                            cudaStream_t stream, const Layout& lay) {
+  const int threads = block_threads(bl / 4) > 256 ? 256 : block_threads(bl / 4);
+  dim3 grid(static_cast<unsigned>((bl / 4 + threads - 1) / threads),
+            static_cast<unsigned>(m / bl), static_cast<unsigned>(N));
+  adj_bigshift_kernel<T, NP, DF><<<grid, threads, 0, stream>>>(
+      static_cast<const T*>(s0), static_cast<const T*>(s1), sstride,
+      static_cast<T*>(d0), static_cast<T*>(d1), m, bl,
+      static_cast<const uint8_t*>(masks), db, lay);
+  return cudaGetLastError();
+}
+
+// Stages S-1 .. 0. The input x is only read; the last launch (stage 0)
+// must land in `out`, so the launches alternate backwards from it.
+template <typename T, int NP, bool DF>
+cudaError_t run_network_t(const void* x0, const void* x1, void* out0,
+                          void* out1, void* tmp0, void* tmp1,
+                          const uint8_t* masks, int B, int P, long long m,
+                          int S, const int* kinds, const long long* dists,
+                          cudaStream_t stream) {
+  const int threads = 256;
+  dim3 grid(static_cast<unsigned>((m / 4 + threads - 1) / threads),
+            static_cast<unsigned>(B));
+  const T* s0 = static_cast<const T*>(x0);
+  const T* s1 = static_cast<const T*>(x1);
+  if (S == 0) {
+    adj_stage_kernel<T, NP, DF><<<grid, threads, 0, stream>>>(
+        s0, s1, static_cast<T*>(out0), static_cast<T*>(out1), masks, 0, 0,
+        KIND_COPY, 0, m);
+    return cudaGetLastError();
+  }
+  for (int t = 0; t < S; ++t) {
+    const int s = S - 1 - t;
+    const bool to_out = (s % 2) == 0;
+    T* d0 = static_cast<T*>(to_out ? out0 : tmp0);
+    T* d1 = static_cast<T*>(to_out ? out1 : tmp1);
+    adj_stage_kernel<T, NP, DF><<<grid, threads, 0, stream>>>(
+        s0, s1, d0, d1, masks + static_cast<long long>(s / 8) * m,
+        static_cast<long long>(P) * m, s % 8, kinds[s], dists[s], m);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    s0 = d0;
+    s1 = d1;
+  }
+  return cudaSuccess;
+}
+
+bool shape_ok(long long m, int N, int bl, int nplanes, int esize) {
+  if (bl < 128 || (bl & (bl - 1)) != 0 || m < bl || (m & (m - 1)) != 0) return false;
+  if (m / bl > 65535 || N < 1 || N > 65535) return false;
+  return (nplanes == 1 || nplanes == 2) && (esize == 4 || esize == 8);
+}
+
+}  // namespace
+
+// words of esize 4 are float, of esize 8 double; dfpair counts only with two
+// planes (one plane has no lo word to compensate into)
+#define LILAC_ADJ_PLANES(FN, T, ...)                                          \
+  (nplanes == 1 ? FN<T, 1, false>(__VA_ARGS__)                                \
+                : (dfpair ? FN<T, 2, true>(__VA_ARGS__)                       \
+                          : FN<T, 2, false>(__VA_ARGS__)))
+#define LILAC_ADJ_DISPATCH(FN, ...)                                           \
+  (esize == 4 ? LILAC_ADJ_PLANES(FN, float, __VA_ARGS__)                      \
+              : LILAC_ADJ_PLANES(FN, double, __VA_ARGS__))
+
+// Common arguments as in hier.cu: s0/s1 input planes (s1 unused when
+// nplanes == 1) with `sstride` words between nets, d0/d1 output planes
+// [N, m], masks in the forward pass's layout, layout[nbits] the block-bit
+// permutation of the input. Every function returns the cudaError_t of its
+// launch.
+
+extern "C" int lilac_adj_window(const void* s0, const void* s1, int nplanes,
+                                int esize, long long sstride, void* d0,
+                                void* d1, long long m, int N, int bl,
+                                const void* masks, int dfpair, int S,
+                                const int* dists, int nbits,
+                                const unsigned char* layout, void* stream) {
+  Shifts sh;
+  Layout lay;
+  if (!shape_ok(m, N, bl, nplanes, esize) || S < 0 || S > 8 ||
+      !fill_layout(&lay, nbits, layout)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  sh.n = S;
+  sh.lim[0] = bl;
+  for (int s = 0; s < 8; ++s) {
+    sh.d[s] = s < S ? dists[s] : 0;
+    if (s < S && dists[s] < 1) return static_cast<int>(cudaErrorInvalidValue);
+    sh.lim[s + 1] = sh.lim[s] + sh.d[s];
+  }
+  if (sh.lim[S] >= 2 * bl) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(LILAC_ADJ_DISPATCH(launch_window, s0, s1, sstride, d0,
+                                             d1, m, N, bl, masks, sh, cs, lay));
+}
+
+extern "C" int lilac_adj_bigshift(const void* s0, const void* s1, int nplanes,
+                                  int esize, long long sstride, void* d0,
+                                  void* d1, long long m, int N, int bl,
+                                  const void* masks, int dfpair, long long db,
+                                  int nbits, const unsigned char* layout,
+                                  void* stream) {
+  Layout lay;
+  if (!shape_ok(m, N, bl, nplanes, esize) || db < 0 || db >= m / bl ||
+      !fill_layout(&lay, nbits, layout)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(LILAC_ADJ_DISPATCH(launch_bigshift, s0, s1, sstride,
+                                             d0, d1, m, N, bl, masks, db, cs,
+                                             lay));
+}
+
+// x0/x1: input planes [B, m] (x1 unused when nplanes == 1), only read.
+// out0/out1, tmp0/tmp1: [B, m] words each; the result is in out.
+// masks: [B, P, m] bytes. kinds/dists: host arrays of S entries, the
+// forward network's, in its order.
+extern "C" int lilac_adj_routed(const void* x0, const void* x1, int nplanes,
+                                int esize, int dfpair, void* out0, void* out1,
+                                void* tmp0, void* tmp1, const void* masks,
+                                int B, int P, long long m, int S,
+                                const int* kinds, const long long* dists,
+                                void* stream) {
+  if (m < 1024 || (m & (m - 1)) != 0 || B < 1 || B > 65535 || S < 0 ||
+      (S > 0 && P != (S + 7) / 8) || (nplanes != 1 && nplanes != 2) ||
+      (esize != 4 && esize != 8)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  for (int s = 0; s < S; ++s) {
+    if (kinds[s] < KIND_XOR || kinds[s] > KIND_SHIFTL || dists[s] < 1 ||
+        dists[s] >= m) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  const uint8_t* mk = static_cast<const uint8_t*>(masks);
+  return static_cast<int>(LILAC_ADJ_DISPATCH(run_network_t, x0, x1, out0, out1,
+                                             tmp0, tmp1, mk, B, P, m, S, kinds,
+                                             dists, cs));
+}

@@ -1,11 +1,17 @@
 // K3-K6: the four forward passes of a hierarchical gather network, for
-// Hopper (sm_90a). They replace the Pallas kernels of
-// lilac_tpu/kernels/routed.py:
+// Hopper (sm_90a), and the two adjoint passes that only move words, K7 and
+// K8. They replace the Pallas kernels of lilac_tpu/kernels/routed.py:
 //   K3 routed_apply_sliced_b / routed_apply_sliced   (inner pass)
 //   K4 butterfly_apply_b     / butterfly_apply       (butterfly pass)
 //   K5 window_shift_apply_b  / window_shift_apply    (window pass)
 //   K6 bigshift_apply_b      / bigshift_apply        (block-aligned shift)
-// The un-batched functions are the same kernels at N = 1 net.
+//   K7 routed_apply_sliced_bt                        (inner pass, adjoint)
+//   K8 butterfly_apply_bt                            (butterfly, adjoint)
+// The un-batched functions are the same kernels at N = 1 net. An xor stage
+// is an exchange, its own inverse and its own adjoint, so K7 and K8 are the
+// kernels of K3 and K4 instantiated with the stage loop running backwards
+// (REV): last stage first, mask planes staged from the last one down. The
+// adjoint passes that add (window, bigshift) are in adjoint.cu.
 //
 // A network of m = nblocks * bl slots is applied pass by pass. Every pass
 // reads N nets' planes (or one shared input plane for all N nets, net
@@ -70,7 +76,7 @@ struct Stages {
 
 // grid (nblocks, N). masks [N, nblocks, P, bl] bytes: bit s%8 of plane s/8
 // is stage s's switch. Shared memory: NP * bl words, then bl mask bytes.
-template <typename T, int NP>
+template <typename T, int NP, bool REV>
 __global__ void hier_inner_kernel(const T* __restrict__ s0,
                                   const T* __restrict__ s1, long long sstride,
                                   T* __restrict__ d0, T* __restrict__ d1,
@@ -96,9 +102,10 @@ __global__ void hier_inner_kernel(const T* __restrict__ s0,
     }
   }
   const uint8_t* mbase = masks + (n * nblocks + b) * P * bl;
-  for (int s = 0; s < st.n; ++s) {
+  for (int t = 0; t < st.n; ++t) {
+    const int s = REV ? st.n - 1 - t : t;
     const int bit = s & 7;
-    if (bit == 0) {
+    if (t == 0 || bit == (REV ? 7 : 0)) {
       // the barrier that ended the previous stage also ended its mask reads
       const uint32_t* g =
           reinterpret_cast<const uint32_t*>(mbase + static_cast<long long>(s >> 3) * bl);
@@ -146,7 +153,7 @@ struct BflyMap {
 
 // grid (ceil(bl / (4 * threads)), ngroups, N). masks [N, ngroups, G, bl]
 // bytes, member-major: bit k of member s's byte is stage k's switch.
-template <typename T, int NP, int LG>
+template <typename T, int NP, int LG, bool REV>
 __global__ void hier_butterfly_kernel(const T* __restrict__ s0,
                                       const T* __restrict__ s1,
                                       long long sstride, T* __restrict__ d0,
@@ -178,7 +185,8 @@ __global__ void hier_butterfly_kernel(const T* __restrict__ s0,
     }
   }
 #pragma unroll
-  for (int k = 0; k < LG; ++k) {
+  for (int kk = 0; kk < LG; ++kk) {
+    const int k = REV ? LG - 1 - kk : kk;
 #pragma unroll
     for (int s = 0; s < G; ++s) {
       if (s & (1 << k)) continue;
@@ -323,24 +331,36 @@ int block_threads(int work) {
   return t;
 }
 
-template <typename T, int NP>
-cudaError_t launch_inner(const void* s0, const void* s1, long long sstride,
-                         void* d0, void* d1, long long m, int N, int bl,
-                         const void* masks, int P, const Stages& st,
-                         const Layout& lay, cudaStream_t stream) {
+template <typename T, int NP, bool REV>
+cudaError_t launch_inner_dir(const void* s0, const void* s1, long long sstride,
+                             void* d0, void* d1, long long m, int N, int bl,
+                             const void* masks, int P, const Stages& st,
+                             const Layout& lay, cudaStream_t stream) {
   static SmemAllowed allowed;
   const size_t smem = static_cast<size_t>(NP) * bl * sizeof(T) + bl;
-  cudaError_t err = allow_smem(hier_inner_kernel<T, NP>, smem, &allowed);
+  cudaError_t err = allow_smem(hier_inner_kernel<T, NP, REV>, smem, &allowed);
   if (err != cudaSuccess) return err;
   dim3 grid(static_cast<unsigned>(m / bl), static_cast<unsigned>(N));
-  hier_inner_kernel<T, NP><<<grid, block_threads(bl / 2), smem, stream>>>(
+  hier_inner_kernel<T, NP, REV><<<grid, block_threads(bl / 2), smem, stream>>>(
       static_cast<const T*>(s0), static_cast<const T*>(s1), sstride,
       static_cast<T*>(d0), static_cast<T*>(d1), m, bl,
       static_cast<const uint8_t*>(masks), P, st, lay);
   return cudaGetLastError();
 }
 
-template <typename T, int NP, int LG>
+template <typename T, int NP>
+cudaError_t launch_inner(bool rev, const void* s0, const void* s1,
+                         long long sstride, void* d0, void* d1, long long m,
+                         int N, int bl, const void* masks, int P,
+                         const Stages& st, const Layout& lay,
+                         cudaStream_t stream) {
+  if (rev) {
+    return launch_inner_dir<T, NP, true>(s0, s1, sstride, d0, d1, m, N, bl, masks, P, st, lay, stream);
+  }
+  return launch_inner_dir<T, NP, false>(s0, s1, sstride, d0, d1, m, N, bl, masks, P, st, lay, stream);
+}
+
+template <typename T, int NP, int LG, bool REV>
 cudaError_t launch_butterfly_g(const void* s0, const void* s1,
                                long long sstride, void* d0, void* d1,
                                long long m, int N, int bl, const void* masks,
@@ -348,25 +368,36 @@ cudaError_t launch_butterfly_g(const void* s0, const void* s1,
   const int threads = block_threads(bl / 4) > 256 ? 256 : block_threads(bl / 4);
   dim3 grid(static_cast<unsigned>((bl / 4 + threads - 1) / threads),
             static_cast<unsigned>((m / bl) >> LG), static_cast<unsigned>(N));
-  hier_butterfly_kernel<T, NP, LG><<<grid, threads, 0, stream>>>(
+  hier_butterfly_kernel<T, NP, LG, REV><<<grid, threads, 0, stream>>>(
       static_cast<const T*>(s0), static_cast<const T*>(s1), sstride,
       static_cast<T*>(d0), static_cast<T*>(d1), m, bl,
       static_cast<const uint8_t*>(masks), map);
   return cudaGetLastError();
 }
 
+template <typename T, int NP, bool REV>
+cudaError_t launch_butterfly_dir(int g, const void* s0, const void* s1,
+                                 long long sstride, void* d0, void* d1,
+                                 long long m, int N, int bl, const void* masks,
+                                 const BflyMap& map, cudaStream_t stream) {
+  if (g == 1) {
+    return launch_butterfly_g<T, NP, 1, REV>(s0, s1, sstride, d0, d1, m, N, bl, masks, map, stream);
+  }
+  if (g == 2) {
+    return launch_butterfly_g<T, NP, 2, REV>(s0, s1, sstride, d0, d1, m, N, bl, masks, map, stream);
+  }
+  return launch_butterfly_g<T, NP, 3, REV>(s0, s1, sstride, d0, d1, m, N, bl, masks, map, stream);
+}
+
 template <typename T, int NP>
-cudaError_t launch_butterfly(int g, const void* s0, const void* s1,
+cudaError_t launch_butterfly(bool rev, int g, const void* s0, const void* s1,
                              long long sstride, void* d0, void* d1,
                              long long m, int N, int bl, const void* masks,
                              const BflyMap& map, cudaStream_t stream) {
-  if (g == 1) {
-    return launch_butterfly_g<T, NP, 1>(s0, s1, sstride, d0, d1, m, N, bl, masks, map, stream);
+  if (rev) {
+    return launch_butterfly_dir<T, NP, true>(g, s0, s1, sstride, d0, d1, m, N, bl, masks, map, stream);
   }
-  if (g == 2) {
-    return launch_butterfly_g<T, NP, 2>(s0, s1, sstride, d0, d1, m, N, bl, masks, map, stream);
-  }
-  return launch_butterfly_g<T, NP, 3>(s0, s1, sstride, d0, d1, m, N, bl, masks, map, stream);
+  return launch_butterfly_dir<T, NP, false>(g, s0, s1, sstride, d0, d1, m, N, bl, masks, map, stream);
 }
 
 template <typename T, int NP>
@@ -425,12 +456,12 @@ bool shape_ok(long long m, int N, int bl, int nplanes, int esize) {
 // kernel states, layout[nbits] the block-bit permutation of the input.
 // Every function returns the cudaError_t of its launch.
 
-extern "C" int lilac_hier_inner(const void* s0, const void* s1, int nplanes,
-                                int esize, long long sstride, void* d0,
-                                void* d1, long long m, int N, int bl,
-                                const void* masks, int P, int S,
-                                const unsigned char* lg, int nbits,
-                                const unsigned char* layout, void* stream) {
+namespace {
+
+int run_inner(bool rev, const void* s0, const void* s1, int nplanes, int esize,
+              long long sstride, void* d0, void* d1, long long m, int N, int bl,
+              const void* masks, int P, int S, const unsigned char* lg,
+              int nbits, const unsigned char* layout, void* stream) {
   Stages st;
   Layout lay;
   if (!shape_ok(m, N, bl, nplanes, esize) || S < 0 || S > 64 ||
@@ -443,18 +474,41 @@ extern "C" int lilac_hier_inner(const void* s0, const void* s1, int nplanes,
     if (s < S && (1 << lg[s]) >= bl) return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(LILAC_DISPATCH(launch_inner, s0, s1, sstride, d0, d1,
-                                         m, N, bl, masks, P, st, lay, cs));
+  return static_cast<int>(LILAC_DISPATCH(launch_inner, rev, s0, s1, sstride, d0,
+                                         d1, m, N, bl, masks, P, st, lay, cs));
 }
 
-// gid_pos[nrest]: physical bit position of each group-index bit;
-// mem_phys[2^g]: physical block bits of each member.
-extern "C" int lilac_hier_butterfly(const void* s0, const void* s1, int nplanes,
-                                    int esize, long long sstride, void* d0,
-                                    void* d1, long long m, int N, int bl,
-                                    const void* masks, int g, int nrest,
-                                    const unsigned char* gid_pos,
-                                    const int* mem_phys, void* stream) {
+}  // namespace
+
+// lg[S]: log2 of each xor distance, in the forward's stage order for both.
+extern "C" int lilac_hier_inner(const void* s0, const void* s1, int nplanes,
+                                int esize, long long sstride, void* d0,
+                                void* d1, long long m, int N, int bl,
+                                const void* masks, int P, int S,
+                                const unsigned char* lg, int nbits,
+                                const unsigned char* layout, void* stream) {
+  return run_inner(false, s0, s1, nplanes, esize, sstride, d0, d1, m, N, bl,
+                   masks, P, S, lg, nbits, layout, stream);
+}
+
+// K7: the same stages, last one first.
+extern "C" int lilac_hier_inner_t(const void* s0, const void* s1, int nplanes,
+                                  int esize, long long sstride, void* d0,
+                                  void* d1, long long m, int N, int bl,
+                                  const void* masks, int P, int S,
+                                  const unsigned char* lg, int nbits,
+                                  const unsigned char* layout, void* stream) {
+  return run_inner(true, s0, s1, nplanes, esize, sstride, d0, d1, m, N, bl,
+                   masks, P, S, lg, nbits, layout, stream);
+}
+
+namespace {
+
+int run_butterfly(bool rev, const void* s0, const void* s1, int nplanes,
+                  int esize, long long sstride, void* d0, void* d1, long long m,
+                  int N, int bl, const void* masks, int g, int nrest,
+                  const unsigned char* gid_pos, const int* mem_phys,
+                  void* stream) {
   if (!shape_ok(m, N, bl, nplanes, esize) || g < 1 || g > 3 || nrest < 0 ||
       nrest > 32 || (m / bl) >> g < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -464,8 +518,34 @@ extern "C" int lilac_hier_butterfly(const void* s0, const void* s1, int nplanes,
   for (int i = 0; i < 32; ++i) map.gid_pos[i] = i < nrest ? gid_pos[i] : 0;
   for (int s = 0; s < 8; ++s) map.mem_phys[s] = s < (1 << g) ? mem_phys[s] : 0;
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(LILAC_DISPATCH(launch_butterfly, g, s0, s1, sstride,
-                                         d0, d1, m, N, bl, masks, map, cs));
+  return static_cast<int>(LILAC_DISPATCH(launch_butterfly, rev, g, s0, s1,
+                                         sstride, d0, d1, m, N, bl, masks, map,
+                                         cs));
+}
+
+}  // namespace
+
+// gid_pos[nrest]: physical bit position of each group-index bit;
+// mem_phys[2^g]: physical block bits of each member.
+extern "C" int lilac_hier_butterfly(const void* s0, const void* s1, int nplanes,
+                                    int esize, long long sstride, void* d0,
+                                    void* d1, long long m, int N, int bl,
+                                    const void* masks, int g, int nrest,
+                                    const unsigned char* gid_pos,
+                                    const int* mem_phys, void* stream) {
+  return run_butterfly(false, s0, s1, nplanes, esize, sstride, d0, d1, m, N, bl,
+                       masks, g, nrest, gid_pos, mem_phys, stream);
+}
+
+// K8: the same g exchange stages, last one first.
+extern "C" int lilac_hier_butterfly_t(const void* s0, const void* s1,
+                                      int nplanes, int esize, long long sstride,
+                                      void* d0, void* d1, long long m, int N,
+                                      int bl, const void* masks, int g,
+                                      int nrest, const unsigned char* gid_pos,
+                                      const int* mem_phys, void* stream) {
+  return run_butterfly(true, s0, s1, nplanes, esize, sstride, d0, d1, m, N, bl,
+                       masks, g, nrest, gid_pos, mem_phys, stream);
 }
 
 extern "C" int lilac_hier_window(const void* s0, const void* s1, int nplanes,

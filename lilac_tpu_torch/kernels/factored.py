@@ -14,16 +14,21 @@ Two layouts are ported:
 
 * ``routed``: V and V^T as routed plans (kernels/routed_spmv.py, the
   hand-written CUDA kernels): single-table for n <= 2^18 (NPB classes S to
-  C), hierarchical beyond (classes D and E), each with a dedicated forward
-  plan for V^T (``factored_vt=plan``).
+  C), hierarchical beyond (classes D and E). ``factored_vt=plan`` gives V^T
+  a dedicated forward plan; ``factored_vt=adj`` holds V's plan only and
+  applies V^T by running it in reverse (the adjoint kernels), at half the
+  plan bytes. ``auto`` is ``adj`` for the hierarchical classes and ``plan``
+  for the single-table ones (small plans, and a dedicated forward schedule
+  has no add-merge stages).
 * ``single``: V and V^T as single-segment SegBucketELL through plain torch
   indexing (kernels/gather.py). No hand kernel: the independent operator
   the routed one is held against.
 
-``auto`` is ``routed`` when the plan's device is CUDA and ``single`` on
-the CPU. The reference's ``scan`` and ``mixed`` layouts and
-``factored_vt=adj`` raise NotImplementedError until their kernels are
-ported.
+``factored_segmode=auto`` is ``routed`` when the plan's device is CUDA and
+``single`` on the CPU. The reference's ``scan`` and ``mixed`` layouts raise
+NotImplementedError until their gather layouts are ported (``mixed`` with
+``adj`` is ``routed``, as in the reference: adj removes the reason mixed
+exists).
 
 Exactly the same matrix: summation order differs from the assembled CSR
 by O(eps), far inside the zeta tolerance of 1e-10. Supports the f32 / f64
@@ -55,8 +60,12 @@ from lilac_tpu_torch.kernels.routed_spmv import (
     load_routed,
     maybe_pack_hier,
     routed_hier_spmv,
+    routed_hier_spmv_adj_t,
+    routed_hier_spmv_adj_t_df,
     routed_hier_spmv_df,
     routed_spmv,
+    routed_spmv_adj_t,
+    routed_spmv_adj_t_df,
     routed_spmv_df,
     save_routed,
 )
@@ -72,9 +81,10 @@ _LOAD_ERRORS = (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile)
 class FactoredNPB:
     """Device containers for the factored operator."""
 
-    # [n x n] sparse with rows a_i, and its transpose
+    # [n x n] sparse with rows a_i, and its transpose; VT None
+    # (factored_vt=adj) = apply V's own routed plan in reverse
     V: Union[RoutedMat, RoutedMatHier, RoutedMatHierP, SegBucketELL]
-    VT: Union[RoutedMat, RoutedMatHier, RoutedMatHierP, SegBucketELL]
+    VT: Union[RoutedMat, RoutedMatHier, RoutedMatHierP, SegBucketELL, None]
     s: torch.Tensor  # [n] outer-product weights (f32/f64 or [n, 2] df)
     d0: torch.Tensor  # scalar diagonal shift rcond - shift (or [2] df)
 
@@ -87,10 +97,21 @@ def to_vals(v: np.ndarray, dtype: str) -> np.ndarray:
     return v.astype({"f32": np.float32, "f64": np.float64}[dtype])
 
 
-def _resolve_modes(conf, n: int, device) -> str:
+def _resolve_modes(conf, n: int, device) -> Tuple[str, str]:
+    """(factored_segmode, factored_vt) with every `auto` resolved."""
     mode = conf.factored_segmode
     if mode == "auto":
         mode = "routed" if torch.device(device).type == "cuda" else "single"
+    vt_mode = conf.factored_vt
+    if vt_mode == "auto":
+        # one hier plan for both directions beyond a single table; the
+        # single-table classes keep the dedicated VT plan
+        vt_mode = ("adj" if mode in ("routed", "mixed") and n > SINGLE_TABLE_MAX
+                   else "plan")
+    if vt_mode not in ("plan", "adj"):
+        raise ValueError(f"unknown factored_vt {vt_mode!r}")
+    if mode == "mixed" and vt_mode == "adj":
+        mode = "routed"
     if mode in ("scan", "mixed"):
         raise NotImplementedError(
             f"factored_segmode={mode!r} is not ported: 'scan' needs the "
@@ -99,38 +120,25 @@ def _resolve_modes(conf, n: int, device) -> str:
         )
     if mode not in ("routed", "single"):
         raise ValueError(f"unknown factored_segmode {mode!r}")
-    vt_mode = conf.factored_vt
-    if vt_mode == "auto":
-        # The reference picks 'adj' for n > 2^18 (one hier plan serves both
-        # directions, half the plan bytes). Until the adjoint kernels are
-        # ported, auto stays 'plan' there too: two forward hier plans.
-        vt_mode = "plan"
-    if vt_mode == "adj":
-        raise NotImplementedError(
-            "factored_vt='adj' is not ported: it runs V's network in reverse "
-            "through the adjoint kernels (routed_apply_t for a single table; "
-            "routed_apply_sliced_bt, butterfly_apply_bt, window_shift_apply_bt "
-            "and bigshift_apply_bt for a hierarchical plan)"
-        )
-    if vt_mode != "plan":
-        raise ValueError(f"unknown factored_vt {vt_mode!r}")
-    return mode
+    if mode != "routed":
+        vt_mode = "plan"  # a gather layout has no network to run in reverse
+    return mode, vt_mode
 
 
 def _load_plans(paths, device):
-    """Both plan files as RoutedMats (or host-staged RoutedMatHiers), or
-    None when either is missing, unreadable, of another cache version, in
-    the old row-major layout or infeasible on this device. Only errors of
-    reading the files are caught here."""
+    """The plan files (V, VT; V alone for factored_vt=adj) as RoutedMats or
+    host-staged RoutedMatHiers, or None when one is missing, unreadable, of
+    another cache version, in the old row-major layout or infeasible on
+    this device. Only errors of reading the files are caught here."""
     if not all(os.path.exists(p) for p in paths):
         return None
     try:
-        V, VT = (load_routed(p, device=device) for p in paths)
+        plans = [load_routed(p, device=device) for p in paths]
     except _LOAD_ERRORS:
         return None
-    if V is None or VT is None or not V.colmajor:
+    if any(p is None for p in plans) or not plans[0].colmajor:
         return None
-    return V, VT
+    return plans
 
 
 def _build_hier_plan(path, indptr, indices, vals, n, dtype, device):
@@ -155,7 +163,8 @@ def build_factored(
     cls = CLASSES[class_name.upper()]
     n = cls.na
     conf = cfg()
-    mode = _resolve_modes(conf, n, device)
+    mode, vt_mode = _resolve_modes(conf, n, device)
+    adj = vt_mode == "adj"
 
     def to_dev(v):
         return torch.as_tensor(to_vals(v, dtype), device=device)
@@ -176,9 +185,10 @@ def build_factored(
         else:
             g = conf.hier_gmax if conf.hier_gmax is not None else "a"
             tag = f"_bl{hier_bl_cfg()}g{g}"
+        # adj needs, and writes, V's file alone
         paths = [
             os.path.join(cache_dir, f"routed2_{cls.name}_{dtype}_{t}{tag}.npz")
-            for t in ("V", "VT")
+            for t in (("V",) if adj else ("V", "VT"))
         ]
         meta_path = os.path.join(
             cache_dir, f"routed2_{cls.name}_{dtype}_meta{tag}.npz"
@@ -193,7 +203,7 @@ def build_factored(
             except _LOAD_ERRORS:
                 plans = None
             if plans is not None:
-                V, VT = (maybe_pack_hier(p, device) for p in plans)
+                V, VT = [maybe_pack_hier(p, device) for p in plans] + [None] * adj
                 return FactoredNPB(V=V, VT=VT, s=to_dev(s_meta), d0=d0), nnz_meta
 
     nzv_arr, ivc, vc = _generate_triples(cls)
@@ -225,23 +235,24 @@ def build_factored(
     t_ip, t_ix, t_v = coo_to_csr_arrays(pos_j, rows_i, vc, (n, n), sum_duplicates=False)
 
     if mode == "routed":
-        plans = _load_plans(paths, device)
-        if plans is not None:
-            V, VT = (maybe_pack_hier(p, device) for p in plans)
-        elif n <= SINGLE_TABLE_MAX:
-            V = build_routed_csr(v_ip, v_ix, v_v, (n, n), dtype=dtype, device=device)
-            VT = build_routed_csr(t_ip, t_ix, t_v, (n, n), dtype=dtype, device=device)
-            save_routed(paths[0], V)
-            save_routed(paths[1], VT)
-        else:
-            # beyond one table: hierarchical networks, one plan a direction.
-            # Each is built and saved on the host, then uploaded (packed)
-            # and its host copy dropped before the next one is built.
-            V, VT = (
-                _build_hier_plan(path, ip, ix, vv, n, dtype, device)
-                for path, (ip, ix, vv) in zip(
-                    paths, ((v_ip, v_ix, v_v), (t_ip, t_ix, t_v)))
-            )
+        # one plan a direction (V's alone for adj): a single table, or beyond
+        # one table hierarchical networks. A plan whose file is there is
+        # loaded, so going from adj to plan builds VT only. A hier plan is
+        # built and saved on the host, then uploaded (packed) and its host
+        # copy dropped before the next one is built.
+        plans = []
+        for path, (ip, ix, vv) in zip(
+                paths, ((v_ip, v_ix, v_v), (t_ip, t_ix, t_v))):
+            cached = _load_plans([path], device)
+            if cached is not None:
+                plans.append(maybe_pack_hier(cached[0], device))
+            elif n <= SINGLE_TABLE_MAX:
+                plans.append(build_routed_csr(
+                    ip, ix, vv, (n, n), dtype=dtype, device=device))
+                save_routed(path, plans[-1])
+            else:
+                plans.append(_build_hier_plan(path, ip, ix, vv, n, dtype, device))
+        V, VT = plans + [None] * adj
     else:
         V = csr_to_seg_bucket_ell(
             v_ip, v_ix, to_vals(v_v, dtype), (n, n), seg_size=n, device=device
@@ -284,11 +295,29 @@ def _spmv_any_df(A, x):
     return seg_bucket_ell_spmv_df(A, x)
 
 
+def _spmv_adj_any(A, u):
+    """V^T u through V's OWN routed plan run in reverse: used when
+    FactoredNPB.VT is None (factored_vt=adj)."""
+    if isinstance(A, RoutedMat):
+        return routed_spmv_adj_t(A, u)
+    if isinstance(A, (RoutedMatHier, RoutedMatHierP)):
+        return routed_hier_spmv_adj_t(A, u)
+    raise TypeError(f"no VT and V is a {type(A).__name__}, not a routed plan")
+
+
+def _spmv_adj_any_df(A, u):
+    if isinstance(A, RoutedMat):
+        return routed_spmv_adj_t_df(A, u)
+    if isinstance(A, (RoutedMatHier, RoutedMatHierP)):
+        return routed_hier_spmv_adj_t_df(A, u)
+    raise TypeError(f"no VT and V is a {type(A).__name__}, not a routed plan")
+
+
 def factored_spmv(A: FactoredNPB, x: torch.Tensor) -> torch.Tensor:
     """Plain-float factored product (f32/f64)."""
     t = _spmv_any(A.V, x)
     u = A.s * t
-    y = _spmv_any(A.VT, u)
+    y = _spmv_adj_any(A.V, u) if A.VT is None else _spmv_any(A.VT, u)
     return y + A.d0 * x
 
 
@@ -297,6 +326,6 @@ def factored_spmv_df(A: FactoredNPB, x: df.DF) -> df.DF:
     t = _spmv_any_df(A.V, x)
     s = df.DF(A.s[..., 0], A.s[..., 1])
     u = df.mul(s, t)
-    y = _spmv_any_df(A.VT, u)
+    y = _spmv_adj_any_df(A.V, u) if A.VT is None else _spmv_any_df(A.VT, u)
     d0 = df.DF(A.d0[..., 0], A.d0[..., 1])
     return df.add(y, df.mul(d0, x))

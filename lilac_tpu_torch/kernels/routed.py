@@ -1,26 +1,36 @@
 """Device applier for plan-time gather routing networks.
 
-Counterpart of lilac_tpu/kernels/routed.py for the single-table network
-(`routed_apply`, kernel K1, and `masks_device`) and for the forward
-hierarchical networks (second half of this file: `compile_hier`, the four
-pass appliers K3-K6 with their un-batched twins, `hier_apply` and
-`hier_apply_batched`). The adjoint appliers of that module are not ported
-yet.
+Counterpart of lilac_tpu/kernels/routed.py: the single-table network
+forward (`routed_apply`, kernel K1, and `masks_device`) and adjoint
+(`routed_apply_t`, K11); the hierarchical networks forward (`compile_hier`,
+the four pass appliers K3-K6 with their un-batched twins, `hier_apply`,
+`hier_apply_batched`) and adjoint (the four `*_bt` appliers K7-K10 and
+`hier_apply_batched_t`).
 
 Stage primitive (same semantics as routenet.GatherPlanHost.apply_host):
     xor    d: y[i] <- mask[i] ? y[i ^ d] : y[i]
     shift  d: y[i] <- mask[i] ? y[i - d] : y[i]   (cyclic over the flat m)
     shiftl d: y[i] <- mask[i] ? y[i + d] : y[i]   (cyclic over the flat m)
 
+The adjoint of a stage (the transpose Gᵀ of the gather G it encodes) is the
+stage itself for xor, an exchange, and for shift / shiftl the add-merge
+    u'[i] = (mask[i] ? 0 : u[i]) + (mask[j] ? u[j] : 0),
+j = i + d for shift and i - d for shiftl (`_stage_adj_plain`); a network's
+adjoint runs its stages in reverse order. With `dfpair` two planes are one
+df64 (hi, lo) pair and every merge is a compensated TwoSum add.
+
 `routed_apply` launches the CUDA kernel of csrc/routed.cu for tensors on
 the card and takes `routed_apply_plain` only for tensors that lie on the
 CPU. Both only move values, so they agree bit for bit. The same holds for
-each hierarchical applier and its `*_plain` version (csrc/hier.cu).
+each hierarchical applier and its `*_plain` version (csrc/hier.cu), and for
+the adjoint appliers (csrc/hier.cu, csrc/adjoint.cu), whose sums are taken
+in the same order with every step rounded on its own.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -74,7 +84,9 @@ def masks_packed(masks: np.ndarray) -> np.ndarray:
     return packed.view(np.int8)
 
 
-def _check_args(x_planes, masks, kinds, dists):
+def _check_args(x_planes, masks, kinds, dists, per_net=False):
+    """Validate a single-table call; value planes hold m words (one table
+    shared by the B nets) or, with per_net, B * m words."""
     if masks.dim() != 4 or masks.shape[3] != 128 or masks.dtype != torch.int8:
         raise ValueError(
             f"masks must be int8 [B, P, R, 128], got {masks.dtype} "
@@ -90,11 +102,13 @@ def _check_args(x_planes, masks, kinds, dists):
     dtype = x_planes[0].dtype
     if dtype not in _WORD_DTYPES:
         raise ValueError(f"value planes must be float32 or float64, got {dtype}")
+    words = B * m if per_net else m
     for x in x_planes:
-        if x.dtype != dtype or x.numel() != m or x.device != masks.device:
+        if x.dtype != dtype or x.numel() != words or x.device != masks.device:
             raise ValueError(
                 f"value plane {x.dtype} {tuple(x.shape)} on {x.device} does "
-                f"not match {dtype} [{R}, 128] on {masks.device}"
+                f"not match {dtype} [{'%d, ' % B if per_net else ''}{R}, 128] "
+                f"on {masks.device}"
             )
     for k, d in zip(kinds, dists):
         if k not in _KIND_CODE or not 1 <= d < m or d & (d - 1):
@@ -210,6 +224,133 @@ routed_apply.launches = 0
 routed_apply.stage_launches = 0
 
 
+# ---- adjoint of the single-table network (K11) ------------------------------
+
+
+def _merge_adj(kept, moved, dfpair: bool):
+    """kept + moved per plane; for one df64 (hi, lo) pair Knuth's TwoSum of
+    the hi words, the lo words and the error added, renormalised. Eager
+    PyTorch rounds every op on its own, so the TwoSum is exact as written."""
+    if dfpair and len(kept) == 2:
+        s = kept[0] + moved[0]
+        bb = s - kept[0]
+        e = (kept[0] - (s - bb)) + (moved[0] - bb)
+        low = e + (kept[1] + moved[1])
+        hi = s + low
+        return [hi, low - (hi - s)]
+    return [k + mv for k, mv in zip(kept, moved)]
+
+
+def _stage_adj_plain(ys, mask, kind: str, d: int, idx, dfpair: bool):
+    """Adjoint of one forward stage over the last axis of `ys` (cyclic over
+    its length, `idx` = arange of it). The merge is taken at every slot,
+    also where nothing is moved in."""
+    L = idx.shape[0]
+    if kind == "xor":
+        src = idx ^ d
+        return [torch.where(mask, y[..., src], y) for y in ys]
+    # the slot whose forward partner is i: shift reads i - d, so i + d
+    src = (idx + d) % L if kind == "shift" else (idx - d) % L
+    zero = ys[0].new_zeros(())
+    kept = [torch.where(mask, zero, y) for y in ys]
+    moved = [torch.where(mask, y, zero)[..., src] for y in ys]
+    return _merge_adj(kept, moved, dfpair)
+
+
+def routed_apply_t_plain(
+    x_planes: Sequence[torch.Tensor],
+    masks: torch.Tensor,
+    kinds: Tuple[str, ...],
+    dists: Tuple[int, ...],
+    *,
+    dfpair: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """Plain PyTorch version of routed_apply_t: the stages in reverse order,
+    each by _stage_adj_plain. Same arguments, same result, any device."""
+    B, P, R, m, S, _ = _check_args(x_planes, masks, kinds, dists, per_net=True)
+    idx = torch.arange(m, device=masks.device)
+    planes = masks.reshape(B, P, m)
+    ys = [x.reshape(B, m) for x in x_planes]
+    for s in range(S - 1, -1, -1):
+        p, bit = divmod(s, 8)
+        mask = ((planes[:, p].to(torch.int32) >> bit) & 1) != 0
+        ys = _stage_adj_plain(ys, mask, kinds[s], dists[s], idx, dfpair)
+    return tuple(y.reshape(B, R, 128).contiguous() for y in ys)
+
+
+def _adj_lib():
+    lib = _cuda.load("adjoint")
+    if not getattr(lib, "_typed", False):
+        vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        ub = ctypes.POINTER(ctypes.c_ubyte)
+        head = [vp, vp, ci, ci, ll, vp, vp, ll, ci, ci, vp]
+        lib.lilac_adj_window.argtypes = head + [
+            ci, ci, ctypes.POINTER(ci), ci, ub, vp]
+        lib.lilac_adj_bigshift.argtypes = head + [ci, ll, ci, ub, vp]
+        lib.lilac_adj_routed.argtypes = [
+            vp, vp, ci, ci, ci, vp, vp, vp, vp, vp, ci, ci, ll, ci,
+            ctypes.POINTER(ci), ctypes.POINTER(ll), vp]
+        for fn in (lib.lilac_adj_window, lib.lilac_adj_bigshift,
+                   lib.lilac_adj_routed):
+            fn.restype = ci
+        lib._typed = True
+    return lib
+
+
+def routed_apply_t(
+    x_planes: Sequence[torch.Tensor],
+    masks: torch.Tensor,
+    kinds: Tuple[str, ...],
+    dists: Tuple[int, ...],
+    *,
+    dfpair: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """Adjoint of routed_apply (kernel K11): y = Gᵀ u for the same switch
+    masks, so the transpose costs no plan bytes.
+
+    x_planes: one or two per-net [B, R, 128] planes (the forward's output
+              space); dfpair: they are one (hi, lo) df64 pair and the merges
+              are compensated.
+    returns:  tuple of [B, R, 128] planes in the forward's input space.
+
+    CUDA tensors go through the kernel of csrc/adjoint.cu (one launch per
+    stage, last stage first, ping-pong buffers from torch.empty; the input
+    is only read); the launch error code is checked and raised. Only CPU
+    tensors take the plain version."""
+    if not masks.is_cuda:
+        return routed_apply_t_plain(x_planes, masks, kinds, dists, dfpair=dfpair)
+    B, P, R, m, S, dtype = _check_args(x_planes, masks, kinds, dists, per_net=True)
+    check_table_feasible(m, B, what="routed_apply_t")
+    if not masks.is_contiguous():
+        raise ValueError("masks must be contiguous")
+    for x in x_planes:
+        if not x.is_contiguous() or x.data_ptr() % 32:
+            raise ValueError("value planes must be contiguous and 32-byte aligned")
+    xs = list(x_planes)
+    n = len(xs)
+    outs = [torch.empty((B, R, 128), dtype=dtype, device=masks.device) for _ in xs]
+    tmps = [torch.empty_like(o) for o in outs] if S > 1 else outs
+    kinds_c, dists_c = _stage_args(kinds, dists)
+    fn = _adj_lib().lilac_adj_routed
+    with torch.cuda.device(masks.device):
+        err = fn(
+            xs[0].data_ptr(), xs[1].data_ptr() if n == 2 else None, n,
+            xs[0].element_size(), int(bool(dfpair)),
+            outs[0].data_ptr(), outs[1].data_ptr() if n == 2 else None,
+            tmps[0].data_ptr(), tmps[1].data_ptr() if n == 2 else None,
+            masks.data_ptr(), B, P, m, S, kinds_c, dists_c,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _cuda.check(err, "routed_apply_t")
+    routed_apply_t.launches += 1
+    routed_apply_t.stage_launches += max(S, 1)
+    return tuple(outs)
+
+
+routed_apply_t.launches = 0
+routed_apply_t.stage_launches = 0
+
+
 # ---------------------------------------------------------------------------
 # Hierarchical networks (m beyond one resident table).
 #
@@ -242,6 +383,17 @@ routed_apply.stage_launches = 0
 # stacked on a leading net axis N and planes shared by all nets
 # ([mrows, 128]) or per net ([N, mrows, 128]); they return [N, mrows, 128].
 # The un-batched appliers are the same kernels at N = 1.
+#
+# The adjoint appliers (`*_bt`, K7-K10) take the SAME mask arrays, net-batched
+# only (one net is N = 1), and per-net [N, mrows, 128] planes. hier_apply_
+# batched_t runs a schedule's passes in reverse order; the layout bookkeeping
+# is the forward's over the reversed pass list (each adjoint pass reads
+# logical blocks through the current layout and writes natural order, the
+# butterfly adjoint group-major), and the forward's final relayout has no
+# adjoint step: the natural-order cotangent is the logical-indexed view.
+# The window adjoint of block b needs the window (block b, block b + 1), the
+# mirror of the forward's (b - 1, b); its masks are the self halves (rows
+# [R, 2R)) of the packed blocks b and b + 1.
 # ---------------------------------------------------------------------------
 
 # Dynamic shared memory one thread block of an H100 may ask for (227 KB of
@@ -311,13 +463,15 @@ def smem_optin_bytes(device="cuda") -> int:
 def default_hier_bl(limit: int = HOPPER_SMEM_OPTIN) -> int:
     """Block length of hierarchical plans when LILAC_HIER_BL is unset.
 
-    Only the inner pass (K3) keeps slots on chip: a block of bl slots at 8
-    bytes a slot (a df64 (hi, lo) pair or one f64 word, the widest the NPB
-    path routes) plus one resident mask plane of bl bytes, 9 * bl bytes.
-    The default is the largest power of two of which TWO such blocks fit
-    the opt-in limit, so that one block's barriers are covered by the
-    other's work: 2 * 9 * bl <= 232448 gives bl = 2^13 on an H100. The
-    window, butterfly and bigshift passes hold no slots on chip."""
+    The inner pass (K3, K7) keeps a block of bl slots on chip at 8 bytes a
+    slot (a df64 (hi, lo) pair or one f64 word, the widest the NPB path
+    routes) plus one resident mask plane of bl bytes, 9 * bl bytes. The
+    default is the largest power of two of which TWO such blocks fit the
+    opt-in limit, so that one block's barriers are covered by the other's
+    work: 2 * 9 * bl <= 232448 gives bl = 2^13 on an H100. The adjoint
+    window pass (K9) keeps bl + sum(d) < 2 * bl slots with their mask bytes,
+    so the same bound covers its worst case. The forward window, butterfly
+    and bigshift passes hold no slots on chip."""
     bl = 128
     while 2 * 9 * (2 * bl) <= limit:
         bl *= 2
@@ -333,12 +487,18 @@ def hier_gmax(bl: int, nplanes: int) -> int:
 
 
 def pass_smem_bytes(p, bl: int, nplanes: int, esize: int = 4) -> int:
-    """Dynamic shared memory of one compiled pass descriptor's kernel."""
+    """Dynamic shared memory of one compiled pass descriptor's kernels: the
+    larger of the forward's and the adjoint's, since one plan serves both
+    directions."""
     kind = p[0]
     if kind == "inner":
         return nplanes * bl * esize + bl  # the block + one mask plane
     if kind == "window":
-        return 2 * bl  # the window's mask bytes; values are gathered
+        # the adjoint's bl + sum(d) slots (rounded up to 4) with their mask
+        # bytes; the forward gathers its values and stages only the window's
+        # 2 * bl mask bytes, always less
+        slots = (bl + sum(p[1]) + 3) // 4 * 4
+        return slots * (nplanes * esize + 1)
     if kind in ("butterfly", "bigshift"):
         return 0
     raise ValueError(f"unknown pass kind {kind!r}")
@@ -589,9 +749,11 @@ def routed_apply_sliced_plain(x_planes, masks, kinds, dists, *, layout=None):
     return _finish(ys, N, nblocks, bl, net_axis)
 
 
-def butterfly_apply_plain(x_planes, masks, block_bits, bl: int, *, layout=None):
+def butterfly_apply_plain(x_planes, masks, block_bits, bl: int, *, layout=None,
+                          reverse: bool = False):
     """Plain version of butterfly_apply(_b). masks [ngroups, G*R, 128] or
-    [N, ngroups, G*R, 128]. Returns (planes, new_layout)."""
+    [N, ngroups, G*R, 128]. Returns (planes, new_layout). reverse: the g
+    stages last one first (the adjoint pass, butterfly_apply_bt_plain)."""
     net_axis = masks.dim() == 4
     mk = _net_masks(masks, net_axis, False, "butterfly_apply")
     N, ngroups = mk.shape[:2]
@@ -614,7 +776,7 @@ def butterfly_apply_plain(x_planes, masks, block_bits, bl: int, *, layout=None):
     mbits = mk.reshape(N, ngroups, G, bl).to(torch.int32)
     members = torch.arange(G, device=mk.device)
     cur = [_blocks(x, nblocks, bl)[:, src].expand(N, ngroups, G, bl) for x in x_planes]
-    for k in range(g):
+    for k in (range(g - 1, -1, -1) if reverse else range(g)):
         msk = ((mbits >> k) & 1) != 0
         cur = [torch.where(msk, y[:, :, members ^ (1 << k)], y) for y in cur]
     return _finish(cur, N, nblocks, bl, net_axis), new_layout
@@ -668,7 +830,110 @@ def bigshift_apply_plain(x_planes, masks, d: int, bl: int, *, layout=None):
     return _finish(outs, N, nblocks, bl, net_axis)
 
 
-# ---- the CUDA kernels of csrc/hier.cu ---------------------------------------
+# ---- plain PyTorch versions of the adjoint passes ---------------------------
+
+
+def _adj_args(x_planes, masks, inner: bool, what: str):
+    """Net-batched masks and per-net planes, as every adjoint pass takes."""
+    mk = _net_masks(masks, True, inner, what)
+    for x in x_planes:
+        if x.dim() != 3:
+            raise ValueError(
+                f"{what}: adjoint passes take per-net [N, mrows, 128] planes, "
+                f"got {tuple(x.shape)}")
+    return mk
+
+
+def routed_apply_sliced_bt_plain(x_planes, masks, kinds, dists, *,
+                                 dfpair: bool = False, layout=None):
+    """Plain version of routed_apply_sliced_bt: every block runs its stages
+    in reverse order by _stage_adj_plain on its own bl slots (shifts cyclic
+    over the block). masks [N, nblocks, P, R, 128]."""
+    what = "routed_apply_sliced_bt"
+    mk = _adj_args(x_planes, masks, True, what)
+    N, nblocks, P, R, _ = mk.shape
+    bl = R * 128
+    S = len(kinds)
+    if S != len(dists) or (S and P != (S + 7) // 8):
+        raise ValueError(f"{S} kinds, {len(dists)} dists, {P} mask planes")
+    _hier_planes(x_planes, N, nblocks, bl, mk.device, what)
+    phys = _phys_index(nblocks, layout, mk.device)
+    idx = torch.arange(bl, device=mk.device)
+    planes = mk.reshape(N, nblocks, P, bl)
+    ys = [_blocks(x, nblocks, bl)[:, phys] for x in x_planes]
+    for s in range(S - 1, -1, -1):
+        kind, d = kinds[s], dists[s]
+        if kind not in _KIND_CODE or not 1 <= d < bl:
+            raise ValueError(f"bad stage ({kind!r}, {d}) for bl={bl}")
+        p, bit = divmod(s, 8)
+        mask = ((planes[:, :, p].to(torch.int32) >> bit) & 1) != 0
+        ys = _stage_adj_plain(ys, mask, kind, d, idx, dfpair)
+    return _finish(ys, N, nblocks, bl, True)
+
+
+def butterfly_apply_bt_plain(x_planes, masks, block_bits, bl: int, *, layout=None):
+    """Plain version of butterfly_apply_bt: the forward's exchange stages
+    last one first. masks [N, ngroups, G*R, 128]. Returns (planes,
+    new_layout)."""
+    _adj_args(x_planes, masks, False, "butterfly_apply_bt")
+    return butterfly_apply_plain(x_planes, masks, block_bits, bl, layout=layout,
+                                 reverse=True)
+
+
+def window_shift_apply_bt_plain(x_planes, masks, dists, bl: int, *,
+                                dfpair: bool = False, layout=None):
+    """Plain version of window_shift_apply_bt: the shift stages in reverse
+    order as add-merges over the (self, right neighbour) window of 2 * bl
+    slots, cyclic inside the window, of which the lower half is kept. masks
+    [N, nblocks, 2R, 128], the forward's."""
+    what = "window_shift_apply_bt"
+    mk = _adj_args(x_planes, masks, False, what)
+    N, nblocks = mk.shape[:2]
+    S = len(dists)
+    if mk.shape[2] * 128 != 2 * bl:
+        raise ValueError(f"window masks {tuple(mk.shape)} do not match bl={bl}")
+    if S > 8 or sum(dists) >= bl or any(d < 1 for d in dists):
+        raise ValueError(f"window pass takes <= 8 shifts with sum < bl, got {dists}")
+    _hier_planes(x_planes, N, nblocks, bl, mk.device, what)
+    phys = _phys_index(nblocks, layout, mk.device)
+    nxt = (torch.arange(nblocks, device=mk.device) + 1) % nblocks
+    own = mk.reshape(N, nblocks, 2 * bl)[..., bl:]  # each block's own switches
+    mbits = torch.cat([own, own[:, nxt]], dim=-1).to(torch.int32)
+    idx = torch.arange(2 * bl, device=mk.device)
+    ys = []
+    for x in x_planes:
+        xb = _blocks(x, nblocks, bl)
+        ys.append(torch.cat([xb[:, phys], xb[:, phys[nxt]]], dim=-1))
+    for s in range(S - 1, -1, -1):
+        msk = ((mbits >> s) & 1) != 0
+        ys = _stage_adj_plain(ys, msk, "shift", dists[s], idx, dfpair)
+    return _finish([y[..., :bl] for y in ys], N, nblocks, bl, True)
+
+
+def bigshift_apply_bt_plain(x_planes, masks, d: int, bl: int, *,
+                            dfpair: bool = False, layout=None):
+    """Plain version of bigshift_apply_bt: block b's unmasked words plus the
+    masked words of block b + d/bl. masks [N, nblocks, R, 128]."""
+    what = "bigshift_apply_bt"
+    mk = _adj_args(x_planes, masks, False, what)
+    N, nblocks = mk.shape[:2]
+    if mk.shape[2] * 128 != bl or d % bl:
+        raise ValueError(f"bigshift masks {tuple(mk.shape)} / d={d} do not match bl={bl}")
+    _hier_planes(x_planes, N, nblocks, bl, mk.device, what)
+    db = (d // bl) % nblocks
+    phys = _phys_index(nblocks, layout, mk.device)
+    far = (torch.arange(nblocks, device=mk.device) + db) % nblocks
+    msk = mk.reshape(N, nblocks, bl) != 0
+    zero = x_planes[0].new_zeros(())
+    kept, moved = [], []
+    for x in x_planes:
+        xb = _blocks(x, nblocks, bl)
+        kept.append(torch.where(msk, zero, xb[:, phys]))
+        moved.append(torch.where(msk[:, far], xb[:, phys[far]], zero))
+    return _finish(_merge_adj(kept, moved, dfpair), N, nblocks, bl, True)
+
+
+# ---- the CUDA kernels of csrc/hier.cu and csrc/adjoint.cu --------------------
 
 
 def _hier_lib():
@@ -677,15 +942,17 @@ def _hier_lib():
         vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         ub = ctypes.POINTER(ctypes.c_ubyte)
         head = [vp, vp, ci, ci, ll, vp, vp, ll, ci, ci, vp]
-        lib.lilac_hier_inner.argtypes = head + [ci, ci, ub, ci, ub, vp]
-        lib.lilac_hier_butterfly.argtypes = head + [
-            ci, ci, ub, ctypes.POINTER(ci), vp]
+        for fn in (lib.lilac_hier_inner, lib.lilac_hier_inner_t):
+            fn.argtypes = head + [ci, ci, ub, ci, ub, vp]
+        for fn in (lib.lilac_hier_butterfly, lib.lilac_hier_butterfly_t):
+            fn.argtypes = head + [ci, ci, ub, ctypes.POINTER(ci), vp]
         lib.lilac_hier_window.argtypes = head + [
             ci, ctypes.POINTER(ci), ci, ub, vp]
         lib.lilac_hier_bigshift.argtypes = head + [ll, ci, ub, vp]
         lib.lilac_hier_smem_optin.argtypes = [ctypes.POINTER(ci)]
         for fn in (lib.lilac_hier_inner, lib.lilac_hier_butterfly,
                    lib.lilac_hier_window, lib.lilac_hier_bigshift,
+                   lib.lilac_hier_inner_t, lib.lilac_hier_butterfly_t,
                    lib.lilac_hier_smem_optin):
             fn.restype = ci
         lib._typed = True
@@ -696,11 +963,11 @@ def _ubytes(values):
     return (ctypes.c_ubyte * max(len(values), 1))(*values)
 
 
-def _launch_hier(fn_name, what, x_planes, mk, N, nblocks, bl, tail):
-    """Common half of the four launches: checks the tensors, allocates the
-    [N, mrows, 128] outputs and calls the C function `fn_name` with the
-    arguments all four share, then the kernel's own (`tail`), then the
-    current stream."""
+def _launch_hier(fn_name, what, x_planes, mk, N, nblocks, bl, tail, lib=_hier_lib):
+    """Common half of the pass launches: checks the tensors, allocates the
+    [N, mrows, 128] outputs and calls the C function `fn_name` of `lib()`
+    with the arguments all passes share, then the kernel's own (`tail`), then
+    the current stream."""
     dtype, shared = _hier_planes(x_planes, N, nblocks, bl, mk.device, what)
     if not mk.is_contiguous() or mk.data_ptr() % 4:
         raise ValueError(f"{what}: masks must be contiguous and 4-byte aligned")
@@ -714,7 +981,7 @@ def _launch_hier(fn_name, what, x_planes, mk, N, nblocks, bl, tail):
     n = len(x_planes)
     outs = [torch.empty((N, m // 128, 128), dtype=dtype, device=mk.device)
             for _ in x_planes]
-    fn = getattr(_hier_lib(), fn_name)
+    fn = getattr(lib(), fn_name)
     with torch.cuda.device(mk.device):
         err = fn(
             x_planes[0].data_ptr(), x_planes[1].data_ptr() if n == 2 else None,
@@ -727,10 +994,11 @@ def _launch_hier(fn_name, what, x_planes, mk, N, nblocks, bl, tail):
     return tuple(outs)
 
 
-def _inner(x_planes, masks, kinds, dists, layout, net_axis):
-    if not masks.is_cuda:
-        return routed_apply_sliced_plain(x_planes, masks, kinds, dists, layout=layout)
-    what = "routed_apply_sliced"
+def _inner(x_planes, masks, kinds, dists, layout, net_axis, reverse=False):
+    """The CUDA inner pass, forward or (reverse) adjoint: xor stages only,
+    which are their own adjoints, so the adjoint is the stage loop run
+    backwards."""
+    what = "routed_apply_sliced_bt" if reverse else "routed_apply_sliced"
     mk = _net_masks(masks, net_axis, True, what)
     N, nblocks, P, R, _ = mk.shape
     bl = R * 128
@@ -752,7 +1020,8 @@ def _inner(x_planes, masks, kinds, dists, layout, net_axis):
         limit=smem_optin_bytes(mk.device), what=what)
     tail = (P, S, _ubytes([int(d).bit_length() - 1 for d in dists]),
             len(lay), _ubytes(lay))
-    outs = _launch_hier("lilac_hier_inner", what, x_planes, mk, N, nblocks, bl, tail)
+    outs = _launch_hier("lilac_hier_inner_t" if reverse else "lilac_hier_inner",
+                        what, x_planes, mk, N, nblocks, bl, tail)
     return outs if net_axis else tuple(o[0] for o in outs)
 
 
@@ -766,25 +1035,28 @@ def routed_apply_sliced_b(x_planes, masks, kinds, dists, *, layout=None):
     which runs xor stages only and raises NotImplementedError for others;
     the launch error code is raised. Only CPU tensors take the plain
     version."""
+    if not masks.is_cuda:
+        return routed_apply_sliced_plain(x_planes, masks, kinds, dists, layout=layout)
     outs = _inner(x_planes, masks, kinds, dists, layout, True)
-    if masks.is_cuda:
-        routed_apply_sliced_b.launches += 1
+    routed_apply_sliced_b.launches += 1
     return outs
 
 
 def routed_apply_sliced(x_planes, masks, kinds, dists, *, layout=None):
     """Inner pass of one net (kernel K3u: K3 at N = 1). masks
     [nblocks, P, R, 128]; planes [mrows, 128] in and out."""
+    if not masks.is_cuda:
+        return routed_apply_sliced_plain(x_planes, masks, kinds, dists, layout=layout)
     outs = _inner(x_planes, masks, kinds, dists, layout, False)
-    if masks.is_cuda:
-        routed_apply_sliced.launches += 1
+    routed_apply_sliced.launches += 1
     return outs
 
 
-def _butterfly(x_planes, masks, block_bits, bl, layout, net_axis):
+def _butterfly(x_planes, masks, block_bits, bl, layout, net_axis, reverse=False):
     if not masks.is_cuda:
-        return butterfly_apply_plain(x_planes, masks, block_bits, bl, layout=layout)
-    what = "butterfly_apply"
+        return butterfly_apply_plain(x_planes, masks, block_bits, bl,
+                                     layout=layout, reverse=reverse)
+    what = "butterfly_apply_bt" if reverse else "butterfly_apply"
     mk = _net_masks(masks, net_axis, False, what)
     N, ngroups = mk.shape[:2]
     g = len(block_bits)
@@ -796,8 +1068,9 @@ def _butterfly(x_planes, masks, block_bits, bl, layout, net_axis):
         raise ValueError(f"{what}: masks {tuple(mk.shape)} do not match G={G}, bl={bl}")
     rest, new_layout, gid_pos, mem_phys = _butterfly_maps(nblocks, block_bits, layout)
     tail = (g, len(rest), _ubytes(gid_pos), (ctypes.c_int * 8)(*mem_phys))
-    outs = _launch_hier("lilac_hier_butterfly", what, x_planes, mk, N, nblocks,
-                        bl, tail)
+    outs = _launch_hier(
+        "lilac_hier_butterfly_t" if reverse else "lilac_hier_butterfly", what,
+        x_planes, mk, N, nblocks, bl, tail)
     return (outs if net_axis else tuple(o[0] for o in outs)), new_layout
 
 
@@ -897,11 +1170,104 @@ def bigshift_apply(x_planes, masks, d: int, bl: int, *, layout=None):
     return outs
 
 
+# ---- the adjoint passes (K7-K10) ----------------------------------------------
+
+
+def routed_apply_sliced_bt(x_planes, masks, kinds, dists, *, dfpair: bool = False,
+                           layout=None):
+    """Net-batched inner-pass adjoint (kernel K7): the pass's stages in
+    reverse order. masks [N, nblocks, P, R, 128], the forward's; x_planes
+    per-net [N, mrows, 128] cotangents, logical block b read at physical
+    block _phys_expr(b, layout); natural block order out.
+
+    CUDA tensors go through csrc/hier.cu (K3's kernel with the stage loop
+    running backwards: xor stages are their own adjoints and need no merge,
+    so `dfpair` changes nothing there); other stage kinds raise
+    NotImplementedError. Only CPU tensors take the plain version, which
+    serves all three kinds."""
+    if not masks.is_cuda:
+        return routed_apply_sliced_bt_plain(
+            x_planes, masks, kinds, dists, dfpair=dfpair, layout=layout)
+    _adj_args(x_planes, masks, True, "routed_apply_sliced_bt")
+    outs = _inner(x_planes, masks, kinds, dists, layout, True, reverse=True)
+    routed_apply_sliced_bt.launches += 1
+    return outs
+
+
+def butterfly_apply_bt(x_planes, masks, block_bits, bl: int, *, layout=None):
+    """Net-batched butterfly adjoint (kernel K8): the g exchange stages last
+    one first (each is its own adjoint). Reads logical member blocks through
+    `layout`, writes group-major like the forward; returns (planes
+    [N, mrows, 128], new_layout). A pure permutation: a df64 pair rides as
+    two planes. CUDA tensors take the kernel (csrc/hier.cu), CPU tensors the
+    plain version."""
+    _adj_args(x_planes, masks, False, "butterfly_apply_bt")
+    out = _butterfly(x_planes, masks, block_bits, bl, layout, True, reverse=True)
+    if masks.is_cuda:
+        butterfly_apply_bt.launches += 1
+    return out
+
+
+def window_shift_apply_bt(x_planes, masks, dists, bl: int, *, dfpair: bool = False,
+                          layout=None):
+    """Net-batched window-pass adjoint (kernel K9): the fused shift stages in
+    reverse order as add-merges u'[i] = (1 - m[i]) u[i] + m[i + d] u[i + d]
+    over the window (block b, block b + 1); writes block b in natural order.
+    masks [N, nblocks, 2R, 128], the forward's (the self halves are read).
+    CUDA tensors take the kernel (csrc/adjoint.cu), CPU tensors the plain
+    version."""
+    if not masks.is_cuda:
+        return window_shift_apply_bt_plain(
+            x_planes, masks, dists, bl, dfpair=dfpair, layout=layout)
+    what = "window_shift_apply_bt"
+    mk = _adj_args(x_planes, masks, False, what)
+    N, nblocks = mk.shape[:2]
+    S = len(dists)
+    if mk.shape[2] * 128 != 2 * bl:
+        raise ValueError(f"{what}: masks {tuple(mk.shape)} do not match bl={bl}")
+    if S > 8 or sum(dists) >= bl or any(d < 1 for d in dists):
+        raise ValueError(f"{what}: takes <= 8 shifts with sum < bl, got {dists}")
+    lay = _norm_layout(layout, nblocks)
+    check_smem_feasible(
+        (("window", dists),), bl, len(x_planes), x_planes[0].element_size(),
+        limit=smem_optin_bytes(mk.device), what=what)
+    tail = (int(bool(dfpair)), S, (ctypes.c_int * 8)(*[int(d) for d in dists]),
+            len(lay), _ubytes(lay))
+    outs = _launch_hier("lilac_adj_window", what, x_planes, mk, N, nblocks, bl,
+                        tail, lib=_adj_lib)
+    window_shift_apply_bt.launches += 1
+    return outs
+
+
+def bigshift_apply_bt(x_planes, masks, d: int, bl: int, *, dfpair: bool = False,
+                      layout=None):
+    """Net-batched block-aligned shift adjoint (kernel K10): d a multiple of
+    bl; block b keeps its unmasked words and adds the masked words of block
+    b + d/bl, natural order out. masks [N, nblocks, R, 128] 0/1. CUDA tensors
+    take the kernel (csrc/adjoint.cu), CPU tensors the plain version."""
+    if not masks.is_cuda:
+        return bigshift_apply_bt_plain(
+            x_planes, masks, d, bl, dfpair=dfpair, layout=layout)
+    what = "bigshift_apply_bt"
+    mk = _adj_args(x_planes, masks, False, what)
+    N, nblocks = mk.shape[:2]
+    if mk.shape[2] * 128 != bl or d % bl:
+        raise ValueError(f"{what}: masks {tuple(mk.shape)} / d={d} do not match bl={bl}")
+    lay = _norm_layout(layout, nblocks)
+    tail = (int(bool(dfpair)), (d // bl) % nblocks, len(lay), _ubytes(lay))
+    outs = _launch_hier("lilac_adj_bigshift", what, x_planes, mk, N, nblocks, bl,
+                        tail, lib=_adj_lib)
+    bigshift_apply_bt.launches += 1
+    return outs
+
+
 # wrapper calls that launched their kernel
 HIER_WRAPPERS = (
     routed_apply_sliced_b, butterfly_apply_b, window_shift_apply_b,
     bigshift_apply_b, routed_apply_sliced, butterfly_apply,
     window_shift_apply, bigshift_apply,
+    routed_apply_sliced_bt, butterfly_apply_bt, window_shift_apply_bt,
+    bigshift_apply_bt,
 )
 for _w in HIER_WRAPPERS:
     _w.launches = 0
@@ -965,6 +1331,26 @@ def hier_apply_batched(x_planes, pass_meta, pass_masks, bl: int):
     if planes and planes[0].dim() == 2:  # an empty schedule: N copies
         N = pass_masks[0].shape[0] if pass_masks else 1
         planes = tuple(p.unsqueeze(0).expand(N, *p.shape).contiguous() for p in planes)
+    if layout is not None:
+        planes = _relayout(planes, layout, bl)
+    return planes
+
+
+def hier_apply_batched_t(x_planes, pass_meta, pass_masks, bl: int, *,
+                         dfpair: bool = False):
+    """Adjoint of hier_apply_batched: the shared pass schedule in REVERSE
+    over N per-net cotangent planes [N, mrows, 128]. Returns per-net
+    [N, mrows, 128] planes in the forward's input space, natural block
+    order. The layout starts natural (the forward's final relayout needs no
+    adjoint step), is set only by a butterfly adjoint, and a last relayout
+    undoes what the sweep's last butterfly left."""
+    planes, layout = _run_passes(
+        tuple(x_planes), tuple(reversed(pass_meta)), tuple(reversed(pass_masks)),
+        bl,
+        (functools.partial(routed_apply_sliced_bt, dfpair=dfpair),
+         butterfly_apply_bt,
+         functools.partial(window_shift_apply_bt, dfpair=dfpair),
+         functools.partial(bigshift_apply_bt, dfpair=dfpair)))
     if layout is not None:
         planes = _relayout(planes, layout, bl)
     return planes

@@ -1,7 +1,7 @@
 """SpMV through plan-time routing networks (single table and hierarchical).
 
 Counterpart of lilac_tpu/kernels/routed_spmv.py without its column
-segments and its adjoint products. Pipeline per matvec: pad x into the
+segments. Pipeline per matvec: pad x into the
 network input slots ([m] = [R, 128] planes), run every row-chunk's gather
 network in one routed_apply call (kernels/routed.py), then multiply by the
 values, pre-arranged at PLAN time into the routed slot order, and reduce
@@ -18,6 +18,12 @@ serve larger tables: one full-size network per m-slot super-block of
 terms, applied pass by pass (kernels/routed.py), rows globally sorted by
 length, an un-permute network at the end where the rows were not sorted
 already.
+
+The transpose products (`routed_spmv_adj_t(_df)`, `routed_hier_spmv_adj_t
+(_df)`) run the FORWARD plan backwards: Aᵀu = Gᵀ(vals ⊙ expand(u)), with
+expand the adjoint of the row sums (each row's cotangent tiled over its
+slots) and Gᵀ the network's adjoint (kernels K7-K11 of kernels/routed.py),
+then a sum over the nets. One plan serves both directions.
 
 Plan files (`save_routed` / `load_routed`) use the JAX package's npz
 format, so a plan written by either package loads in the other.
@@ -288,6 +294,64 @@ def routed_spmv_df(A: RoutedMat, x: df.DF) -> df.DF:
     if A.inv_perm is not None:
         hi, lo = hi[A.inv_perm], lo[A.inv_perm]
     return df.DF(hi[: A.shape[0]], lo[: A.shape[0]])
+
+
+def _expand_chunk(dst, src, rows_c: int, k_c: int, colmajor: bool) -> None:
+    """Adjoint of one chunk's row sums, in place: dst [.., rows_c * k_c]
+    slots <- src [.., rows_c] row cotangents, each tiled over its row's k_c
+    slots. One copy, whatever the count of leading axes."""
+    lead = dst.shape[:-1]
+    if colmajor:
+        dst.view(*lead, k_c, rows_c).copy_(src.unsqueeze(-2).expand(*lead, k_c, rows_c))
+    else:
+        dst.view(*lead, rows_c, k_c).copy_(src.unsqueeze(-1).expand(*lead, rows_c, k_c))
+
+
+def _adj_slots(A: RoutedMat, us: torch.Tensor) -> torch.Tensor:
+    """us [P, n] sorted row cotangents -> [P, B, m] slot order (pads zero)."""
+    sl = us.new_zeros((us.shape[0], len(A.chunks), A.m))
+    off = 0
+    for c, (rows_c, k_c) in enumerate(A.chunks):
+        _expand_chunk(sl[:, c, : rows_c * k_c], us[:, off : off + rows_c],
+                      rows_c, k_c, A.colmajor)
+        off += rows_c
+    return sl
+
+
+def _adj_sorted(A: RoutedMat, u: torch.Tensor) -> torch.Tensor:
+    """Adjoint of the final row un-permute: u [P, >= n] natural order ->
+    [P, n] in the chunk-concatenated order."""
+    n = A.shape[0]
+    if A.inv_perm is None:
+        return u[:, :n]
+    us = u.new_zeros((u.shape[0], n))
+    us[:, A.inv_perm] = u[:, :n]
+    return us
+
+
+def routed_spmv_adj_t(A: RoutedMat, u: torch.Tensor) -> torch.Tensor:
+    """y = Aᵀ u through the FORWARD plan's own masks (plain floats): the
+    gather network run in reverse with add-merges (kernel K11). No second
+    network, no transposed copy of the matrix."""
+    B, R = len(A.chunks), A.m // 128
+    sl = _adj_slots(A, _adj_sorted(A, u.unsqueeze(0)))[0]
+    prod = (A.vals * sl).to(u.dtype)
+    (out,) = rd.routed_apply_t([prod.view(B, R, 128)], A.masks, A.kinds, A.dists)
+    return out.view(B, A.m).sum(dim=0)[: A.shape[1]]
+
+
+def routed_spmv_adj_t_df(A: RoutedMat, u: df.DF) -> df.DF:
+    """df64 y = Aᵀ u through the forward plan's masks: TwoProd by the slot
+    values, the reverse network's merges compensated in the kernel, df sum
+    over the nets."""
+    B, R = len(A.chunks), A.m // 128
+    sl = _adj_slots(A, _adj_sorted(A, torch.stack([u.hi, u.lo])))
+    prod = df.mul(df.DF(A.vals[..., 0], A.vals[..., 1]), df.DF(sl[0], sl[1]))
+    oh, ol = rd.routed_apply_t(
+        [prod.hi.view(B, R, 128), prod.lo.view(B, R, 128)],
+        A.masks, A.kinds, A.dists, dfpair=True)
+    y = df.sum_df0(df.DF(oh.view(B, A.m), ol.view(B, A.m)))
+    return df.DF(y.hi[: A.shape[1]], y.lo[: A.shape[1]])
 
 
 # ---------------------------------------------------------------------------
@@ -575,16 +639,19 @@ def plan_bytes(M) -> int:
 
 
 def _group_cap(M: RoutedMatHier, device) -> Optional[int]:
-    """Most nets a packed group may hold on `device`. A pass over a group
-    holds its [Ng, m] input and output planes, and the final relayout a
-    third copy; the cap keeps those within half of the device memory that is
-    free once the plan itself is resident. None (no cap) on the CPU."""
+    """Most nets a packed group may hold on `device`. A forward pass over a
+    group holds its [Ng, m] input and output planes, and the final relayout
+    a third copy. The adjoint product holds more before its first pass: the
+    slot cotangents, their product with the values and, for df64, the
+    TwoProd's intermediates, about six copies of the routed planes in all.
+    The cap keeps six copies within half of the device memory that is free
+    once the plan itself is resident. None (no cap) on the CPU."""
     device = torch.device(device)
     if device.type != "cuda":
         return None
     nplanes, esize = _hier_words(M.vals)
     free, _ = torch.cuda.mem_get_info(device)
-    per_net = 3 * M.m * nplanes * esize
+    per_net = 6 * M.m * nplanes * esize
     return max(1, int((free - plan_bytes(M)) // 2 // per_net))
 
 
@@ -799,6 +866,10 @@ def build_routed_csr_hier(
     else:
         unet = rn.build_gather_network(rank[None], n_nz + 1, m_out, drop_empty=False)
         (unperm,) = compile_nets(unet)
+    # the passes as compiled (the adjoint window's need depends on its shifts)
+    for net in nets + ([unperm] if unperm is not None else []):
+        rd.check_smem_feasible(net.pass_meta, bl, nplanes, esize,
+                               what=f"hier bl={bl} gmax={gmax}")
     if verbose:
         print(f"hier: n={n} m={m} bl={bl} gmax={gmax} nets={nnets} "
               f"slots/nnz={nnets * m / max(len(indices), 1):.2f}", flush=True)
@@ -901,3 +972,109 @@ def routed_hier_spmv_df(A, x: df.DF) -> df.DF:
         his.append(h)
         los.append(l_)
     return df.DF(*_hier_unperm(A, (torch.cat(his), torch.cat(los))))
+
+
+# ---------------------------------------------------------------------------
+# hierarchical adjoint matvecs: Aᵀu through the FORWARD plan run in reverse
+# (rd.hier_apply_batched_t, kernels K7-K10). One hier plan serves both
+# product directions, which halves the plan bytes of a factored operator.
+# ---------------------------------------------------------------------------
+
+
+def _hier_net_rows(chunks) -> list:
+    """Per-net output row counts (the chunk-concatenated sorted space)."""
+    return [sum(rc for _, rc, _ in chlist) for chlist in chunks]
+
+
+def _expand_net_slots(dst, useg, chlist, colmajor) -> None:
+    """Adjoint of _chunk_reduce_net, in place: tile one net's row cotangents
+    useg [.., rows of this net] over their ELL slots in dst [.., m], which
+    comes zeroed (gaps and pad slots carry zero values, so they contribute
+    nothing after the multiply)."""
+    off = 0
+    for (s0, rows_c, K) in chlist:
+        _expand_chunk(dst[..., s0 : s0 + rows_c * K], useg[..., off : off + rows_c],
+                      rows_c, K, colmajor)
+        off += rows_c
+
+
+def _hier_adj_unperm(A, u: torch.Tensor, dfpair: bool) -> torch.Tensor:
+    """Adjoint of the un-permute net (or of the trailing zero-pad when the
+    rows came length-sorted): u [P, n] cotangent planes -> [P, n_nz] in the
+    sorted space."""
+    if A.unperm is None:
+        return u[:, : A.n_nz]
+    outs = rd.hier_apply_batched_t(
+        tuple(_pad_plane(p, A.m_out).unsqueeze(0) for p in u),
+        A.unperm.pass_meta,
+        tuple(mk.unsqueeze(0) for mk in A.unperm.pass_masks),
+        A.bl, dfpair=dfpair)
+    return torch.stack([o.reshape(A.m_out)[: A.n_nz] for o in outs])
+
+
+def _hier_adj_groups(A):
+    """(net ids, pass_meta, pass_masks [N, ...], vals) per launch group: the
+    packed groups, or every net of an unpacked plan as a group of one. vals
+    are [N, m] or, for df64, the ([N, m] hi, [N, m] lo) words."""
+    if isinstance(A, RoutedMatHierP):
+        for grp in A.groups:
+            v = grp.vals
+            yield grp.net_ids, grp.pass_meta, grp.pass_masks, (
+                (v[0], v[1]) if v.dim() == 4 else v)
+    else:
+        for ni, (net, v) in enumerate(zip(A.nets, A.vals)):
+            yield (ni,), net.pass_meta, tuple(
+                mk.unsqueeze(0) for mk in net.pass_masks), (
+                    (v[None, :, 0], v[None, :, 1]) if v.dim() == 2 else v[None])
+
+
+def _hier_adj_slots(A, us, net_ids):
+    """us [P, n_nz] -> [P, Ng, m] slot cotangents of one group's nets."""
+    offs = np.concatenate([[0], np.cumsum(_hier_net_rows(A.chunks))])
+    sl = us.new_zeros((us.shape[0], len(net_ids), A.m))
+    for li, ni in enumerate(net_ids):
+        _expand_net_slots(sl[:, li], us[:, offs[ni] : offs[ni + 1]],
+                          A.chunks[ni], A.colmajor)
+    return sl
+
+
+def routed_hier_spmv_adj_t(A, u: torch.Tensor) -> torch.Tensor:
+    """y = Aᵀ u for a hier plan (plain floats), packed or net by net: every
+    net's network in reverse (kernels K7-K10), summed over the nets."""
+    _require_device_plan(A)
+    R = A.m // 128
+    us = _hier_adj_unperm(A, u[: A.shape[0]].unsqueeze(0), False)
+    y = None
+    for net_ids, meta, masks, vals in _hier_adj_groups(A):
+        sl = _hier_adj_slots(A, us, net_ids)[0]
+        prod = (vals.reshape(len(net_ids), A.m) * sl).to(u.dtype)
+        (o,) = rd.hier_apply_batched_t(
+            (prod.reshape(len(net_ids), R, 128),), meta, masks, A.bl)
+        t = o.sum(dim=0).reshape(A.m)
+        y = t if y is None else y + t
+    return y[: A.shape[1]]
+
+
+def routed_hier_spmv_adj_t_df(A, u: df.DF) -> df.DF:
+    """df64 y = Aᵀ u for a hier plan: expand the row cotangents to slots,
+    TwoProd by the slot-ordered values (a whole group at once; _group_cap
+    leaves room for its intermediates), every net's network in reverse with
+    compensated merges, df sum over the nets and the groups."""
+    _require_device_plan(A)
+    R = A.m // 128
+    n = A.shape[0]
+    us = _hier_adj_unperm(A, torch.stack([u.hi[:n], u.lo[:n]]), True)
+    y = None
+    for net_ids, meta, masks, (vh, vl) in _hier_adj_groups(A):
+        N = len(net_ids)
+        sl = _hier_adj_slots(A, us, net_ids)
+        prod = df.mul(df.DF(vh.reshape(N, A.m), vl.reshape(N, A.m)),
+                      df.DF(sl[0], sl[1]))
+        del sl
+        oh, ol = rd.hier_apply_batched_t(
+            (prod.hi.reshape(N, R, 128), prod.lo.reshape(N, R, 128)), meta, masks,
+            A.bl, dfpair=True)
+        del prod
+        t = df.sum_df0(df.DF(oh.view(N, A.m), ol.view(N, A.m)))
+        y = t if y is None else df.add(y, t)
+    return df.DF(y.hi[: A.shape[1]], y.lo[: A.shape[1]])

@@ -35,7 +35,10 @@ class FactoredNPBPlan:
         # networks through the CUDA kernels, "gather" = plain torch indexing
         routed = (RoutedMat, RoutedMatHier, RoutedMatHierP)
         v_routed = isinstance(self.A.V, routed)
-        t_routed = isinstance(self.A.VT, routed)
+        # how V^T is applied: "adj" = V's own plan run in reverse (no VT
+        # plan is held), "plan" = a dedicated forward plan
+        self.factored_vt = "adj" if self.A.VT is None else "plan"
+        t_routed = v_routed if self.A.VT is None else isinstance(self.A.VT, routed)
         sub = ("routed" if v_routed and t_routed
                else "mixed" if v_routed or t_routed else "gather")
         self.kernel = f"factored_{sub}" + ("_df" if dtype == "df64" else "")

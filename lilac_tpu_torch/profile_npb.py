@@ -88,6 +88,7 @@ def main(argv) -> int:
     ).stdout.strip().splitlines()[0]
     out = {
         "card": card, "class": cls.name, "dtype": dtype, "kernel": plan.kernel,
+        "factored_vt": plan.factored_vt,
         "outer_step_untraced_ms": untraced * 1e3,
         "matvec": _summary(*_trace(lambda: plan.matvec(x0))),
         "outer_step": _summary(*_trace(step)),

@@ -38,6 +38,7 @@ class NPBCGResult:
     kernel: str
     rnorm_last: float
     zeta_history: Optional[np.ndarray] = None  # zeta after each outer step
+    factored_vt: str = "plan"  # how V^T was applied: its own plan, or V's in reverse
 
 
 def nnz_per_row_flops(cls) -> float:
@@ -139,6 +140,7 @@ def run(
         kernel=plan.kernel,
         rnorm_last=float(rnorm_hist[-1]),
         zeta_history=zeta_hist,
+        factored_vt=plan.factored_vt,
     )
 
 

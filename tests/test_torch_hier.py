@@ -388,6 +388,7 @@ def test_factored_hier_matches_gather_operator(pack, small_hier_classes, monkeyp
     plans persist under names that carry (bl, gmax), and a second build
     loads them."""
     monkeypatch.setenv("LILAC_HIER_PACK", pack)
+    monkeypatch.setenv("LILAC_FACTORED_VT", "plan")  # auto is adj beyond one table
     H, nnz = tfac.build_factored("S", dtype="df64", device="cpu")
     kind = trs.RoutedMatHierP if pack == "1" else trs.RoutedMatHier
     assert isinstance(H.V, kind) and isinstance(H.VT, kind)
@@ -415,12 +416,14 @@ def test_factored_hier_matches_gather_operator(pack, small_hier_classes, monkeyp
         assert np.abs(yh - yg).max() <= 1e-13 * np.abs(yg).max()
 
 
-def test_npb_class_s_through_hier_plans(small_hier_classes):
-    """NPB class S end to end through the hierarchical operator, cut to 4
-    outer steps: the zeta history agrees with the native-f64 gather
+def test_npb_class_s_through_hier_plans(small_hier_classes, monkeypatch):
+    """NPB class S end to end through the two forward hierarchical plans, cut
+    to 4 outer steps: the zeta history agrees with the native-f64 gather
     operator's to 1e-12 relative."""
+    monkeypatch.setenv("LILAC_FACTORED_VT", "plan")
     r = trun.run("S", dtype="df64", device="cpu", niter=4)
     assert r.kernel == "factored_routed_df" and r.niter == 4
+    assert r.factored_vt == "plan"
     assert r.zeta_history.shape == (4,) and r.zeta_history[-1] == r.zeta
     import os
 
@@ -431,13 +434,22 @@ def test_npb_class_s_through_hier_plans(small_hier_classes):
 
 
 def test_hier_modes_that_still_raise(monkeypatch):
-    """factored_vt=adj needs the adjoint kernels; auto resolves to plan for
-    every n until they are ported."""
+    """factored_vt=adj raises for no size; auto resolves as in the reference
+    (adj beyond one table, plan below, plan for a gather layout); scan and
+    mixed still raise, except mixed with adj, which is routed."""
     from lilac_tpu_torch.config import cfg
 
     monkeypatch.setenv("LILAC_FACTORED_VT", "adj")
-    with pytest.raises(NotImplementedError, match="routed_apply_sliced_bt"):
-        tfac._resolve_modes(cfg(), 1_500_000, "cuda")
+    assert tfac._resolve_modes(cfg(), 1_500_000, "cuda") == ("routed", "adj")
+    assert tfac._resolve_modes(cfg(), 150_000, "cuda") == ("routed", "adj")
     monkeypatch.delenv("LILAC_FACTORED_VT")
-    assert tfac._resolve_modes(cfg(), 1_500_000, "cuda") == "routed"
-    assert tfac._resolve_modes(cfg(), 1_500_000, "cpu") == "single"
+    assert tfac._resolve_modes(cfg(), 1_500_000, "cuda") == ("routed", "adj")
+    assert tfac._resolve_modes(cfg(), 1 << 18, "cuda") == ("routed", "plan")
+    assert tfac._resolve_modes(cfg(), 1_500_000, "cpu") == ("single", "plan")
+    monkeypatch.setenv("LILAC_FACTORED_SEGMODE", "mixed")
+    assert tfac._resolve_modes(cfg(), 1_500_000, "cuda") == ("routed", "adj")
+    monkeypatch.setenv("LILAC_FACTORED_VT", "plan")
+    for mode in ("mixed", "scan"):
+        monkeypatch.setenv("LILAC_FACTORED_SEGMODE", mode)
+        with pytest.raises(NotImplementedError, match="JagELLT|SegELLScan"):
+            tfac._resolve_modes(cfg(), 1_500_000, "cuda")

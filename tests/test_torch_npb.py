@@ -25,6 +25,7 @@ from lilac_tpu_torch import convert_reference as cr
 from lilac_tpu_torch.formats import convert as tconv
 from lilac_tpu_torch.generate import npb as tnpb
 from lilac_tpu_torch.kernels import factored as tfac
+from lilac_tpu_torch.kernels import routed_spmv as trs
 from lilac_tpu_torch.ops import dfloat as tdf
 from lilac_tpu_torch.workloads import npb_cg as trun
 
@@ -231,10 +232,14 @@ def test_unported_paths_raise(data_dirs, monkeypatch):
             tfac.build_factored("S", device="cpu")
     monkeypatch.setenv("LILAC_FACTORED_SEGMODE", "routed")
     monkeypatch.setenv("LILAC_FACTORED_VT", "adj")
-    # class D builds hierarchical plans now; its adjoint product does not
-    with pytest.raises(NotImplementedError, match="routed_apply_sliced_bt"):
-        tfac.build_factored("D", device="cpu")
-    with pytest.raises(NotImplementedError, match="routed_apply_t"):
+    # the adjoint product is ported: adj raises for no class, holds V's plan
+    # alone and writes no VT file
+    assert tfac._resolve_modes(tcfg.cfg(), 1_500_000, "cpu") == ("routed", "adj")
+    A, _ = tfac.build_factored("S", device="cpu")
+    assert A.VT is None and isinstance(A.V, trs.RoutedMat)
+    assert not [f for f in os.listdir(os.environ["LILAC_DATA_DIR"]) if "_VT" in f]
+    monkeypatch.setenv("LILAC_FACTORED_VT", "bogus")
+    with pytest.raises(ValueError, match="factored_vt"):
         tfac.build_factored("S", device="cpu")
     monkeypatch.setenv("LILAC_FACTORED_VT", "plan")
     monkeypatch.setenv("LILAC_FACTORED_SEGMODE", "bogus")
@@ -271,7 +276,8 @@ def test_bench_line_has_the_reference_keys(data_dirs):
     line = bench_npb.run_class("S", "f64", "factored", device="cpu")
     assert list(line) == [
         "metric", "value", "unit", "vs_baseline", "verified", "zeta_rel_err",
-        "mops", "dtype", "kernel", "nnz", "device", "class_wall_s"]
+        "mops", "dtype", "kernel", "factored_vt", "nnz", "device", "class_wall_s"]
+    assert line["factored_vt"] == "plan"  # the gather layout has no reverse
     assert line["metric"] == "npb_cg_classS_time_to_solution" and line["verified"]
     json.dumps(line)
     # the reference suite's MKL times, copied
