@@ -26,7 +26,16 @@ proves on the card that
   operator and class D through the hierarchical one, with every kernel of
   each path launched on that run; each class also runs a few outer steps
   in the other factored_vt mode (class C: adj, which launches K11; class D:
-  plan, two forward plans) and the two zeta histories agree to 1e-12.
+  plan, two forward plans) and the two zeta histories agree to 1e-12,
+* the Parboil paths: sgemm's product (kernel K12, matmul_nt) within
+  K*2^-24*(|A||B|^T) + 2^-24*|C| of the f64 product at ragged small shapes
+  and at Parboil's width (n = 4096), then sgemm.run_arrays at n = 4096; and
+  Parboil spmv at the scale of its large dataset (Dubcova3: 146 689 rows,
+  about 3.6 M entries after mirroring) from a MatrixMarket file through
+  read_matrix_market -> SpmvPlan -> 50 chained products, matched against a
+  golden output with the gather kernel the selector picks and with the
+  single-table routed plan (K1 in f32), and that plan's transpose product
+  (K11 in f32) against the host's f64 A^T u.
 
 It prints one JSON line per phase, then the line {"kernels": [...]} with
 each kernel's measured time beside its bound, and last
@@ -41,7 +50,8 @@ and is held instead to the native-f64 gather operator's zeta history on the
 card, to 1e-10 relative. Arguments name phases to run alone, for finding a
 fault ("hier" = the small hierarchical checks and the general matrix, "k11"
 = the single-table adjoint at a small size, "d" = the class D plan, its
-kernels and its runs); such a run exits 2 without the last line.
+kernels and its runs, "gemm" = K12 and sgemm, "parboil" = Parboil spmv);
+such a run exits 2 without the last line.
 """
 
 from __future__ import annotations
@@ -112,7 +122,8 @@ def phase_build() -> dict:
     for name in _cuda.SOURCES:
         _cuda.load(name)
     regs = {
-        name: [ln.strip() for ln in text.splitlines() if "registers" in ln]
+        name: [ln.strip() for ln in text.splitlines()
+               if "registers" in ln or "spill" in ln]
         for name, text in info["ptxas"].items()
     }
     line = {"phase": "build", "seconds": round(info["seconds"], 2),
@@ -1104,6 +1115,237 @@ def phase_hier_class_d(plan_d, kernels: dict) -> dict:
     return line
 
 
+# ---------------------------------------------------------------------------
+# Parboil: sgemm (kernel K12) and spmv (gather kernels, K1 / K11 in f32)
+# ---------------------------------------------------------------------------
+
+GEMM_SMALL = ((1, 1, 1), (17, 33, 5), (150, 90, 70), (300, 260, 600))
+GEMM_WIDE = ((4096, 4096, 4096), (4000, 3000, 1500))
+
+
+def _gemm_check(gemm, a, bt, c, what: str) -> dict:
+    """c (kernel K12) against the f64 product element by element, within
+    K*2^-24*(|A| |B|^T) + 2^-24*|C|, and against the plain version (the f64
+    product rounded to f32) by parboil's compare."""
+    from lilac_tpu_torch.workloads.parboil_spmv import compare
+
+    k = a.shape[1]
+    c64 = a.double() @ bt.double().T
+    bound = k * 2.0 ** -24 * (a.double().abs() @ bt.double().abs().T) \
+        + 2.0 ** -24 * c64.abs()
+    err = (c.double() - c64).abs()
+    plain = gemm.matmul_nt_plain(a, bt)
+    row = {"shape": list(map(int, (a.shape[0], bt.shape[0], k))),
+           "max_err_over_bound": float((err / bound.clamp_min(1e-300)).max()),
+           "max_abs_err_vs_plain": float((c - plain).abs().max()),
+           "compare": compare(plain.cpu().numpy().ravel(), c.cpu().numpy().ravel())}
+    if c.shape != plain.shape or not bool(torch.isfinite(c).all()) or not bool(
+            (err <= bound).all()) or not row["compare"]:
+        raise AssertionError(f"matmul_nt {what}: {row}")
+    return row
+
+
+def phase_gemm(kernels: dict) -> dict:
+    """K12 against its plain version at ragged small shapes (K = 600 crosses
+    a 512-wide K step; K = 5 and 70 take the scalar loads), from a
+    non-contiguous and from a misaligned operand, and at Parboil's width;
+    timed at n = 4096 beside the plain version and torch.matmul with TF32
+    off. Then sgemm.run_arrays at n = 4096 through the entry point, launch
+    count set to 0 just before and read just after."""
+    from lilac_tpu_torch.kernels import gemm
+    from lilac_tpu_torch.workloads import sgemm
+
+    rng = np.random.default_rng(31)
+
+    def operands(m, n, k):
+        return (torch.as_tensor(rng.standard_normal((m, k)).astype(np.float32), device=DEVICE),
+                torch.as_tensor(rng.standard_normal((n, k)).astype(np.float32), device=DEVICE))
+
+    checked = []
+    for m, n, k in GEMM_SMALL:
+        a, bt = operands(m, n, k)
+        c = gemm.matmul_nt(a, bt)
+        torch.cuda.synchronize()
+        checked.append(_gemm_check(gemm, a, bt, c, f"{(m, n, k)}"))
+        # a transposed view (as read_col_major gives) and an operand one word
+        # off 16-byte alignment (scalar loads) give the same bits
+        a_view = a.T.contiguous().T
+        buf = torch.empty(a.numel() + 1, dtype=torch.float32, device=DEVICE)
+        a_off = buf[1:].view(m, k)
+        a_off.copy_(a)
+        for other, how in ((a_view, "non-contiguous"), (a_off, "misaligned")):
+            if not torch.equal(gemm.matmul_nt(other, bt), c):
+                raise AssertionError(f"matmul_nt {(m, n, k)} {how} A differs")
+    timed = None
+    for m, n, k in GEMM_WIDE:
+        a, bt = operands(m, n, k)
+        c = gemm.matmul_nt(a, bt)
+        torch.cuda.synchronize()
+        checked.append(_gemm_check(gemm, a, bt, c, f"{(m, n, k)}"))
+        if timed is None:  # Parboil's square bench shape
+            ms = time_ms(lambda: gemm.matmul_nt(a, bt), 20)
+            plain_ms = time_ms(lambda: gemm.matmul_nt_plain(a, bt), 5)
+            library_ms = time_ms(lambda: gemm.matmul_nt_torch(a, bt), 20)
+            flops = 2.0 * m * n * k
+            nbytes = 4 * (m * k + n * k + m * n)
+            tb, tf = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+            timed = {
+                "name": "matmul_nt", "route": "cuda",
+                "source": "lilac_tpu_torch/csrc/gemm.cu",
+                "replaces": "lilac_tpu/kernels/pallas_gemm.py:46",
+                "launches": 0, "max_abs_err": checked[-1]["max_abs_err_vs_plain"],
+                "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(tb, tf), "bound_by": "bytes" if tb >= tf else "operations",
+                "library_ms": library_ms,
+                "library": "torch.matmul, allow_tf32 = False",
+                "shape": {"M": m, "N": n, "K": k, "dtype": "float32"},
+                "bytes": nbytes, "flops": flops, "gflops": flops / ms / 1e6,
+                "library_gflops": flops / library_ms / 1e6,
+            }
+        del a, bt, c
+
+    # the main path: sgemm.run_arrays at Parboil's bench width, kernel K12
+    n = GEMM_WIDE[0][0]
+    A = rng.standard_normal((n, n)).astype(np.float32)
+    BT = rng.standard_normal((n, n)).astype(np.float32)
+    gemm.matmul_nt.launches = 0
+    C, res = sgemm.run_arrays(A, BT, kernel="cuda", device=DEVICE)
+    launches = gemm.matmul_nt.launches
+    if res.kernel != "cuda" or launches != 5:
+        raise AssertionError(f"sgemm.run_arrays: kernel {res.kernel}, {launches} launches "
+                             "(a warm-up and 4 repetitions expected)")
+    run_check = _gemm_check(gemm, torch.as_tensor(A, device=DEVICE),
+                            torch.as_tensor(BT, device=DEVICE),
+                            torch.as_tensor(C, device=DEVICE), "sgemm.run_arrays")
+    timed["launches"] = launches
+    timed["launches_on"] = "sgemm.run_arrays, n = 4096 (a warm-up and 4 chained repetitions)"
+    kernels["matmul_nt"] = timed
+    line = {"phase": "gemm", "checked": checked,
+            "k12_ms": timed["ms"], "k12_gflops": timed["gflops"],
+            "plain_ms": timed["plain_ms"], "torch_matmul_ms": timed["library_ms"],
+            "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
+            "sgemm_run_arrays": {"time_s": res.time_s, "gflops": res.gflops,
+                                 "launches": launches, **run_check}}
+    emit(line)
+    return line
+
+
+# Parboil's large spmv dataset, Dubcova3 (parboil_spmv.DATASETS["large"]):
+# 146 689 rows, about 3.6 M entries after mirroring its symmetric file
+PARBOIL_ROWS = 146_689
+
+
+def _write_parboil_inputs(root: str, rng):
+    """A symmetric MatrixMarket file at Dubcova3's scale with unequal row
+    lengths (1% of the rows about eight times as long as the rest), an f32
+    vector.bin and the golden output (the f64 host product rounded to f32).
+    Returns (paths, mirrored (rows, cols, vals) for host checks)."""
+    from lilac_tpu_torch.workloads import parboil_spmv as pv
+
+    n = PARBOIL_ROWS
+    k = rng.integers(6, 17, size=n)  # entries per row before the fold below
+    k[rng.choice(n, size=n // 100, replace=False)] = 100
+    r = np.repeat(np.arange(n), k)
+    c = rng.integers(0, n, size=len(r))
+    r, c = np.maximum(r, c), np.minimum(r, c)  # lower triangle (duplicates sum)
+    v = rng.standard_normal(len(r))
+    d = rng.standard_normal(n) + 8.0
+    os.makedirs(root, exist_ok=True)
+    mtx = os.path.join(root, "matrix.mtx")
+    with open(mtx, "w") as f:
+        f.write("%%MatrixMarket matrix coordinate real symmetric\n")
+        f.write("% lilac_tpu_torch chip_smoke: Dubcova3-scale synthetic\n")
+        f.write(f"{n} {n} {n + len(r)}\n")
+        # repr of a Python float reads back as the same double
+        f.write("".join(f"{i} {i} {x!r}\n" for i, x in enumerate(d.tolist(), 1)))
+        for lo in range(0, len(r), 1 << 18):
+            sl = slice(lo, lo + (1 << 18))
+            f.write("".join(f"{a + 1} {b + 1} {x!r}\n" for a, b, x in zip(
+                r[sl].tolist(), c[sl].tolist(), v[sl].tolist())))
+    off = r != c
+    rows = np.concatenate([np.arange(n), r, c[off]])
+    cols = np.concatenate([np.arange(n), c, r[off]])
+    vals = np.concatenate([d, v, v[off]])
+    x = rng.standard_normal(n).astype(np.float32)
+    vec = os.path.join(root, "vector.bin")
+    x.astype("<f4").tofile(vec)
+    golden = os.path.join(root, "golden.out")
+    y = np.bincount(rows, weights=vals * x.astype(np.float64)[cols], minlength=n)
+    pv.write_output(golden, y.astype(np.float32))
+    return (mtx, vec, golden), (rows, cols, vals)
+
+
+def phase_parboil(kernels: dict) -> dict:
+    """Parboil spmv at Dubcova3's scale through the entry point
+    (parboil_spmv.run: read_matrix_market -> SpmvPlan -> 2 x 50 chained
+    products), matched against the golden output: with kernel="auto" (the
+    selector's gather kernel; row lengths spread, so bucketed ELL) and with
+    kernel="routed" (a single-table f32 plan: K1), launch counts set to 0
+    just before each run and read just after. Then the routed plan's
+    transpose product (K11 in f32) against the host's f64 A^T u, to 1e-5 of
+    sum |a u| per column."""
+    from lilac_tpu_torch.config import cfg
+    from lilac_tpu_torch.kernels import dfmulred as dfk
+    from lilac_tpu_torch.kernels import routed as rd
+    from lilac_tpu_torch.workloads import parboil_spmv as pv
+
+    rng = np.random.default_rng(37)
+    t0 = time.time()
+    root = os.path.join(cfg().resolved_data_dir(), "parboil_smoke")
+    (mtx, vec, golden), (rows, cols, vals) = _write_parboil_inputs(root, rng)
+    line = {"phase": "parboil_spmv", "rows": PARBOIL_ROWS,
+            "inputs_written_s": round(time.time() - t0, 1), "runs": []}
+    routed_plan = None
+    for kernel in ("auto", "routed"):
+        _reset_hier_counts(rd, dfk)
+        t0 = time.time()
+        res = pv.run(mtx, vec, golden_path=golden, kernel=kernel, device=DEVICE)
+        wall = time.time() - t0
+        k1, k11 = rd.routed_apply.launches, rd.routed_apply_t.launches
+        st = res.plan.row_stats
+        run = {"kernel_asked": kernel, "kernel": res.kernel, "nnz": res.nnz,
+               "reps": res.reps, "time_s": res.time_s, "gflops": res.gflops,
+               "matched": res.matched, "max_abs_err": res.max_abs_err,
+               "wall_s_with_read_and_plan": round(wall, 2),
+               "max_row": st["max_row"], "mean_row": st["mean_row"],
+               "routed_apply_launches": k1, "routed_apply_grid_launches":
+                   rd.routed_apply.stage_launches}
+        line["runs"].append(run)
+        if res.matched is not True or res.rows != PARBOIL_ROWS:
+            raise AssertionError(f"parboil spmv {kernel}: {run}")
+        if kernel == "auto":
+            if res.kernel != "xla_sell" or k1 or k11:
+                raise AssertionError(f"parboil auto ran {res.kernel} ({k1} K1 launches)")
+        else:
+            if res.kernel != "routed" or k1 != 2 * res.reps or k11:
+                raise AssertionError(
+                    f"parboil routed ran {res.kernel} with {k1} K1 launches "
+                    f"({2 * res.reps} expected)")
+            routed_plan = res.plan
+            if "routed_apply" in kernels:
+                kernels["routed_apply"]["launches_parboil_f32"] = k1
+    # the transpose through the same routed plan (K11, one f32 plane)
+    P = routed_plan
+    u = rng.standard_normal(PARBOIL_ROWS).astype(np.float32)
+    _reset_hier_counts(rd, dfk)
+    got = P.vec_out(P.matvec_t(P.vec_in(u)))
+    torch.cuda.synchronize()
+    k11 = rd.routed_apply_t.launches
+    u64 = u.astype(np.float64)
+    want = np.bincount(cols, weights=vals * u64[rows], minlength=PARBOIL_ROWS)
+    scale = np.bincount(cols, weights=np.abs(vals * u64[rows]), minlength=PARBOIL_ROWS)
+    err = float((np.abs(got - want) / np.maximum(scale, 1e-300)).max())
+    line["transpose"] = {"kernel": "routed (K11, f32)", "max_err_over_sum_abs": err,
+                         "tol": 1e-5, "routed_apply_t_launches": k11,
+                         "ms": time_ms(lambda: P.matvec_t(P.vec_in(u)), 10)}
+    if k11 != 1 or got.shape != (PARBOIL_ROWS,) or not err <= 1e-5:
+        raise AssertionError(f"parboil routed transpose: {line['transpose']}")
+    if "routed_apply_t" in kernels:
+        kernels["routed_apply_t"]["launches_parboil_f32"] = k11
+    emit(line)
+    return line
+
+
 def _npb_line(res, **extra) -> dict:
     return {"class": res.class_name, "dtype": res.dtype, "kernel": res.kernel,
             "verified": bool(res.verified), "zeta": res.zeta,
@@ -1411,7 +1653,7 @@ def build_plan_d():
     return plan_d
 
 
-PARTS = {"hier", "k11", "d"}
+PARTS = {"hier", "k11", "d", "gemm", "parboil"}
 
 
 def main(argv) -> int:
@@ -1433,6 +1675,10 @@ def main(argv) -> int:
     if "hier" in only:
         phase_hier_small()
         phase_hier_general(kernels)
+    if "gemm" in only:
+        phase_gemm(kernels)
+    if "parboil" in only:
+        phase_parboil(kernels)
     if "d" in only:
         plan_d = build_plan_d()
         phase_hier_class_d(plan_d, kernels)
@@ -1464,6 +1710,8 @@ def main(argv) -> int:
     phase_hier_small()
     phase_hier_general(kernels)
     phase_npb_small()
+    phase_gemm(kernels)
+    phase_parboil(kernels)
 
     # the main paths at full width: class C (single table; auto = plan, then a
     # few steps of adj), class D (one hier plan; auto = adj, then a few steps
@@ -1477,7 +1725,8 @@ def main(argv) -> int:
     phase_plan_mode_d(kernels, res_d)
 
     names = ["routed_apply", "dfmulred"] + [
-        PASS_FNS[k][i] for i in (0, 1) for k in PASS_FNS] + ADJ_NAMES + ["routed_apply_t"]
+        PASS_FNS[k][i] for i in (0, 1) for k in PASS_FNS] + ADJ_NAMES + [
+        "routed_apply_t", "matmul_nt"]
     for name in names:
         k = kernels[name]
         if k["launches"] <= 0:

@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lilac_tpu_torch.formats.sparse import SegBucketELL
+from lilac_tpu_torch.formats.sparse import BSR, COO, CSR, ELL, BucketELL, SegBucketELL
 from lilac_tpu_torch.kernels.factored import FactoredNPB
 from lilac_tpu_torch.kernels.routed_spmv import (
     HierNet,
@@ -98,6 +98,44 @@ def seg_bucket_ell_from_arrays(
         parts=tuple(tuple(int(v) for v in p) for p in parts),
         seg_size=int(seg_size),
         identity_perm=bool(identity_perm),
+    )
+
+
+def csr_from_arrays(data, indices, indptr, shape, row_ids=None,
+                    device="cuda") -> CSR:
+    return CSR(
+        data=_t(data, device), indices=_t(indices, device, torch.int64),
+        indptr=_t(indptr, device, torch.int64), shape=tuple(int(v) for v in shape),
+        row_ids=None if row_ids is None else _t(row_ids, device, torch.int64),
+    )
+
+
+def coo_from_arrays(row, col, data, shape, device="cuda") -> COO:
+    return COO(row=_t(row, device, torch.int64), col=_t(col, device, torch.int64),
+               data=_t(data, device), shape=tuple(int(v) for v in shape))
+
+
+def ell_from_arrays(data, indices, shape, device="cuda") -> ELL:
+    return ELL(data=_t(data, device), indices=_t(indices, device, torch.int64),
+               shape=tuple(int(v) for v in shape))
+
+
+def bsr_from_arrays(data, indices, indptr, shape, block_shape, device="cuda") -> BSR:
+    return BSR(data=_t(data, device), indices=_t(indices, device, torch.int64),
+               indptr=_t(indptr, device, torch.int64),
+               shape=tuple(int(v) for v in shape),
+               block_shape=tuple(int(v) for v in block_shape))
+
+
+def bucket_ell_from_arrays(data, indices, inv_perm, shape, widths,
+                           device="cuda") -> BucketELL:
+    """data / indices: per-bucket arrays, aligned with widths."""
+    return BucketELL(
+        data=tuple(_t(v, device) for v in data),
+        indices=tuple(_t(i, device, torch.int64) for i in indices),
+        inv_perm=_t(inv_perm, device, torch.int64),
+        shape=tuple(int(v) for v in shape),
+        widths=tuple(int(w) for w in widths),
     )
 
 

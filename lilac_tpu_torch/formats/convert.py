@@ -1,8 +1,9 @@
 """Host-side (numpy) format construction and conversion.
 
-Counterpart of lilac_tpu/formats/convert.py: the converters the factored
-NPB path uses. The conversions run once at plan-build time on numpy
-arrays; the last step places the result on ``device``.
+Counterpart of lilac_tpu/formats/convert.py. The `*_arrays` functions
+return numpy arrays bit-identical to the reference's; they run once at
+plan-build time. The `*_device` wrappers place the result on ``device``
+as the port's containers (formats/sparse.py), index arrays as int64.
 """
 
 from __future__ import annotations
@@ -12,7 +13,21 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from lilac_tpu_torch.formats.sparse import SegBucketELL
+from lilac_tpu_torch.formats.sparse import BSR, COO, CSR, ELL, BucketELL, SegBucketELL
+
+
+def round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def _index(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a), dtype=torch.int64, device=device)
+
+
+def _values(a, dtype, device) -> torch.Tensor:
+    if dtype is not None:
+        a = a.astype(dtype)
+    return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
 
 def coo_to_csr_arrays(
@@ -130,4 +145,156 @@ def csr_to_seg_bucket_ell(
         parts=parts,
         seg_size=seg_size,
         identity_perm=identity,
+    )
+
+
+def csr_device(indptr, indices, data, shape, dtype=None, with_row_ids=True,
+               device="cuda") -> CSR:
+    m = CSR(
+        data=_values(data, dtype, device),
+        indices=_index(indices, device),
+        indptr=_index(indptr, device),
+        shape=tuple(shape),
+    )
+    return m.with_row_ids() if with_row_ids else m
+
+
+def coo_device(row, col, val, shape, dtype=None, device="cuda") -> COO:
+    return COO(
+        row=_index(row, device),
+        col=_index(col, device),
+        data=_values(val, dtype, device),
+        shape=tuple(shape),
+    )
+
+
+def csr_to_ell_arrays(indptr, indices, data, shape, row_pad=8, slot_pad=1,
+                      max_slots=None):
+    """Pack CSR into ELL: ([nrows_pad, K] values, [nrows_pad, K] int32
+    column indices). Padding slots get (index 0, value 0); `row_pad` aligns
+    the row count, `slot_pad` the slot count."""
+    n = shape[0]
+    counts = np.diff(indptr).astype(np.int64)
+    k = int(counts.max()) if len(counts) and counts.max() > 0 else 1
+    k = round_up(k, slot_pad)
+    if max_slots is not None and k > max_slots:
+        raise ValueError(f"row length {k} exceeds max_slots {max_slots}")
+    npad = round_up(max(n, 1), row_pad)
+    vals = np.zeros((npad, k) + data.shape[1:], dtype=data.dtype)
+    cols = np.zeros((npad, k), dtype=np.int32)
+    rowid = np.repeat(np.arange(n), counts)
+    slot = np.arange(len(indices), dtype=np.int64) - np.repeat(indptr[:-1], counts)
+    vals[rowid, slot] = data
+    cols[rowid, slot] = indices
+    return vals, cols
+
+
+def ell_device(indptr, indices, data, shape, dtype=None, row_pad=8, slot_pad=1,
+               device="cuda") -> ELL:
+    if dtype is not None:
+        data = data.astype(dtype)
+    vals, cols = csr_to_ell_arrays(indptr, indices, data, shape, row_pad, slot_pad)
+    return ELL(data=_values(vals, None, device), indices=_index(cols, device),
+               shape=tuple(shape))
+
+
+def csr_to_bsr_arrays(indptr, indices, data, shape, block_shape=(8, 128)):
+    """Re-block CSR into BSR with dense (bh, bw) blocks (zero-filled):
+    returns (block values, block-column ids int32, block indptr int32)."""
+    bh, bw = block_shape
+    n, m = shape
+    nbr = (n + bh - 1) // bh
+    nbc = (m + bw - 1) // bw
+    counts = np.diff(indptr).astype(np.int64)
+    rowid = np.repeat(np.arange(n), counts)
+    key = (rowid // bh).astype(np.int64) * nbc + indices // bw
+    uniq = np.unique(key)
+    bvals = np.zeros((len(uniq), bh, bw), dtype=data.dtype)
+    block_of = np.searchsorted(uniq, key)
+    np.add.at(bvals, (block_of, rowid % bh, indices % bw), data)
+    ubrow = (uniq // nbc).astype(np.int64)
+    ubcol = (uniq % nbc).astype(np.int32)
+    bindptr = np.zeros(nbr + 1, dtype=np.int64)
+    np.add.at(bindptr, ubrow + 1, 1)
+    np.cumsum(bindptr, out=bindptr)
+    return bvals, ubcol, bindptr.astype(np.int32)
+
+
+def bsr_device(indptr, indices, data, shape, block_shape=(8, 128), dtype=None,
+               device="cuda") -> BSR:
+    if dtype is not None:
+        data = data.astype(dtype)
+    bv, bc, bp = csr_to_bsr_arrays(indptr, indices, data, shape, block_shape)
+    return BSR(data=_values(bv, None, device), indices=_index(bc, device),
+               indptr=_index(bp, device), shape=tuple(shape),
+               block_shape=tuple(block_shape))
+
+
+def dense_to_csr_arrays(dense: np.ndarray, tol: float = 0.0):
+    """Dense -> CSR, keeping entries with |a_ij| > tol (exact zeros dropped)."""
+    row, col = np.nonzero(np.abs(dense) > tol)
+    return coo_to_csr_arrays(
+        row.astype(np.int64), col.astype(np.int64), dense[row, col], dense.shape
+    )
+
+
+def csr_to_bucket_ell_arrays(indptr, indices, data, shape, *, quantiles=(50, 90)):
+    """Split rows into width-quantile buckets (host). Returns
+    (bucket_indices, bucket_values, inv_perm, widths), numpy arrays.
+
+    Above the top quantile the widths continue as a geometric ladder (x4
+    per bucket) up to the longest row, so a heavy-tailed row-length
+    distribution does not pad every tail row to the global maximum."""
+    n = shape[0]
+    counts = np.diff(indptr).astype(np.int64)
+    kmax = int(counts.max()) if n else 0
+    cand_set = {max(int(np.percentile(counts, q)), 1) for q in quantiles}
+    w = max(cand_set) if cand_set else 1
+    while w < kmax:
+        w = min(w * 4, kmax)
+        cand_set.add(w)
+    cand = sorted(cand_set | {kmax})
+    perm = np.argsort(counts, kind="stable")
+    inv_perm = np.empty(n, dtype=np.int64)
+    inv_perm[perm] = np.arange(n)
+    sorted_counts = counts[perm]
+    # every entry's position in the sorted row order and its slot within
+    # its row (entries run row by row)
+    pos = inv_perm[np.repeat(np.arange(n), counts)]
+    slot_in_row = np.arange(len(indices)) - np.repeat(
+        indptr[:-1].astype(np.int64), counts)
+
+    bucket_idx, bucket_val, widths = [], [], []
+    lo = 0
+    for w in cand:
+        hi = int(np.searchsorted(sorted_counts, w, side="right"))
+        if hi <= lo:
+            continue
+        # rows lo..hi-1 of the sorted order: entry -> (row in bucket, slot)
+        sel = (pos >= lo) & (pos < hi)
+        r_local = pos[sel] - lo
+        bi = np.zeros((hi - lo, w), dtype=np.int64)
+        bv = np.zeros((hi - lo, w) + data.shape[1:], dtype=data.dtype)
+        bi[r_local, slot_in_row[sel]] = indices[sel]
+        bv[r_local, slot_in_row[sel]] = data[sel]
+        bucket_idx.append(bi)
+        bucket_val.append(bv)
+        widths.append(w)
+        lo = hi
+    return bucket_idx, bucket_val, inv_perm, tuple(widths)
+
+
+def bucket_ell_device(indptr, indices, data, shape, dtype=None, quantiles=(50, 90),
+                      device="cuda") -> BucketELL:
+    if dtype is not None:
+        data = data.astype(dtype)
+    bi, bv, inv_perm, widths = csr_to_bucket_ell_arrays(
+        indptr, indices, data, shape, quantiles=quantiles
+    )
+    return BucketELL(
+        data=tuple(_values(v, None, device) for v in bv),
+        indices=tuple(_index(i, device) for i in bi),
+        inv_perm=_index(inv_perm, device),
+        shape=tuple(shape),
+        widths=widths,
     )

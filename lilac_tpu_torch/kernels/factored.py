@@ -125,6 +125,19 @@ def _resolve_modes(conf, n: int, device) -> Tuple[str, str]:
     return mode, vt_mode
 
 
+def plan_tag(conf, hier: bool) -> str:
+    """The geometry tag of a routed plan file name (the reference's cache
+    schema v2 names). Single-table plans carry the net-mode tag (monotone
+    schedules differ from Benes). Hier plans always build Benes and ALWAYS
+    carry their (bl, gmax) tag: the port's default block length differs
+    from the reference's, so an untagged name would alias a plan of another
+    geometry."""
+    if not hier:
+        return "_m" if conf.net_mode == "monotone" else ""
+    g = conf.hier_gmax if conf.hier_gmax is not None else "a"
+    return f"_bl{hier_bl_cfg()}g{g}"
+
+
 def _load_plans(paths, device):
     """The plan files (V, VT; V alone for factored_vt=adj) as RoutedMats or
     host-staged RoutedMatHiers, or None when one is missing, unreadable, of
@@ -175,16 +188,7 @@ def build_factored(
     if mode == "routed":
         cache_dir = conf.resolved_data_dir()
         os.makedirs(cache_dir, exist_ok=True)
-        # the reference's cache schema v2 names; single-table plans carry
-        # the net-mode tag (monotone schedules differ from Benes). Hier
-        # plans always build Benes and ALWAYS carry their (bl, gmax) tag:
-        # the port's default block length differs from the reference's, so
-        # an untagged name would alias a plan of another geometry.
-        if n <= SINGLE_TABLE_MAX:
-            tag = "_m" if conf.net_mode == "monotone" else ""
-        else:
-            g = conf.hier_gmax if conf.hier_gmax is not None else "a"
-            tag = f"_bl{hier_bl_cfg()}g{g}"
+        tag = plan_tag(conf, hier=n > SINGLE_TABLE_MAX)
         # adj needs, and writes, V's file alone
         paths = [
             os.path.join(cache_dir, f"routed2_{cls.name}_{dtype}_{t}{tag}.npz")

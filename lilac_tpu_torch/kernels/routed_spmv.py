@@ -1078,3 +1078,16 @@ def routed_hier_spmv_adj_t_df(A, u: df.DF) -> df.DF:
         t = df.sum_df0(df.DF(oh.view(N, A.m), ol.view(N, A.m)))
         y = t if y is None else df.add(y, t)
     return df.DF(y.hi[: A.shape[1]], y.lo[: A.shape[1]])
+
+
+# -- registry entries (SpmvPlan dispatches through these); each forward
+# product has its adjoint through the same plan as its transpose ------------
+from lilac_tpu_torch.kernels.registry import register_kernel  # noqa: E402
+
+register_kernel("routed", routed_spmv, RoutedMat, transpose=routed_spmv_adj_t)
+register_kernel("routed_df", routed_spmv_df, RoutedMat, dfloat=True,
+                transpose=routed_spmv_adj_t_df)
+register_kernel("routed_hier", routed_hier_spmv, RoutedMatHier,
+                transpose=routed_hier_spmv_adj_t)
+register_kernel("routed_hier_df", routed_hier_spmv_df, RoutedMatHier, dfloat=True,
+                transpose=routed_hier_spmv_adj_t_df)

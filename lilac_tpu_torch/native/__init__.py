@@ -1,12 +1,13 @@
-"""Native (C) host runtime of the port: the NPB makea random stream and
-the Benes cycle-walk colouring, compiled with the system C compiler at
-first use and loaded through ctypes.
+"""Native (C) host runtime of the port: the NPB makea random stream, the
+Benes cycle-walk colouring and the MatrixMarket body parser, compiled with
+the system C compiler at first use and loaded through ctypes.
 
 Counterpart of lilac_tpu/native/__init__.py, with its own copy of the C
 source (src/lilac_native.c). The library is built on the first call, not
-when the module is imported, into native/build/ (git-ignored). Callers
-guard with ``available()`` and use the pure-numpy constructors when no C
-compiler is at hand.
+when the module is imported, into native/build/ (git-ignored). The NPB
+generator and the network construction guard with ``available()`` and use their
+pure-numpy constructors when no C compiler is at hand; the MatrixMarket
+reader has no second parser, so a failure there raises.
 """
 
 from __future__ import annotations
@@ -58,6 +59,16 @@ def _load():
         np.ctypeslib.ndpointer(np.int64, flags="C"),
         np.ctypeslib.ndpointer(np.float64, flags="C"),
     ]
+    lib.mm_parse_body.restype = ctypes.c_long
+    lib.mm_parse_body.argtypes = [
+        ctypes.c_char_p,
+        ctypes.c_long,
+        ctypes.c_long,
+        ctypes.c_int,
+        np.ctypeslib.ndpointer(np.int64, flags="C"),
+        np.ctypeslib.ndpointer(np.int64, flags="C"),
+        np.ctypeslib.ndpointer(np.float64, flags="C"),
+    ]
     lib.benes_route_c.restype = ctypes.c_int
     lib.benes_route_c.argtypes = [
         ctypes.c_int64,
@@ -85,6 +96,21 @@ def npb_triples(na: int, nonzer: int):
     val = np.empty(na * (nonzer + 1), dtype=np.float64)
     w = lib.npb_triples(na, nonzer, nzv, pos, val)
     return nzv, pos[:w], val[:w]
+
+
+def mm_parse_body(path: str, skip_lines: int, nnz: int, pattern: bool):
+    """(rows, cols, vals) of a MatrixMarket coordinate body, 1-based as in
+    the file: skip_lines header lines, then nnz entries (pattern: unit
+    values). Raises when the file has fewer entries than promised."""
+    lib = _load()
+    rows = np.empty(nnz, dtype=np.int64)
+    cols = np.empty(nnz, dtype=np.int64)
+    vals = np.empty(nnz, dtype=np.float64)
+    k = lib.mm_parse_body(os.fsencode(path), skip_lines, nnz, int(pattern),
+                          rows, cols, vals)
+    if k != nnz:
+        raise ValueError(f"{path}: parsed {k} of {nnz} entries")
+    return rows, cols, vals
 
 
 def benes_route(perm: np.ndarray) -> np.ndarray:

@@ -1,10 +1,12 @@
 /* lilac_tpu_torch native runtime: host-side hot loops that are inherently
- * sequential (the NPB makea random stream, the Benes cycle-walk colouring),
- * kept in C. The port's own copy of the two routines its NPB path uses;
+ * sequential (the NPB makea random stream, the Benes cycle-walk colouring,
+ * the MatrixMarket body parser), kept in C. The port's own copy of the
+ * routines its paths use;
  * exposed through ctypes (lilac_tpu_torch/native/__init__.py), everything
  * returns into caller-allocated numpy buffers.
  */
 #include <stdint.h>
+#include <stdio.h>
 #include <stdlib.h>
 #include <math.h>
 
@@ -144,4 +146,32 @@ int benes_route_c(int64_t m, const int32_t* perm, uint8_t* masks_out) {
         mbase[i] = (uint8_t)(cur[i] != (int32_t)(i & 1));
     free(cur); free(nxt); free(inv); free(color); free(elem_at);
     return S;
+}
+
+/* --------------- MatrixMarket coordinate fast parser ------------------ */
+
+/* Parses the numeric body of an .mtx coordinate file (after the header and
+ * size line). pattern: 2 ints/line; real: 2 ints + 1 double. Returns the
+ * number of entries parsed or -1 on error. */
+long mm_parse_body(const char* path, long skip_lines, long nnz, int pattern,
+                   int64_t* rows, int64_t* cols, double* vals) {
+  FILE* f = fopen(path, "r");
+  if (!f) return -1;
+  char buf[512];
+  for (long i = 0; i < skip_lines; i++)
+    if (!fgets(buf, sizeof buf, f)) { fclose(f); return -1; }
+  long k = 0;
+  if (pattern) {
+    long r, c;
+    while (k < nnz && fscanf(f, "%ld %ld", &r, &c) == 2) {
+      rows[k] = r; cols[k] = c; vals[k] = 1.0; k++;
+    }
+  } else {
+    long r, c; double v;
+    while (k < nnz && fscanf(f, "%ld %ld %lf", &r, &c, &v) == 3) {
+      rows[k] = r; cols[k] = c; vals[k] = v; k++;
+    }
+  }
+  fclose(f);
+  return k;
 }
