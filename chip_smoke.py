@@ -14,7 +14,11 @@ proves on the card that
 * TwoSum / TwoProd inside the df64 kernel's translation unit are exact,
 * each kernel agrees with its plain PyTorch version (and the routing
   appliers with the numpy applier of the networks) at the shapes the main
-  path gives it and at a small size; the routing kernels bit for bit,
+  path gives it and at a small size; the routing kernels bit for bit, the
+  single-table ones (K1, K11) also with forced small tiles at m = 2^16 so
+  that every pass kind of their schedule runs, and the exchange passes
+  equal the gather on the index they compose (timed as their library
+  yardstick),
 * a general sparse matrix (unsorted rows, a column dense enough to need
   block-aligned shifts) multiplies right through the hierarchical plans,
   packed (kernels K3-K6) and net by net (their un-batched forms K3u-K6u),
@@ -49,7 +53,9 @@ and class D runs (default: all). A cut run cannot claim NPB's verification
 and is held instead to the native-f64 gather operator's zeta history on the
 card, to 1e-10 relative. Arguments name phases to run alone, for finding a
 fault ("hier" = the small hierarchical checks and the general matrix, "k11"
-= the single-table adjoint at a small size, "d" = the class D plan, its
+= the single-table adjoint at a small size, "tiles" = K1 and K11 with
+forced small tiles at m = 2^16, "c" = K1, K2, K11 on the class C plan,
+"d" = the class D plan, its
 kernels and its runs, "gemm" = K12 and sgemm, "parboil" = Parboil spmv);
 such a run exits 2 without the last line.
 """
@@ -248,6 +254,138 @@ def _check_k11(masks, kinds, dists, idx, rng, what: str) -> None:
             _check_transpose(g, flat, x, tol, f"routed_apply_t ({what}, {fmt})")
 
 
+# K1 / K11 grids a call on the class C V plan (68 stages): the tile passes
+# must cut them to at most this
+MAX_CLASS_C_GRIDS = 8
+
+
+def _grids_of_one_call(wrapper, call) -> int:
+    """CUDA grids (passes) one call of a K1 / K11 wrapper launches, by its
+    counter; the counters are put back as they were."""
+    before = (wrapper.launches, wrapper.stage_launches)
+    call()
+    grids = wrapper.stage_launches - before[1]
+    wrapper.launches, wrapper.stage_launches = before
+    return grids
+
+
+def _pass_times(rd, kinds, dists, m: int, B: int, tile: int, xs, us) -> list:
+    """Each pass of a schedule timed on its own (K1 and K11 on the pass's
+    stages alone, random masks of the plan's shape): where a call's time
+    goes, by pass kind."""
+    R = m // 128
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    out = []
+    for kind, a, b in rd.routed_passes(tuple(kinds), tuple(dists), m, tile):
+        ks, ds = tuple(kinds[a:b]), tuple(dists[a:b])
+        mk = torch.randint(-128, 128, (B, (b - a + 7) // 8, R, 128), dtype=torch.int8,
+                           device=DEVICE, generator=gen)
+        out.append({"pass": [kind, a, b],
+                    "k1_ms": time_ms(lambda: rd.routed_apply(xs, mk, ks, ds, tile=tile), 20),
+                    "k11_ms": time_ms(lambda: rd.routed_apply_t(
+                        us, mk, ks, ds, dfpair=True, tile=tile), 20)})
+    return out
+
+
+def _tile_sweep(call, want, tile: int, what: str) -> dict:
+    """ms a call at the default tile's smaller powers of two (the C entry
+    takes T from the wrapper), each result held bit for bit to `want`."""
+    out = {}
+    for t in (tile // 4, tile // 2):
+        got = call(t)
+        if not all(_bits_equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{what} at T={t} != plain")
+        out[str(t)] = time_ms(lambda: call(t), 20)
+    return out
+
+
+K1_FORMATS = ((np.float32, 1), (np.float32, 2), (np.float64, 1), (np.float64, 2))
+
+
+def phase_tiles() -> dict:
+    """K1 and K11 at m = 2^16 with forced small tiles, so that every pass
+    kind runs on the card: tile 128 (T^2/4 < m: stage passes beside low
+    ones), 512 and 2048 (high tiles of 4 and 64 consecutive slots), 4096,
+    and the default. On a monotone and a Benes network's schedules, with the
+    network's own masks (K1 also == x[idx]) and with random masks, which
+    switch halo slots on both sides and wrap tile 0's halo round the
+    table's end; every value format the tile fits, bit for bit against the
+    plain versions, and the grids a call against the pass count."""
+    from lilac_tpu_torch.kernels import routed as rd
+    from lilac_tpu_torch.kernels import routenet as rn
+
+    rng = np.random.default_rng(17)
+    m, B, ncol = 1 << 16, 3, 50000
+    limit = rd.smem_optin_bytes(DEVICE)
+    kinds_seen, checks, runs = set(), 0, []
+    for mode in ("monotone", "benes"):
+        idx = rng.integers(0, ncol, size=(B, m))
+        net = rn.build_gather_network(idx, ncol, m, mode=mode)
+        S = len(net.kinds)
+        random_masks = torch.as_tensor(
+            rng.integers(0, 256, size=(B, (S + 7) // 8, m // 128, 128),
+                         dtype=np.uint8).view(np.int8), device=DEVICE)
+        for masks_name, masks in (("network", rd.masks_device(net, DEVICE)),
+                                  ("random", random_masks)):
+            for tile in (128, 512, 2048, 4096, None):
+                for dtype, nplanes in K1_FORMATS:
+                    esize = np.dtype(dtype).itemsize
+                    t = rd.routed_tile(nplanes, esize, limit) if tile is None else tile
+                    if rd.routed_tile_smem(t, nplanes, esize) > limit:
+                        continue
+                    passes = rd.routed_passes(net.kinds, net.dists, m, t)
+                    kinds_seen |= {p[0] for p in passes}
+                    xs_np = [rng.standard_normal(m).astype(dtype) for _ in range(nplanes)]
+                    xs = [torch.as_tensor(x, device=DEVICE).view(m // 128, 128)
+                          for x in xs_np]
+                    fmt = f"{dtype.__name__} x{nplanes}"
+                    grids = _grids_of_one_call(rd.routed_apply, lambda: rd.routed_apply(
+                        xs, masks, net.kinds, net.dists, tile=t))
+                    got = rd.routed_apply(xs, masks, net.kinds, net.dists, tile=t)
+                    torch.cuda.synchronize()
+                    want = rd.routed_apply_plain(xs, masks, net.kinds, net.dists)
+                    if grids != len(passes) or not all(
+                            _bits_equal(g, w) for g, w in zip(got, want)):
+                        raise AssertionError(
+                            f"tiles: routed_apply != plain ({mode}, {masks_name} masks, "
+                            f"T={t}, {fmt}, {grids} grids for {len(passes)} passes)")
+                    if masks_name == "network" and not np.array_equal(
+                            got[0].cpu().numpy().reshape(B, m), xs_np[0][idx]):
+                        raise AssertionError(f"tiles: K1 does not gather ({mode}, T={t})")
+                    checks += 1
+                for dtype, nplanes, dfpair in ADJ_FORMATS + ((np.float64, 2, True),):
+                    esize = np.dtype(dtype).itemsize
+                    t = rd.routed_tile(nplanes, esize, limit) if tile is None else tile
+                    if rd.routed_tile_smem(t, nplanes, esize) > limit:
+                        continue
+                    us = _adj_planes(rng, (B, m // 128, 128), dtype, nplanes, dfpair)
+                    fmt = f"{dtype.__name__} x{nplanes}{' df' if dfpair else ''}"
+                    grids = _grids_of_one_call(rd.routed_apply_t, lambda: rd.routed_apply_t(
+                        us, masks, net.kinds, net.dists, dfpair=dfpair, tile=t))
+                    got = rd.routed_apply_t(us, masks, net.kinds, net.dists,
+                                            dfpair=dfpair, tile=t)
+                    torch.cuda.synchronize()
+                    want = rd.routed_apply_t_plain(us, masks, net.kinds, net.dists,
+                                                   dfpair=dfpair)
+                    n_pass = len(rd.routed_passes(net.kinds, net.dists, m, t))
+                    if grids != n_pass or not all(
+                            _bits_equal(g, w) for g, w in zip(got, want)):
+                        raise AssertionError(
+                            f"tiles: routed_apply_t != plain ({mode}, {masks_name} "
+                            f"masks, T={t}, {fmt}, {grids} grids for {n_pass} passes)")
+                    checks += 1
+                if masks_name == "random":
+                    t = tile or rd.routed_tile(2, 4, limit)
+                    runs.append({"mode": mode, "tile": t, "stages": S, "passes": [
+                        list(p) for p in rd.routed_passes(net.kinds, net.dists, m, t)]})
+    if kinds_seen != set(rd.PASS_KINDS):
+        raise AssertionError(f"tiles: pass kinds run {kinds_seen}")
+    line = {"phase": "tiles", "m": m, "B": B, "checks": checks,
+            "pass_kinds": sorted(kinds_seen), "schedules": runs}
+    emit(line)
+    return line
+
+
 def phase_k11_small() -> dict:
     """K11 at m = 1024: a monotone network (all three stage kinds) and a
     Benes one, every value format, against the plain version and against
@@ -328,12 +466,22 @@ def phase_kernels(plan_c) -> dict:
                     "kinds": sorted(set(V.kinds))})
     xh = torch.as_tensor(rng.standard_normal(m).astype(np.float32), device=DEVICE).view(R, 128)
     xl = (xh * 2.0 ** -25).contiguous()
+    tile_c = rd.routed_tile(2, 4, rd.smem_optin_bytes(DEVICE))
+    passes_c = rd.routed_passes(V.kinds, V.dists, m, tile_c)
+    k1_grids = _grids_of_one_call(
+        rd.routed_apply, lambda: rd.routed_apply([xh, xl], V.masks, V.kinds, V.dists))
+    if k1_grids != len(passes_c) or k1_grids > MAX_CLASS_C_GRIDS:
+        raise AssertionError(f"K1 on the class C V plan: {k1_grids} grids a call "
+                             f"({len(passes_c)} passes, at most {MAX_CLASS_C_GRIDS})")
     k1_ms = time_ms(lambda: rd.routed_apply([xh, xl], V.masks, V.kinds, V.dists), 20)
+    k1_by_tile = _tile_sweep(
+        lambda t: rd.routed_apply([xh, xl], V.masks, V.kinds, V.dists, tile=t),
+        rd.routed_apply_plain([xh, xl], V.masks, V.kinds, V.dists), tile_c, "K1")
     k1_plain_ms = time_ms(
         lambda: rd.routed_apply_plain([xh, xl], V.masks, V.kinds, V.dists), 3)
-    # the composed gather out[b, k] = x[idx[b, k]] as one indexing call: not
-    # the same inputs (it needs idx, which the network encodes), so it is a
-    # yardstick beside the kernel, not its library counterpart
+    # the composed gather out[b, k] = x[idx[b, k]] as one indexing call, the
+    # library time of K1 (other inputs: it needs idx, which the network
+    # encodes), as index_add_ on the same index is K11's
     iota = torch.arange(m, dtype=torch.float32, device=DEVICE).view(R, 128)
     (routed_iota,) = rd.routed_apply([iota], V.masks, V.kinds, V.dists)
     gidx = routed_iota.view(B, m).to(torch.int64)
@@ -350,9 +498,12 @@ def phase_kernels(plan_c) -> dict:
         "launches": 0, "max_abs_err": 0.0,
         "ms": k1_ms, "plain_ms": k1_plain_ms,
         "bound_ms": k1_bytes / PEAK_BYTES_S * 1e3, "bound_by": "bytes",
-        "library_ms": None,
+        "library_ms": gather_ms,
+        "library": "x[idx] on the composed index, per plane (other inputs: it needs idx)",
         "shape": {"m": m, "B": B, "stages": S, "planes": 2, "dtype": "float32"},
-        "bytes": k1_bytes, "grids_per_call": S, "index_gather_ms": gather_ms,
+        "bytes": k1_bytes, "tile": tile_c, "grids_per_call": k1_grids,
+        "ms_by_tile": k1_by_tile,
+        "passes": [list(p) for p in passes_c],
     }
 
     # --- K11 on the class C plan: V's own network in reverse ----------------
@@ -362,8 +513,19 @@ def phase_kernels(plan_c) -> dict:
                     "mode": "class C V plan", "stages": S,
                     "kinds": sorted(set(V.kinds))})
     uh, ul = _adj_planes(rng, (B, R, 128), np.float32, 2, True)
+    k11_grids = _grids_of_one_call(rd.routed_apply_t, lambda: rd.routed_apply_t(
+        [uh, ul], V.masks, V.kinds, V.dists, dfpair=True))
+    if k11_grids != len(passes_c) or k11_grids > MAX_CLASS_C_GRIDS:
+        raise AssertionError(f"K11 on the class C V plan: {k11_grids} grids a call "
+                             f"({len(passes_c)} passes, at most {MAX_CLASS_C_GRIDS})")
     k11_ms = time_ms(lambda: rd.routed_apply_t(
         [uh, ul], V.masks, V.kinds, V.dists, dfpair=True), 20)
+    k11_by_tile = _tile_sweep(
+        lambda t: rd.routed_apply_t([uh, ul], V.masks, V.kinds, V.dists, dfpair=True,
+                                    tile=t),
+        rd.routed_apply_t_plain([uh, ul], V.masks, V.kinds, V.dists, dfpair=True),
+        tile_c, "K11")
+    by_pass = _pass_times(rd, V.kinds, V.dists, m, B, tile_c, [xh, xl], [uh, ul])
     k11_plain_ms = time_ms(lambda: rd.routed_apply_t_plain(
         [uh, ul], V.masks, V.kinds, V.dists, dfpair=True), 3)
     flat = _net_offsets(gidx)
@@ -381,7 +543,9 @@ def phase_kernels(plan_c) -> dict:
                    "inputs: it needs idx; uncompensated)",
         "shape": {"m": m, "B": B, "stages": S, "planes": 2, "dtype": "float32",
                   "dfpair": True},
-        "bytes": k11_bytes, "grids_per_call": S,
+        "bytes": k11_bytes, "tile": tile_c, "grids_per_call": k11_grids,
+        "ms_by_tile": k11_by_tile,
+        "passes": [list(p) for p in reversed(passes_c)],
     }
     del flat, uh, ul
 
@@ -438,7 +602,10 @@ def phase_kernels(plan_c) -> dict:
         "bytes": k2_bytes,
     }
     emit({"phase": "kernels", "checked": checked,
+          "grids_per_call": {"routed_apply": k1_grids, "routed_apply_t": k11_grids},
+          "ms_by_pass": by_pass,
           "times_ms": {"routed_apply": k1_ms, "routed_apply_plain": k1_plain_ms,
+                       "routed_apply_index_gather": gather_ms,
                        "routed_apply_t": k11_ms, "routed_apply_t_plain": k11_plain_ms,
                        "routed_apply_t_index_add": k11_lib_ms,
                        "dfmulred": k2_ms, "dfmulred_plain": k2_plain_ms}})
@@ -494,6 +661,25 @@ def _call_pass(fn, meta, planes, mk, bl, layout):
     return fn(planes, mk, meta[1], bl, layout=layout), None
 
 
+EXCHANGE_LIBRARY = "x[idx] on the index the pass composes, per plane (other inputs: it needs idx)"
+
+
+def _composed_gather_ms(run_pass, planes, got, what: str, reps: int) -> float:
+    """The library time of an exchange pass: x[idx] on the index it
+    composes. Routing the slot numbers (an f64 iota, exact) through the
+    pass with the same masks and layout gives idx with out = x.flat[idx];
+    the gather must equal the kernel's output `got` bit for bit."""
+    iota = torch.arange(planes[0].numel(), dtype=torch.float64,
+                        device=DEVICE).view(planes[0].shape)
+    (routed,) = run_pass((iota,))
+    idx = routed.to(torch.int64)
+    del routed, iota
+    flat = [p.reshape(-1) for p in planes]
+    if not all(_bits_equal(f[idx], g) for f, g in zip(flat, got)):
+        raise AssertionError(f"{what}: the pass differs from its composed gather")
+    return time_ms(lambda: [f[idx] for f in flat], reps)
+
+
 def _walk_schedule(rd, planes, metas, masks, bl, batched: bool, what: str,
                    timed: dict | None = None, reps: int = 10) -> tuple:
     """Run a pass schedule through the kernels, holding EVERY pass bit for
@@ -531,6 +717,9 @@ def _walk_schedule(rd, planes, metas, masks, bl, batched: bool, what: str,
             ms = time_ms(lambda: _call_pass(fn, meta, planes, mk, bl, layout), reps)
             plain_ms = time_ms(
                 lambda: _call_pass(plain, meta, planes, mk, bl, layout), 2)
+            library_ms = _composed_gather_ms(
+                lambda ps: _call_pass(fn, meta, ps, mk, bl, layout)[0], planes, got,
+                f"{what}: pass {j} {name}", reps)
             timed[name] = {
                 "name": name, "route": "cuda",
                 "source": "lilac_tpu_torch/csrc/hier.cu",
@@ -538,7 +727,7 @@ def _walk_schedule(rd, planes, metas, masks, bl, batched: bool, what: str,
                 "launches": 0, "max_abs_err": 0.0,
                 "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": nbytes / PEAK_BYTES_S * 1e3, "bound_by": "bytes",
-                "library_ms": None,
+                "library_ms": library_ms, "library": EXCHANGE_LIBRARY,
                 "shape": {"m": m, "N": N, "bl": bl, "planes": len(planes),
                           "dtype": str(planes[0].dtype).replace("torch.", ""),
                           "input": "shared" if planes[0].dim() == 2 and batched
@@ -640,8 +829,13 @@ def _walk_schedule_t(rd, planes, metas, masks, bl, dfpair: bool, what: str,
                          reps)
             plain_ms = time_ms(
                 lambda: _call_pass_t(plain, meta, planes, mk, bl, layout, dfpair), 2)
-            library_ms = None
-            if kind in ("window", "bigshift"):
+            library = "index_add_ on the index the pass composes, once per plane"
+            if kind in ("inner", "butterfly"):  # exchanges: a gather
+                library = EXCHANGE_LIBRARY
+                library_ms = _composed_gather_ms(
+                    lambda ps: _call_pass_t(fn, meta, ps, mk, bl, layout, False)[0],
+                    planes, got, f"{what}: pass {j} {name}", reps)
+            else:
                 # the index the pass composes, from routing the slot numbers
                 # forwards (exact in f32 up to 2^24), natural layout
                 iota = torch.arange(m, dtype=torch.float32, device=DEVICE).view(-1, 128)
@@ -662,7 +856,7 @@ def _walk_schedule_t(rd, planes, metas, masks, bl, dfpair: bool, what: str,
                 "launches": 0, "max_abs_err": 0.0,
                 "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": nbytes / PEAK_BYTES_S * 1e3, "bound_by": "bytes",
-                "library_ms": library_ms,
+                "library_ms": library_ms, "library": library,
                 "shape": {"m": m, "N": N, "bl": bl, "planes": len(planes),
                           "dtype": str(planes[0].dtype).replace("torch.", ""),
                           "dfpair": dfpair, "pass": [str(v) for v in meta],
@@ -1342,6 +1536,26 @@ def phase_parboil(kernels: dict) -> dict:
         raise AssertionError(f"parboil routed transpose: {line['transpose']}")
     if "routed_apply_t" in kernels:
         kernels["routed_apply_t"]["launches_parboil_f32"] = k11
+    # K1 and K11 on the plan's own network in f32 (one plane), bit for bit
+    A = P.A
+    nets = A.masks.shape[0]
+    x = torch.as_tensor(rng.standard_normal(A.m).astype(np.float32),
+                        device=DEVICE).view(-1, 128)
+    us = _adj_planes(rng, (nets, A.m // 128, 128), np.float32, 1, False)
+    got, got_t = (rd.routed_apply([x], A.masks, A.kinds, A.dists),
+                  rd.routed_apply_t(us, A.masks, A.kinds, A.dists))
+    torch.cuda.synchronize()
+    if not (_bits_equal(got[0], rd.routed_apply_plain([x], A.masks, A.kinds, A.dists)[0])
+            and _bits_equal(got_t[0], rd.routed_apply_t_plain(
+                us, A.masks, A.kinds, A.dists)[0])):
+        raise AssertionError("parboil routed plan: K1 / K11 != plain in f32")
+    tile = rd.routed_tile(1, 4, rd.smem_optin_bytes(DEVICE))
+    line["routed_network_f32"] = {
+        "m": A.m, "nets": nets, "stages": len(A.kinds), "tile": tile,
+        "passes": [list(p) for p in rd.routed_passes(A.kinds, A.dists, A.m, tile)],
+        "routed_apply_ms": time_ms(lambda: rd.routed_apply([x], A.masks, A.kinds, A.dists), 20),
+        "routed_apply_t_ms": time_ms(lambda: rd.routed_apply_t(us, A.masks, A.kinds, A.dists), 20),
+        "bit_identical_to_plain": True}
     emit(line)
     return line
 
@@ -1653,7 +1867,22 @@ def build_plan_d():
     return plan_d
 
 
-PARTS = {"hier", "k11", "d", "gemm", "parboil"}
+def build_plan_c():
+    """Class C's plan through the entry point (auto = factored_vt=plan)."""
+    from lilac_tpu_torch.plan import FactoredNPBPlan
+
+    t0 = time.time()
+    plan_c = FactoredNPBPlan("C", dtype="df64", device=DEVICE)
+    if plan_c.kernel != "factored_routed_df" or plan_c.factored_vt != "plan":
+        raise AssertionError(f"class C plan is {plan_c.kernel} / {plan_c.factored_vt}")
+    emit({"phase": "plan", "class": "C", "build_s": round(time.time() - t0, 2),
+          "m": plan_c.A.V.m, "nets": [len(plan_c.A.V.chunks), len(plan_c.A.VT.chunks)],
+          "stages": [len(plan_c.A.V.kinds), len(plan_c.A.VT.kinds)],
+          "mask_planes": list(plan_c.A.V.masks.shape)})
+    return plan_c
+
+
+PARTS = {"hier", "k11", "tiles", "c", "d", "gemm", "parboil"}
 
 
 def main(argv) -> int:
@@ -1662,8 +1891,6 @@ def main(argv) -> int:
               file=sys.stderr)
         return 1
     t_start = time.time()
-    from lilac_tpu_torch.plan import FactoredNPBPlan
-
     only = set(argv[1:])  # phases to run alone, for finding a fault
     if only - PARTS:
         raise SystemExit(f"unknown phase {sorted(only - PARTS)}: " + " | ".join(sorted(PARTS)))
@@ -1672,6 +1899,10 @@ def main(argv) -> int:
     kernels: dict = {}
     if "k11" in only:
         phase_k11_small()
+    if "tiles" in only:
+        phase_tiles()
+    if "c" in only:
+        kernels.update(phase_kernels(build_plan_c()))
     if "hier" in only:
         phase_hier_small()
         phase_hier_general(kernels)
@@ -1694,15 +1925,9 @@ def main(argv) -> int:
 
     phase_eft()
 
-    t0 = time.time()
-    plan_c = FactoredNPBPlan("C", dtype="df64", device=DEVICE)
-    if plan_c.kernel != "factored_routed_df" or plan_c.factored_vt != "plan":
-        raise AssertionError(f"class C plan is {plan_c.kernel} / {plan_c.factored_vt}")
-    emit({"phase": "plan", "class": "C", "build_s": round(time.time() - t0, 2),
-          "m": plan_c.A.V.m, "nets": [len(plan_c.A.V.chunks), len(plan_c.A.VT.chunks)],
-          "stages": [len(plan_c.A.V.kinds), len(plan_c.A.VT.kinds)],
-          "mask_planes": list(plan_c.A.V.masks.shape)})
+    plan_c = build_plan_c()
     phase_k11_small()
+    phase_tiles()
     kernels = phase_kernels(plan_c)
     del plan_c
     torch.cuda.empty_cache()

@@ -39,15 +39,28 @@
 //       bl = 2^13 and a df64 pair would not fit beside the first. Stage s
 //       produces only the slots the stages still to come can reach.
 //   K10 is one merge of two blocks read through the layout.
-//   K11 is K1's design run backwards: the table stays in device memory, one
-//       grid per stage, ping-pong between two [B, m] buffers, masks in the
-//       plan-file layout. A shift stage reads the partner's mask byte as
-//       well as its own. The input is per net; it is never written.
+//   K11 runs K1's passes (tile_pass.cuh) last to first, each pass's stages
+//       backwards, with the merges above in place of the copies: a pass's
+//       tile and halo sit in shared memory with its mask bytes, where the
+//       first design sent every one of the 68 class-C stages through device
+//       memory as a grid of its own. A shift's adjoint reads the other side
+//       (i + d for `shift`), so its window's halo is on the other side from
+//       the forward's; the merge is taken at every slot the window computes,
+//       halo slots included, with the same intrinsics. The one-stage kernel
+//       below is the pass for a stage with d >= T where m > T^2/4, as in K1.
+//       The input is per net; it is never written.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <vector>
+
+#include "tile_pass.cuh"
+
 namespace {
+
+using lilac_tiles::merge;
+using lilac_tiles::Quad;
 
 struct Layout {
   int nbits;
@@ -60,35 +73,6 @@ __device__ __forceinline__ long long phys_block(long long b, const Layout& l) {
     out |= ((b >> l.src[k]) & 1ll) << k;
   }
   return out;
-}
-
-template <typename T>
-struct alignas(sizeof(T) * 4) Quad {
-  T v[4];
-};
-
-__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
-
-// kept + moved for NP planes of one slot. DF: the two planes are one
-// (hi, lo) pair: TwoSum of the hi words, the lo words and the error added,
-// quick-two-sum renormalisation (the reference's _stage_adj, step for step).
-template <typename T, int NP, bool DF>
-__device__ __forceinline__ void merge(const T* kept, const T* moved, T* out) {
-  if constexpr (DF && NP == 2) {
-    const T s = add_rn(kept[0], moved[0]);
-    const T bb = sub_rn(s, kept[0]);
-    const T e = add_rn(sub_rn(kept[0], sub_rn(s, bb)), sub_rn(moved[0], bb));
-    const T low = add_rn(e, add_rn(kept[1], moved[1]));
-    const T hi = add_rn(s, low);
-    out[0] = hi;
-    out[1] = sub_rn(low, sub_rn(hi, s));
-  } else {
-#pragma unroll
-    for (int p = 0; p < NP; ++p) out[p] = add_rn(kept[p], moved[p]);
-  }
 }
 
 // --------------------------------------------------------------- K9 window
@@ -236,7 +220,10 @@ __global__ void adj_bigshift_kernel(const T* __restrict__ s0,
 
 // ------------------------------------------------------- K11 single table
 
-enum { KIND_XOR = 0, KIND_SHIFT = 1, KIND_SHIFTL = 2, KIND_COPY = 3 };
+using lilac_tiles::KIND_SHIFT;
+using lilac_tiles::KIND_SHIFTL;
+using lilac_tiles::KIND_XOR;
+enum { KIND_COPY = 3 };
 
 // One adjoint stage over all B nets of m slots; grid (ceil(m / (4 *
 // threads)), B). mask points at the stage's byte plane of net 0, mstride
@@ -357,14 +344,16 @@ cudaError_t launch_bigshift(const void* s0, const void* s1, long long sstride,
   return cudaGetLastError();
 }
 
-// Stages S-1 .. 0. The input x is only read; the last launch (stage 0)
-// must land in `out`, so the launches alternate backwards from it.
+// Passes npass-1 .. 0, each pass's stages backwards. The input x is only
+// read; the last launch (pass 0) must land in `out`, so the launches
+// alternate backwards from it.
 template <typename T, int NP, bool DF>
 cudaError_t run_network_t(const void* x0, const void* x1, void* out0,
                           void* out1, void* tmp0, void* tmp1,
                           const uint8_t* masks, int B, int P, long long m,
                           int S, const int* kinds, const long long* dists,
-                          cudaStream_t stream) {
+                          int tile, int npass, const int* pkind,
+                          const int* pstart, cudaStream_t stream) {
   const int threads = 256;
   dim3 grid(static_cast<unsigned>((m / 4 + threads - 1) / threads),
             static_cast<unsigned>(B));
@@ -376,15 +365,28 @@ cudaError_t run_network_t(const void* x0, const void* x1, void* out0,
         KIND_COPY, 0, m);
     return cudaGetLastError();
   }
-  for (int t = 0; t < S; ++t) {
-    const int s = S - 1 - t;
-    const bool to_out = (s % 2) == 0;
+  if (npass < 1 || npass > S) return cudaErrorInvalidValue;
+  std::vector<lilac_tiles::TilePass> ps(npass);
+  cudaError_t err = lilac_tiles::plan_passes(
+      ps.data(), npass, pkind, pstart, S, kinds, dists, m, tile, true, NP,
+      static_cast<int>(sizeof(T)));
+  if (err != cudaSuccess) return err;
+  const long long mstride = static_cast<long long>(P) * m;
+  constexpr int mode = DF ? lilac_tiles::MODE_ADJ_DF : lilac_tiles::MODE_ADJ;
+  for (int q = npass - 1; q >= 0; --q) {
+    const bool to_out = (q % 2) == 0;
     T* d0 = static_cast<T*>(to_out ? out0 : tmp0);
     T* d1 = static_cast<T*>(to_out ? out1 : tmp1);
-    adj_stage_kernel<T, NP, DF><<<grid, threads, 0, stream>>>(
-        s0, s1, d0, d1, masks + static_cast<long long>(s / 8) * m,
-        static_cast<long long>(P) * m, s % 8, kinds[s], dists[s], m);
-    cudaError_t err = cudaGetLastError();
+    if (ps[q].n == 0) {
+      const int s = pstart[q];
+      adj_stage_kernel<T, NP, DF><<<grid, threads, 0, stream>>>(
+          s0, s1, d0, d1, masks + static_cast<long long>(s / 8) * m, mstride,
+          s % 8, kinds[s], dists[s], m);
+      err = cudaGetLastError();
+    } else {
+      err = lilac_tiles::launch_tile_pass<T, NP, mode>(
+          ps[q], s0, s1, m, d0, d1, masks, mstride, m, B, stream);
+    }
     if (err != cudaSuccess) return err;
     s0 = d0;
     s1 = d1;
@@ -461,13 +463,15 @@ extern "C" int lilac_adj_bigshift(const void* s0, const void* s1, int nplanes,
 // x0/x1: input planes [B, m] (x1 unused when nplanes == 1), only read.
 // out0/out1, tmp0/tmp1: [B, m] words each; the result is in out.
 // masks: [B, P, m] bytes. kinds/dists: host arrays of S entries, the
-// forward network's, in its order.
+// forward network's, in its order; tile / pkind / pstart: its passes, as
+// K1 takes them (lilac_routed_apply).
 extern "C" int lilac_adj_routed(const void* x0, const void* x1, int nplanes,
                                 int esize, int dfpair, void* out0, void* out1,
                                 void* tmp0, void* tmp1, const void* masks,
                                 int B, int P, long long m, int S,
                                 const int* kinds, const long long* dists,
-                                void* stream) {
+                                int tile, int npass, const int* pkind,
+                                const int* pstart, void* stream) {
   if (m < 1024 || (m & (m - 1)) != 0 || B < 1 || B > 65535 || S < 0 ||
       (S > 0 && P != (S + 7) / 8) || (nplanes != 1 && nplanes != 2) ||
       (esize != 4 && esize != 8)) {
@@ -483,5 +487,6 @@ extern "C" int lilac_adj_routed(const void* x0, const void* x1, int nplanes,
   const uint8_t* mk = static_cast<const uint8_t*>(masks);
   return static_cast<int>(LILAC_ADJ_DISPATCH(run_network_t, x0, x1, out0, out1,
                                              tmp0, tmp1, mk, B, P, m, S, kinds,
-                                             dists, cs));
+                                             dists, tile, npass, pkind, pstart,
+                                             cs));
 }

@@ -9,35 +9,50 @@
 // The masks come bit-packed, 8 stages per byte plane: bit s%8 of byte
 // masks[b, s/8, i] is stage s's switch for slot i of net b.
 //
-// Design. A stage reads the whole previous stage's output (distances reach
-// m/2) and thread blocks run in no order, so every stage is its own launch
-// and the table ping-pongs between two buffers in device memory, never in
-// place. Stage 0 reads the one shared x table for all B nets (net stride
-// 0); no B copies of x are made. The kernel only moves words: it is
+// Bound: bytes. A call must read the shared input table and the masks once
+// and write B tables; at the NPB class-C shape (m = 2^18, B = 10, a df64
+// pair, 68 stages in 9 mask planes) that is 47 MB, 0.014 ms at 3.35 TB/s.
+// The first design ran one grid per stage (every stage's partner may lie
+// anywhere in the table and blocks run in no order), so each of the 68
+// stages moved the whole [B, m] table through device memory and L2.
+//
+// Design. The stage schedule is cut on the host into a few passes that each
+// stay inside a tile of T slots held in shared memory (tile_pass.cuh,
+// kernels/routed.py:routed_passes): low passes over contiguous tiles (xor
+// stages, or runs of shifts over the tile plus their halo), high passes over
+// tiles that hold every high address bit (xor and shifts by multiples of
+// T). Class C's 68 stages become 6 grids. T is the largest power of two
+// whose worst pass (a window of 2T slots with 3 mask planes) fits the
+// opt-in shared memory: 2^13 for a df64 pair, 2^14 for one f32 plane, 2^12
+// for an f64 pair (kernels/routed.py:routed_tile); the wrapper passes it
+// and the launcher refuses one that does not fit. The one-stage kernel
+// below is still the pass for a stage with d >= T where m > T^2/4 (a table
+// of more than 2^24 slots at T = 2^13); no NPB or Parboil plan has one.
+// Passes ping-pong between two [B, m] buffers, the last one landing in
+// `out`; the first reads the one shared x table for all B nets (net stride
+// 0), so no B copies of x are made. The kernels only move words: they are
 // instantiated on the word width (32 or 64 bit) and the plane count (one
 // plane, or a df64 (hi, lo) pair routed through identical switches), so the
 // result is bit-identical to the plain version whatever the values are.
 //
-// Bound: bytes. Per stage each thread reads 4 slots and 4 mask bytes with
-// vector loads, reads a partner only where the switch is set, and writes 4
-// slots. At the NPB class-C shape (m = 2^18, B = 10, df64) a stage moves
-// about 45 MB, most of which the 50 MB L2 can hold between stages. Fusing
-// runs of short-distance stages in shared memory is the obvious next step.
-//
 // Limits: m a power of two and a multiple of 1024, B <= 65535 (grid.y),
-// indices are 64-bit. Nothing else: the table lives in device memory.
+// T a power of two >= 128. Nothing bounds m: a table beyond T^2/4 slots
+// runs its long stages one grid each.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <vector>
+
+#include "tile_pass.cuh"
+
 namespace {
 
-enum { KIND_XOR = 0, KIND_SHIFT = 1, KIND_SHIFTL = 2, KIND_COPY = 3 };
-
-template <typename T>
-struct alignas(sizeof(T) * 4) Quad {
-  T v[4];
-};
+using lilac_tiles::KIND_SHIFT;
+using lilac_tiles::KIND_SHIFTL;
+using lilac_tiles::KIND_XOR;
+using lilac_tiles::Quad;
+enum { KIND_COPY = 3 };
 
 template <typename T>
 __device__ __forceinline__ void route4(const T* __restrict__ src,
@@ -91,7 +106,9 @@ template <typename T, int NP>
 cudaError_t run_network(const T* x0, const T* x1, T* out0, T* out1, T* tmp0,
                         T* tmp1, const uint8_t* masks, int B, int P,
                         long long m, int S, const int* kinds,
-                        const long long* dists, cudaStream_t stream) {
+                        const long long* dists, int tile, int npass,
+                        const int* pkind, const int* pstart,
+                        cudaStream_t stream) {
   const int threads = 256;
   dim3 grid(static_cast<unsigned>((m / 4 + threads - 1) / threads),
             static_cast<unsigned>(B));
@@ -100,18 +117,31 @@ cudaError_t run_network(const T* x0, const T* x1, T* out0, T* out1, T* tmp0,
         x0, x1, 0, out0, out1, masks, 0, 0, KIND_COPY, 0, m);
     return cudaGetLastError();
   }
+  if (npass < 1 || npass > S) return cudaErrorInvalidValue;
+  std::vector<lilac_tiles::TilePass> ps(npass);
+  cudaError_t err = lilac_tiles::plan_passes(
+      ps.data(), npass, pkind, pstart, S, kinds, dists, m, tile, false, NP,
+      static_cast<int>(sizeof(T)));
+  if (err != cudaSuccess) return err;
+  const long long mstride = static_cast<long long>(P) * m;
   const T* s0 = x0;
   const T* s1 = x1;
   long long sstride = 0;
-  for (int s = 0; s < S; ++s) {
-    // the last stage must land in `out`: stages alternate backwards from it
-    const bool to_out = ((S - 1 - s) % 2) == 0;
+  for (int q = 0; q < npass; ++q) {
+    // the last pass must land in `out`: passes alternate backwards from it
+    const bool to_out = ((npass - 1 - q) % 2) == 0;
     T* d0 = to_out ? out0 : tmp0;
     T* d1 = to_out ? out1 : tmp1;
-    routed_stage_kernel<T, NP><<<grid, threads, 0, stream>>>(
-        s0, s1, sstride, d0, d1, masks + static_cast<long long>(s / 8) * m,
-        static_cast<long long>(P) * m, s % 8, kinds[s], dists[s], m);
-    cudaError_t err = cudaGetLastError();
+    if (ps[q].n == 0) {
+      const int s = pstart[q];
+      routed_stage_kernel<T, NP><<<grid, threads, 0, stream>>>(
+          s0, s1, sstride, d0, d1, masks + static_cast<long long>(s / 8) * m,
+          mstride, s % 8, kinds[s], dists[s], m);
+      err = cudaGetLastError();
+    } else {
+      err = lilac_tiles::launch_tile_pass<T, NP, lilac_tiles::MODE_FWD>(
+          ps[q], s0, s1, sstride, d0, d1, masks, mstride, m, B, stream);
+    }
     if (err != cudaSuccess) return err;
     s0 = d0;
     s1 = d1;
@@ -125,13 +155,17 @@ cudaError_t run_network(const T* x0, const T* x1, T* out0, T* out1, T* tmp0,
 // x0/x1: input planes of m words (x1 unused when nplanes == 1).
 // out0/out1, tmp0/tmp1: [B, m] words each; the result is in out.
 // masks: [B, P, m] bytes. kinds/dists: host arrays of S entries.
-// esize: 4 or 8 bytes per word. Returns the cudaError_t of the launches.
+// esize: 4 or 8 bytes per word. tile: T; pkind/pstart: the npass passes of
+// kernels/routed.py:routed_passes (kind 0 low, 1 high, 2 stage; first
+// stage). Returns the cudaError_t of the launches (cudaErrorInvalidValue,
+// nothing launched, for a pass list that does not fit).
 extern "C" int lilac_routed_apply(const void* x0, const void* x1, int nplanes,
                                   int esize, void* out0, void* out1,
                                   void* tmp0, void* tmp1, const void* masks,
                                   int B, int P, long long m, int S,
                                   const int* kinds, const long long* dists,
-                                  void* stream) {
+                                  int tile, int npass, const int* pkind,
+                                  const int* pstart, void* stream) {
   if (m < 1024 || (m & (m - 1)) != 0 || B < 1 || B > 65535 || S < 0 ||
       (S > 0 && P != (S + 7) / 8)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -149,19 +183,19 @@ extern "C" int lilac_routed_apply(const void* x0, const void* x1, int nplanes,
     err = run_network<uint32_t, 1>(
         static_cast<const uint32_t*>(x0), nullptr,
         static_cast<uint32_t*>(out0), nullptr, static_cast<uint32_t*>(tmp0),
-        nullptr, mk, B, P, m, S, kinds, dists, st);
+        nullptr, mk, B, P, m, S, kinds, dists, tile, npass, pkind, pstart, st);
   } else if (esize == 4 && nplanes == 2) {
     err = run_network<uint32_t, 2>(
         static_cast<const uint32_t*>(x0), static_cast<const uint32_t*>(x1),
         static_cast<uint32_t*>(out0), static_cast<uint32_t*>(out1),
         static_cast<uint32_t*>(tmp0), static_cast<uint32_t*>(tmp1), mk, B, P,
-        m, S, kinds, dists, st);
+        m, S, kinds, dists, tile, npass, pkind, pstart, st);
   } else if (esize == 8 && nplanes == 1) {
     err = run_network<unsigned long long, 1>(
         static_cast<const unsigned long long*>(x0), nullptr,
         static_cast<unsigned long long*>(out0), nullptr,
         static_cast<unsigned long long*>(tmp0), nullptr, mk, B, P, m, S, kinds,
-        dists, st);
+        dists, tile, npass, pkind, pstart, st);
   } else if (esize == 8 && nplanes == 2) {
     err = run_network<unsigned long long, 2>(
         static_cast<const unsigned long long*>(x0),
@@ -170,7 +204,7 @@ extern "C" int lilac_routed_apply(const void* x0, const void* x1, int nplanes,
         static_cast<unsigned long long*>(out1),
         static_cast<unsigned long long*>(tmp0),
         static_cast<unsigned long long*>(tmp1), mk, B, P, m, S, kinds, dists,
-        st);
+        tile, npass, pkind, pstart, st);
   }
   return static_cast<int>(err);
 }

@@ -5,8 +5,8 @@ compiled by nvcc for sm_90a and loaded with ctypes (no PyTorch headers,
 so a build takes seconds). All sources are compiled in parallel, one nvcc
 process each, at the first call of ``load``; nothing is built when a
 module is imported. Libraries go to <repo>/build/lilac_tpu_torch/
-(git-ignored) under a name that carries a hash of the source and the
-flags, so a stale library is never picked up.
+(git-ignored) under a name that carries a hash of the source, the headers
+of csrc/ and the flags, so a stale library is never picked up.
 
 A failed build or a missing nvcc raises: no caller catches it to fall
 back to a plain version.
@@ -64,8 +64,11 @@ def _nvcc() -> str:
 
 def _target(name: str) -> str:
     h = hashlib.sha256()
-    with open(source_path(name), "rb") as f:
-        h.update(f.read())
+    # the source and every header of csrc/ it may include
+    headers = sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+    for path in [source_path(name)] + [os.path.join(_CSRC, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(_BUILD, f"lib{name}_{h.hexdigest()[:12]}.so")
 

@@ -47,10 +47,14 @@ def check_table_feasible(m: int, nets: int = 1, *, what: str = "") -> None:
     """Raise at plan-build time when the single-table kernel cannot take a
     network of m slots.
 
-    The kernel keeps the table in device memory and ping-pongs between two
-    buffers, one launch per stage, so no on-chip memory budget bounds m:
-    the limits are the slot layout (a power of two, a multiple of 1024,
-    which the [R, 128] mask planes need), the grid's second dimension
+    The kernels (K1, K11) run a network as a few passes over tiles of T
+    slots held in shared memory (routed_passes). What bounds the tile is
+    the card's opt-in shared memory: T is chosen from it for the word width
+    and plane count (routed_tile), so it never makes a plan infeasible.
+    Nothing on chip bounds m: the table itself lives in device memory, and
+    a table of more than T^2/4 slots runs its stages with d >= T one grid
+    each. The limits are the slot layout (a power of two, a multiple of
+    1024, which the [R, 128] mask planes need), the grid's second dimension
     (nets <= 65535) and device memory itself. Indices are 64-bit."""
     if m < 1024 or m & (m - 1) or m % 1024:
         raise ValueError(
@@ -62,6 +66,125 @@ def check_table_feasible(m: int, nets: int = 1, *, what: str = "") -> None:
             f"routed plan {what or 'config'}: {nets} nets in one call "
             f"(limit {_MAX_NETS})"
         )
+
+
+# ---- pass schedule of the single-table kernels (K1, K11) ------------------
+#
+# A pass is one grid of csrc/tile_pass.cuh: (kind, first stage, end stage).
+#   low   stages with d < T on a contiguous tile: xor stages only, or shift /
+#         shiftl stages only whose halos (sum(d) of each direction, rounded
+#         up to 4 slots) add up to at most T
+#   high  stages with d a multiple of T, where T < m <= T^2/4: a tile holds
+#         every high address bit for 4 or more consecutive low slots, so
+#         xor and cyclic shifts stay inside it
+#   stage one stage with d >= T where m > T^2/4: a grid over the whole table
+# A pass with a halo holds at most 16 stages (3 mask planes a slot), any
+# other tile pass 32 (5 planes).
+
+PASS_KINDS = ("low", "high", "stage")
+_PASS_CODE = {k: i for i, k in enumerate(PASS_KINDS)}
+MAX_PASS_STAGES = 32
+MAX_HALO_STAGES = 16
+MIN_TILE = 128
+
+
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def routed_tile_smem(tile: int, nplanes: int, esize: int) -> int:
+    """Shared memory of the worst tile pass at tile T: a window of 2T slots
+    (T plus halos of up to T) with NP words and 3 mask bytes a slot. A pass
+    without a halo holds T slots and up to 5 mask bytes, always less."""
+    return 2 * tile * (nplanes * esize + 3)
+
+
+def routed_tile(nplanes: int, esize: int, limit: int | None = None) -> int:
+    """Tile of the single-table kernels: the largest power of two whose
+    worst pass fits `limit` bytes of shared memory (default: an H100's
+    opt-in limit). 2^13 for a df64 pair, 2^14 for one f32 plane, 2^12 for
+    an f64 pair on an H100."""
+    limit = HOPPER_SMEM_OPTIN if limit is None else limit
+    tile = MIN_TILE
+    while routed_tile_smem(2 * tile, nplanes, esize) <= limit:
+        tile *= 2
+    return tile
+
+
+def check_tile(tile: int, nplanes: int, esize: int, limit: int | None = None) -> None:
+    """Raise for a tile the kernels cannot take: not a power of two >= 128,
+    or its worst pass does not fit `limit` bytes of shared memory."""
+    limit = HOPPER_SMEM_OPTIN if limit is None else limit
+    if tile < MIN_TILE or tile & (tile - 1):
+        raise ValueError(f"tile T={tile} must be a power of two >= {MIN_TILE}")
+    if routed_tile_smem(tile, nplanes, esize) > limit:
+        raise ValueError(
+            f"tile T={tile} does not fit: {routed_tile_smem(tile, nplanes, esize)} "
+            f"bytes of shared memory for {nplanes} plane(s) of {esize}-byte words "
+            f"(limit {limit})")
+
+
+@functools.lru_cache(maxsize=256)
+def routed_passes(kinds: Tuple[str, ...], dists: Tuple[int, ...], m: int,
+                  tile: int) -> Tuple[Tuple[str, int, int], ...]:
+    """Cut a stage schedule into passes of csrc/tile_pass.cuh: a tuple of
+    (kind, first stage, end stage), kind one of PASS_KINDS, the stages in
+    order. Reads only kinds, dists, m and T (never the masks), so one cached
+    schedule serves every call of a plan, forwards and (run last pass first)
+    in reverse."""
+    t = min(tile, m)
+    high_ok = t < m <= t * t // 4
+    passes = []
+    cur = None  # [kind, start, end, xor stages, left halo, right halo]
+    for s, (k, d) in enumerate(zip(kinds, dists)):
+        kind = "low" if d < t else "high" if high_ok else "stage"
+        left = cur[4] + (d if k == "shift" else 0) if cur else 0
+        right = cur[5] + (d if k == "shiftl" else 0) if cur else 0
+        fits = cur is not None and cur[0] == kind and kind != "stage"
+        if fits and kind == "high":
+            fits = s - cur[1] < MAX_PASS_STAGES
+        elif fits and k == "xor":
+            fits = cur[3] == s - cur[1] and s - cur[1] < MAX_PASS_STAGES
+        elif fits:
+            fits = (cur[3] == 0 and s - cur[1] < MAX_HALO_STAGES
+                    and _round4(left) + _round4(right) <= t)
+        if fits:
+            cur[2], cur[4], cur[5] = s + 1, left, right
+            cur[3] += k == "xor"
+            continue
+        if cur:
+            passes.append(tuple(cur[:3]))
+        cur = [kind, s, s + 1, int(k == "xor"), d if k == "shift" else 0,
+               d if k == "shiftl" else 0]
+    if cur:
+        passes.append(tuple(cur[:3]))
+    return tuple(passes)
+
+
+@functools.lru_cache(maxsize=256)
+def _network_args(kinds, dists, m: int, tile: int):
+    """The C arrays of one call: stage kinds and distances, pass kinds and
+    first stages, and the pass count. Cached with the schedule."""
+    S = len(kinds)
+    passes = routed_passes(kinds, dists, m, tile)
+    n = max(len(passes), 1)
+    return (
+        (ctypes.c_int * max(S, 1))(*[_KIND_CODE[k] for k in kinds]),
+        (ctypes.c_longlong * max(S, 1))(*[int(d) for d in dists]),
+        len(passes),
+        (ctypes.c_int * n)(*[_PASS_CODE[p[0]] for p in passes]),
+        (ctypes.c_int * n)(*[p[1] for p in passes]),
+    )
+
+
+def _call_tile(tile, nplanes: int, esize: int, device) -> int:
+    """The tile of one call: the caller's (a test forcing a small one),
+    checked, or the largest that fits the device."""
+    limit = smem_optin_bytes(device)
+    if tile is None:
+        return routed_tile(nplanes, esize, limit)
+    check_tile(tile, nplanes, esize, limit)
+    return tile
 
 
 def masks_device(net, device="cuda") -> torch.Tensor:
@@ -145,15 +268,6 @@ def routed_apply_plain(
     return tuple(y.reshape(B, R, 128).contiguous() for y in ys)
 
 
-def _stage_args(kinds, dists):
-    """kinds / dists as the C arrays the launcher reads on the host."""
-    S = len(kinds)
-    return (
-        (ctypes.c_int * max(S, 1))(*[_KIND_CODE[k] for k in kinds]),
-        (ctypes.c_longlong * max(S, 1))(*[int(d) for d in dists]),
-    )
-
-
 def _lib():
     lib = _cuda.load("routed")
     fn = lib.lilac_routed_apply
@@ -163,7 +277,8 @@ def _lib():
             vp, vp, ctypes.c_int, ctypes.c_int, vp, vp, vp, vp, vp,
             ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
             ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong),
-            vp,
+            ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_int), vp,
         ]
         fn.restype = ctypes.c_int
         fn._typed = True
@@ -175,6 +290,8 @@ def routed_apply(
     masks: torch.Tensor,
     kinds: Tuple[str, ...],
     dists: Tuple[int, ...],
+    *,
+    tile: int | None = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Run B gather networks over shared input planes (kernel K1).
 
@@ -182,27 +299,35 @@ def routed_apply(
               float32 or float64, all routed through identical switches.
     masks:    [B, ceil(S/8), R, 128] int8 bit-packed switch masks: bit
               (s % 8) of plane s // 8 is stage s's mask.
+    tile:     slots of one shared-memory tile; None takes the largest that
+              fits the device (routed_tile). A tile that is not a power of
+              two >= 128 or does not fit raises, on any device.
     returns:  tuple of [B, R, 128] routed planes.
 
-    CUDA tensors go through the kernel of csrc/routed.cu (one launch per
-    stage on the current stream, ping-pong buffers from torch.empty); the
-    launch error code is checked and raised. Only CPU tensors take the
-    plain version."""
+    CUDA tensors go through the kernel of csrc/routed.cu: the passes of
+    routed_passes, one grid each on the current stream, ping-pong buffers
+    from torch.empty; the launch error code is checked and raised. Only CPU
+    tensors take the plain version."""
     if not masks.is_cuda:
+        if tile is not None:
+            _check_args(x_planes, masks, kinds, dists)
+            check_tile(tile, len(x_planes), x_planes[0].element_size())
         return routed_apply_plain(x_planes, masks, kinds, dists)
     B, P, R, m, S, dtype = _check_args(x_planes, masks, kinds, dists)
     check_table_feasible(m, B, what="routed_apply")
-    if not masks.is_contiguous():
-        raise ValueError("masks must be contiguous")
+    if not masks.is_contiguous() or masks.data_ptr() % 4:
+        raise ValueError("masks must be contiguous and 4-byte aligned")
     xs = []
     for x in x_planes:
         if not x.is_contiguous() or x.data_ptr() % 32:
             raise ValueError("value planes must be contiguous and 32-byte aligned")
         xs.append(x)
     n = len(xs)
+    tile = _call_tile(tile, n, xs[0].element_size(), masks.device)
+    kinds_c, dists_c, npass, pkind_c, pstart_c = _network_args(
+        tuple(kinds), tuple(dists), m, tile)
     outs = [torch.empty((B, R, 128), dtype=dtype, device=masks.device) for _ in xs]
-    tmps = [torch.empty_like(o) for o in outs] if S > 1 else outs
-    kinds_c, dists_c = _stage_args(kinds, dists)
+    tmps = [torch.empty_like(o) for o in outs] if npass > 1 else outs
     fn = _lib()
     with torch.cuda.device(masks.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -211,15 +336,17 @@ def routed_apply(
             xs[0].element_size(),
             outs[0].data_ptr(), outs[1].data_ptr() if n == 2 else None,
             tmps[0].data_ptr(), tmps[1].data_ptr() if n == 2 else None,
-            masks.data_ptr(), B, P, m, S, kinds_c, dists_c, stream,
+            masks.data_ptr(), B, P, m, S, kinds_c, dists_c, tile, npass,
+            pkind_c, pstart_c, stream,
         )
     _cuda.check(err, "routed_apply")
     routed_apply.launches += 1
-    routed_apply.stage_launches += max(S, 1)
+    routed_apply.stage_launches += max(npass, 1)
     return tuple(outs)
 
 
-# wrapper calls that launched the kernel / CUDA grids those calls launched
+# wrapper calls that launched the kernel / CUDA grids (passes) those calls
+# launched
 routed_apply.launches = 0
 routed_apply.stage_launches = 0
 
@@ -289,7 +416,8 @@ def _adj_lib():
         lib.lilac_adj_bigshift.argtypes = head + [ci, ll, ci, ub, vp]
         lib.lilac_adj_routed.argtypes = [
             vp, vp, ci, ci, ci, vp, vp, vp, vp, vp, ci, ci, ll, ci,
-            ctypes.POINTER(ci), ctypes.POINTER(ll), vp]
+            ctypes.POINTER(ci), ctypes.POINTER(ll), ci, ci, ctypes.POINTER(ci),
+            ctypes.POINTER(ci), vp]
         for fn in (lib.lilac_adj_window, lib.lilac_adj_bigshift,
                    lib.lilac_adj_routed):
             fn.restype = ci
@@ -304,6 +432,7 @@ def routed_apply_t(
     dists: Tuple[int, ...],
     *,
     dfpair: bool = False,
+    tile: int | None = None,
 ) -> Tuple[torch.Tensor, ...]:
     """Adjoint of routed_apply (kernel K11): y = Gᵀ u for the same switch
     masks, so the transpose costs no plan bytes.
@@ -311,26 +440,33 @@ def routed_apply_t(
     x_planes: one or two per-net [B, R, 128] planes (the forward's output
               space); dfpair: they are one (hi, lo) df64 pair and the merges
               are compensated.
+    tile:     as for routed_apply.
     returns:  tuple of [B, R, 128] planes in the forward's input space.
 
-    CUDA tensors go through the kernel of csrc/adjoint.cu (one launch per
-    stage, last stage first, ping-pong buffers from torch.empty; the input
-    is only read); the launch error code is checked and raised. Only CPU
-    tensors take the plain version."""
+    CUDA tensors go through the kernel of csrc/adjoint.cu: routed_apply's
+    passes run last to first, each pass's stages backwards, one grid each,
+    ping-pong buffers from torch.empty (the input is only read); the launch
+    error code is checked and raised. Only CPU tensors take the plain
+    version."""
     if not masks.is_cuda:
+        if tile is not None:
+            _check_args(x_planes, masks, kinds, dists, per_net=True)
+            check_tile(tile, len(x_planes), x_planes[0].element_size())
         return routed_apply_t_plain(x_planes, masks, kinds, dists, dfpair=dfpair)
     B, P, R, m, S, dtype = _check_args(x_planes, masks, kinds, dists, per_net=True)
     check_table_feasible(m, B, what="routed_apply_t")
-    if not masks.is_contiguous():
-        raise ValueError("masks must be contiguous")
+    if not masks.is_contiguous() or masks.data_ptr() % 4:
+        raise ValueError("masks must be contiguous and 4-byte aligned")
     for x in x_planes:
         if not x.is_contiguous() or x.data_ptr() % 32:
             raise ValueError("value planes must be contiguous and 32-byte aligned")
     xs = list(x_planes)
     n = len(xs)
+    tile = _call_tile(tile, n, xs[0].element_size(), masks.device)
+    kinds_c, dists_c, npass, pkind_c, pstart_c = _network_args(
+        tuple(kinds), tuple(dists), m, tile)
     outs = [torch.empty((B, R, 128), dtype=dtype, device=masks.device) for _ in xs]
-    tmps = [torch.empty_like(o) for o in outs] if S > 1 else outs
-    kinds_c, dists_c = _stage_args(kinds, dists)
+    tmps = [torch.empty_like(o) for o in outs] if npass > 1 else outs
     fn = _adj_lib().lilac_adj_routed
     with torch.cuda.device(masks.device):
         err = fn(
@@ -338,12 +474,12 @@ def routed_apply_t(
             xs[0].element_size(), int(bool(dfpair)),
             outs[0].data_ptr(), outs[1].data_ptr() if n == 2 else None,
             tmps[0].data_ptr(), tmps[1].data_ptr() if n == 2 else None,
-            masks.data_ptr(), B, P, m, S, kinds_c, dists_c,
-            torch.cuda.current_stream().cuda_stream,
+            masks.data_ptr(), B, P, m, S, kinds_c, dists_c, tile, npass,
+            pkind_c, pstart_c, torch.cuda.current_stream().cuda_stream,
         )
     _cuda.check(err, "routed_apply_t")
     routed_apply_t.launches += 1
-    routed_apply_t.stage_launches += max(S, 1)
+    routed_apply_t.stage_launches += max(npass, 1)
     return tuple(outs)
 
 
