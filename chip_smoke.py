@@ -16,9 +16,11 @@ proves on the card that
   appliers with the numpy applier of the networks) at the shapes the main
   path gives it and at a small size; the routing kernels bit for bit, the
   single-table ones (K1, K11) also with forced small tiles at m = 2^16 so
-  that every pass kind of their schedule runs, and the exchange passes
-  equal the gather on the index they compose (timed as their library
-  yardstick),
+  that every pass kind of their schedule runs, the inner pass (K3, K3u,
+  K7) also on forced stage schedules at m = 2^16 (1 to 7 register runs a
+  pass, every word format, NaN payloads and signed zeros), and the
+  exchange passes equal the gather on the index they compose (timed as
+  their library yardstick),
 * a general sparse matrix (unsorted rows, a column dense enough to need
   block-aligned shifts) multiplies right through the hierarchical plans,
   packed (kernels K3-K6) and net by net (their un-batched forms K3u-K6u),
@@ -54,10 +56,11 @@ and is held instead to the native-f64 gather operator's zeta history on the
 card, to 1e-10 relative. Arguments name phases to run alone, for finding a
 fault ("hier" = the small hierarchical checks and the general matrix, "k11"
 = the single-table adjoint at a small size, "tiles" = K1 and K11 with
-forced small tiles at m = 2^16, "c" = K1, K2, K11 on the class C plan,
-"d" = the class D plan, its
-kernels and its runs, "gemm" = K12 and sgemm, "parboil" = Parboil spmv);
-such a run exits 2 without the last line.
+forced small tiles at m = 2^16, "inner" = K3, K3u and K7 on forced stage
+schedules at m = 2^16 and timed at the main paths' shapes, "c" = K1, K2,
+K11 on the class C plan, "d" = the class D plan, its kernels and its runs,
+"gemm" = K12 and sgemm, "parboil" = Parboil spmv); such a run exits 2
+without the last line.
 """
 
 from __future__ import annotations
@@ -649,6 +652,13 @@ ADJ_FORMATS = ((np.float32, 1, False), (np.float32, 2, False), (np.float32, 2, T
                (np.float64, 1, False))
 
 
+def _inner_row(rd, row, planes, meta, bl: int, N: int, m: int) -> None:
+    """An inner-pass row gets its launch configuration, as the card reports
+    it for the kernel's instantiation."""
+    row["launch"] = rd.inner_launch_config(
+        len(planes), planes[0].element_size(), bl, meta[2], N=N, nblocks=m // bl)
+
+
 def _call_pass(fn, meta, planes, mk, bl, layout):
     """One pass through `fn` (a wrapper or a plain version): (planes,
     layout the next pass reads through; None = natural order)."""
@@ -735,6 +745,8 @@ def _walk_schedule(rd, planes, metas, masks, bl, batched: bool, what: str,
                           "read_layout": layout},
                 "bytes": nbytes, "timed_on": what,
             }
+            if kind == "inner":
+                _inner_row(rd, timed[name], planes, meta, bl, N, m)
         planes, layout = got, new_layout
     return planes, layout
 
@@ -863,6 +875,8 @@ def _walk_schedule_t(rd, planes, metas, masks, bl, dfpair: bool, what: str,
                           "read_layout": layout},
                 "bytes": nbytes, "timed_on": what,
             }
+            if kind == "inner":
+                _inner_row(rd, timed[name], planes, meta, bl, N, m)
         planes, layout = got, new_layout
     return planes, layout
 
@@ -1029,6 +1043,200 @@ def phase_hier_small() -> dict:
             "formats": ["float32 x1", "float32 x2", "float64 x1"],
             "adjoint_formats": ["float32 x1", "float32 x2", "float32 x2 df",
                                 "float64 x1"]}
+    emit(line)
+    return line
+
+
+def _inner_order(kind: str, L: int, rng) -> tuple:
+    """Stage distances of an inner pass: the Benes inner pass (3 runs), one
+    bit (1 run), every bit in turn (a run every rb + 5 stages where the block
+    has warp bits) or a random order of 1 to 64 stages."""
+    if kind == "benes":
+        return tuple([1 << k for k in range(L - 1, -1, -1)] + [1 << k for k in range(1, L)])
+    if kind == "one_bit":
+        return (1 << (L - 1),) * 9
+    if kind == "zigzag":
+        return tuple(1 << (3 * j % L) for j in range(min(64, 4 * L)))
+    return tuple(int(1 << b) for b in rng.integers(0, L, size=int(rng.integers(1, 65))))
+
+
+def _inner_planes(rng, dtype, nplanes: int, shape) -> tuple:
+    """Random planes with signed zeros and NaNs of many payloads."""
+    n = int(np.prod(shape))
+    out = []
+    for _ in range(nplanes):
+        v = rng.standard_normal(n).astype(dtype)
+        v[rng.random(n) < 0.02] = -0.0
+        ints = v.view(np.int32 if dtype == np.float32 else np.int64)
+        nan = rng.random(n) < 0.01
+        base = 0x7FC00000 if dtype == np.float32 else 0x7FF8000000000000
+        ints[nan] = base + rng.integers(1, 1 << 20, size=int(nan.sum()))
+        out.append(torch.as_tensor(v.reshape(shape), device=DEVICE))
+    return tuple(out)
+
+
+INNER_FORMATS = (("float32 x1", np.float32, 1), ("float32 x2", np.float32, 2),
+                 ("float64 x1", np.float64, 1), ("float64 x2", np.float64, 2))
+
+
+def _inner_checks(rd) -> tuple:
+    """K3, K3u and K7 at m = 2^16 on forced schedules, bit for bit (int
+    view) against the plain versions: bl from 256 to the default, Benes,
+    one-bit, zigzag and random stage orders (1, 3 and many runs), random
+    masks, N = 1 and 16, shared and per-net input, identity and scrambled
+    layouts, every word format, forwards and reversed; a few at forced
+    register bits. Returns (checks, run counts seen)."""
+    rng = np.random.default_rng(31)
+    m = 1 << 16
+    bl_max = rd.default_hier_bl(rd.smem_optin_bytes(DEVICE))
+    checks, runs_seen = 0, set()
+    bl = 256
+    while bl <= bl_max:
+        L, nb = bl.bit_length() - 1, m // bl
+        for oi, order in enumerate(("benes", "one_bit", "zigzag", "random", "random")):
+            dists = _inner_order(order, L, rng)
+            kinds = ("xor",) * len(dists)
+            P = (len(dists) + 7) // 8
+            runs_seen.add(len(rd.inner_runs(dists, bl)))
+            for fi, (fmt, dtype, nplanes) in enumerate(INNER_FORMATS):
+                for reverse in (False, True):
+                    j = oi + fi + int(reverse)
+                    N = (1, 16)[j % 2]
+                    per_net = reverse or (j // 2) % 2 == 1
+                    lay = (tuple(int(v) for v in rng.permutation(nb.bit_length() - 1))
+                           if j % 3 else None)
+                    one_net = N == 1 and not per_net  # the un-batched K3u
+                    mk = torch.as_tensor(rng.integers(
+                        0, 256, size=(() if one_net else (N,)) + (nb, P, bl // 128, 128),
+                        dtype=np.uint8).view(np.int8), device=DEVICE)
+                    xs = _inner_planes(rng, dtype, nplanes,
+                                       ((N,) if per_net else ()) + (m // 128, 128))
+                    if reverse:
+                        got = rd.routed_apply_sliced_bt(xs, mk, kinds, dists, layout=lay)
+                        want = rd.routed_apply_sliced_bt_plain(xs, mk, kinds, dists,
+                                                               layout=lay)
+                    else:
+                        fn = rd.routed_apply_sliced if one_net else rd.routed_apply_sliced_b
+                        got = fn(xs, mk, kinds, dists, layout=lay)
+                        want = rd.routed_apply_sliced_plain(xs, mk, kinds, dists, layout=lay)
+                    torch.cuda.synchronize()
+                    if not all(_bits_equal(g, w) for g, w in zip(got, want)):
+                        raise AssertionError(
+                            f"inner: bl={bl} {order} {fmt} N={N} per_net={per_net} "
+                            f"layout={lay} reverse={reverse}: kernel != plain")
+                    checks += 1
+                    if bl == 1024 and fi == 1 and order != "one_bit":
+                        for rb in (2, 3):  # more threads, fewer registers each
+                            got = rd._inner(xs, mk, kinds, dists, lay, not one_net,
+                                            reverse, reg_bits=rb)
+                            torch.cuda.synchronize()
+                            if not all(_bits_equal(g, w) for g, w in zip(got, want)):
+                                raise AssertionError(
+                                    f"inner: rb={rb} bl={bl} {order}: kernel != plain")
+                            checks += 1
+        bl *= 2
+    return checks, sorted(runs_seen)
+
+
+def _inner_case(rd, N: int, m: int, bl: int, per_net: bool, reverse: bool, rng):
+    """One inner pass at a main path's shapes: random masks, the Benes pass
+    (25 stages at bl = 2^13), a df64 pair, a scrambled layout. Returns the
+    case as a dict, with `run` (the wrapper) and `plain` on its planes."""
+    L, nb = bl.bit_length() - 1, m // bl
+    dists = _inner_order("benes", L, rng)
+    kinds = ("xor",) * len(dists)
+    P = (len(dists) + 7) // 8
+    lay = tuple(int(v) for v in rng.permutation(nb.bit_length() - 1))
+    mk = torch.as_tensor(rng.integers(0, 256, size=(N, nb, P, bl // 128, 128),
+                                      dtype=np.uint8).view(np.int8), device=DEVICE)
+    xh = torch.as_tensor(rng.standard_normal(((N,) if per_net else ()) + (m // 128, 128))
+                         .astype(np.float32), device=DEVICE)
+    planes = (xh, (xh * 2.0 ** -25).contiguous())
+    net_axis = N > 1 or reverse
+    mkc = mk if net_axis else mk[0]
+    if reverse:
+        fn, plain = rd.routed_apply_sliced_bt, rd.routed_apply_sliced_bt_plain
+    else:
+        fn = rd.routed_apply_sliced_b if net_axis else rd.routed_apply_sliced
+        plain = rd.routed_apply_sliced_plain
+    return {"planes": planes, "mk": mk, "dists": dists, "lay": lay, "nb": nb,
+            "run": lambda ps: fn(ps, mkc, kinds, dists, layout=lay),
+            "plain": lambda ps: plain(ps, mkc, kinds, dists, layout=lay)}
+
+
+def _inner_timing(rd, name: str, N: int, m: int, bl: int, per_net: bool, reverse: bool,
+                  rng) -> dict:
+    """One inner kernel on _inner_case: ms, the plain version, x[idx] on
+    the composed index, and the launch configuration."""
+    c = _inner_case(rd, N, m, bl, per_net, reverse, rng)
+    planes, run = c["planes"], c["run"]
+    got = run(planes)
+    if not all(_bits_equal(g, w) for g, w in zip(got, c["plain"](planes))):
+        raise AssertionError(f"inner timing: {name} != plain")
+    nbytes = (sum(p.numel() for p in planes) * 4 + c["mk"].numel() + N * m * 4 * 2)
+    return {"name": name, "N": N, "m": m, "bl": bl, "stages": len(c["dists"]),
+            "input": "per net" if per_net else "shared",
+            "ms": time_ms(lambda: run(planes), 20),
+            "plain_ms": time_ms(lambda: c["plain"](planes), 2),
+            "library_ms": _composed_gather_ms(run, planes, got, f"inner timing {name}", 20),
+            "bound_ms": nbytes / PEAK_BYTES_S * 1e3, "bytes": nbytes,
+            "launch": rd.inner_launch_config(2, 4, bl, c["dists"], N=N, nblocks=c["nb"])}
+
+
+def phase_inner_diag() -> dict:
+    """Where K3's time goes at class D's shapes (opt-in, `inner_diag`; not
+    part of the whole run): the kept schedule (16 slots a thread), 8 slots
+    a thread, the same launch with no stage (the block in and out through
+    shared memory) and with 25 stages on one register bit (no shuffle; 2
+    runs of at most 16 stages)."""
+    from lilac_tpu_torch.kernels import routed as rd
+
+    bl = rd.default_hier_bl(rd.smem_optin_bytes(DEVICE))
+    c = _inner_case(rd, 16, 1 << 21, bl, True, False, np.random.default_rng(37))
+    planes, mk, lay = c["planes"], c["mk"], c["lay"]
+    want = c["plain"](planes)
+
+    def inner(dists, mks, rb=None):
+        return rd._inner(planes, mks, ("xor",) * len(dists), dists, lay, True,
+                         reg_bits=rb)
+
+    ms = {}
+    for rb in (4, 3):
+        if not all(_bits_equal(g, w) for g, w in zip(inner(c["dists"], mk, rb), want)):
+            raise AssertionError(f"inner_diag: rb={rb} != plain")
+        ms[f"benes_{1 << rb}_slots_a_thread"] = time_ms(
+            lambda: inner(c["dists"], mk, rb), 20)
+    for what, ds in (("no_stage", ()), ("one_register_bit_x25", (1,) * 25)):
+        mk_b = mk[:, :, :(len(ds) + 7) // 8].contiguous()
+        ms[what] = time_ms(lambda: inner(ds, mk_b), 20)
+    line = {"phase": "inner_diag", "kernel": "routed_apply_sliced_b", "N": 16,
+            "m": 1 << 21, "bl": bl, "ms": ms}
+    emit(line)
+    return line
+
+
+def phase_inner() -> dict:
+    """The inner pass (K3, K3u, K7; csrc/inner_pass.cuh) on its own: the
+    bit-for-bit checks of _inner_checks, then the three kernels timed at
+    the main paths' shapes (class D: N = 16, m = 2^21; the general matrix's
+    K3u: N = 1, m = 2^19) beside x[idx]. The earlier design's times stay in
+    PERF.md's kernel table, which names the runs that measured them."""
+    from lilac_tpu_torch.kernels import routed as rd
+
+    t0 = time.time()
+    checks, runs_seen = _inner_checks(rd)
+    check_s = time.time() - t0
+    rng = np.random.default_rng(37)
+    bl = rd.default_hier_bl(rd.smem_optin_bytes(DEVICE))
+    timing = [
+        _inner_timing(rd, "routed_apply_sliced_b", 16, 1 << 21, bl, True, False, rng),
+        _inner_timing(rd, "routed_apply_sliced_bt", 16, 1 << 21, bl, True, True, rng),
+        _inner_timing(rd, "routed_apply_sliced", 1, 1 << 19, bl, False, False, rng),
+    ]
+    torch.cuda.empty_cache()
+    line = {"phase": "inner", "checks": checks, "runs_per_pass_seen": runs_seen,
+            "check_s": round(check_s, 1), "formats": [f[0] for f in INNER_FORMATS],
+            "timing": timing}
     emit(line)
     return line
 
@@ -1568,7 +1776,8 @@ def _npb_line(res, **extra) -> dict:
 
 
 def phase_npb_small() -> list:
-    """Class S through both operators in all three value policies."""
+    """Class S through both operators in all three value policies, then
+    through two registry kernels on the assembled matrix."""
     import os
 
     from lilac_tpu_torch.workloads import npb_cg
@@ -1595,6 +1804,14 @@ def phase_npb_small() -> list:
         a, b = zetas[("routed", dtype)], zetas[("single", dtype)]
         if abs(a - b) > 1e-11 * abs(b):
             raise AssertionError(f"class S {dtype}: routed {a} vs gather {b}")
+    # an assembled matrix through SpmvPlan and a registry kernel, as
+    # `bench run --bench npb --impl <kernel>` runs it
+    for kernel, dtype in (("xla_ell", "f64"), ("xla_sell_df", "df64")):
+        res = npb_cg.run("S", kernel=kernel, dtype=dtype, device=DEVICE)
+        lines.append(_npb_line(res, segmode=None))
+        b = zetas[("routed", dtype)]
+        if res.kernel != kernel or not res.verified or abs(res.zeta - b) > 1e-10 * abs(b):
+            raise AssertionError(f"class S {kernel} {dtype}: {lines[-1]} vs factored {b}")
     emit({"phase": "npb_small", "runs": lines})
     return lines
 
@@ -1882,7 +2099,7 @@ def build_plan_c():
     return plan_c
 
 
-PARTS = {"hier", "k11", "tiles", "c", "d", "gemm", "parboil"}
+PARTS = {"hier", "inner", "inner_diag", "k11", "tiles", "c", "d", "gemm", "parboil"}
 
 
 def main(argv) -> int:
@@ -1901,6 +2118,10 @@ def main(argv) -> int:
         phase_k11_small()
     if "tiles" in only:
         phase_tiles()
+    if "inner" in only:
+        phase_inner()
+    if "inner_diag" in only:
+        phase_inner_diag()
     if "c" in only:
         kernels.update(phase_kernels(build_plan_c()))
     if "hier" in only:
@@ -1933,6 +2154,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
 
     phase_hier_small()
+    phase_inner()
     phase_hier_general(kernels)
     phase_npb_small()
     phase_gemm(kernels)

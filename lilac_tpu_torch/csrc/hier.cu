@@ -10,8 +10,8 @@
 // The un-batched functions are the same kernels at N = 1 net. An xor stage
 // is an exchange, its own inverse and its own adjoint, so K7 and K8 are the
 // kernels of K3 and K4 instantiated with the stage loop running backwards
-// (REV): last stage first, mask planes staged from the last one down. The
-// adjoint passes that add (window, bigshift) are in adjoint.cu.
+// (REV). The inner pass (K3, K3u, K7) is in inner_pass.cuh. The adjoint
+// passes that add (window, bigshift) are in adjoint.cu.
 //
 // A network of m = nblocks * bl slots is applied pass by pass. Every pass
 // reads N nets' planes (or one shared input plane for all N nets, net
@@ -29,10 +29,9 @@
 //
 // Bound: bytes, for all four. A pass reads each slot's word(s) and its mask
 // byte(s) once and writes each word once. What the design does about it:
-//   K3 keeps one block of bl slots resident in shared memory and runs every
-//      stage of the pass there (25 stages at bl = 2^13 cost one read and
-//      one write of device memory, not 25), one thread per exchange pair,
-//      one barrier per stage, one mask plane of 8 stages resident at a time.
+//   K3 keeps one block of bl slots in a thread block: its stages run in
+//      registers and warp shuffles, a few runs of them with one pass through
+//      shared memory between runs (inner_pass.cuh).
 //   K4 holds nothing on chip: a thread reads its offset's word from each of
 //      the 2^g member blocks, exchanges them in registers, writes them
 //      group-major.
@@ -41,107 +40,24 @@
 //      from output slot i through the mask bits gives the slot the value
 //      came from. Only the 2*bl mask bytes are staged in shared memory.
 //   K6 is one select between two blocks.
-// Shared memory therefore bounds bl through K3 alone:
-// nplanes * bl * wordsize + bl bytes (see kernels/routed.py).
+// Shared memory bounds bl through K9 (adjoint.cu), not through these; the
+// inner pass takes at most 2^14 slots, 1024 threads of 16 (see
+// kernels/routed.py:pass_smem_bytes and check_smem_feasible).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "inner_pass.cuh"
+
 namespace {
 
-struct Layout {
-  int nbits;
-  unsigned char src[32];  // physical bit k <- logical bit src[k]
-};
-
-__device__ __forceinline__ long long phys_block(long long b, const Layout& l) {
-  long long out = 0;
-  for (int k = 0; k < l.nbits; ++k) {
-    out |= ((b >> l.src[k]) & 1ll) << k;
-  }
-  return out;
-}
+using Layout = inner::BlockLayout;
+using inner::phys_of;
 
 template <typename T>
 struct alignas(sizeof(T) * 4) Quad {
   T v[4];
 };
-
-// ---------------------------------------------------------------- K3 inner
-
-struct Stages {
-  int n;
-  unsigned char lg[64];  // log2 of each xor distance
-};
-
-// grid (nblocks, N). masks [N, nblocks, P, bl] bytes: bit s%8 of plane s/8
-// is stage s's switch. Shared memory: NP * bl words, then bl mask bytes.
-template <typename T, int NP, bool REV>
-__global__ void hier_inner_kernel(const T* __restrict__ s0,
-                                  const T* __restrict__ s1, long long sstride,
-                                  T* __restrict__ d0, T* __restrict__ d1,
-                                  long long m, int bl,
-                                  const uint8_t* __restrict__ masks, int P,
-                                  Stages st, Layout lay) {
-  extern __shared__ __align__(32) unsigned char smem_raw[];
-  T* y = reinterpret_cast<T*>(smem_raw);
-  uint8_t* mk = smem_raw + static_cast<size_t>(NP) * bl * sizeof(T);
-
-  const long long b = blockIdx.x;
-  const long long n = blockIdx.y;
-  const long long nblocks = gridDim.x;
-  const long long src_off = n * sstride + phys_block(b, lay) * bl;
-  const T* srcs[2] = {s0, s1};
-  T* dsts[2] = {d0, d1};
-
-#pragma unroll
-  for (int p = 0; p < NP; ++p) {
-    for (int i = threadIdx.x * 4; i < bl; i += blockDim.x * 4) {
-      *reinterpret_cast<Quad<T>*>(y + p * bl + i) =
-          *reinterpret_cast<const Quad<T>*>(srcs[p] + src_off + i);
-    }
-  }
-  const uint8_t* mbase = masks + (n * nblocks + b) * P * bl;
-  for (int t = 0; t < st.n; ++t) {
-    const int s = REV ? st.n - 1 - t : t;
-    const int bit = s & 7;
-    if (t == 0 || bit == (REV ? 7 : 0)) {
-      // the barrier that ended the previous stage also ended its mask reads
-      const uint32_t* g =
-          reinterpret_cast<const uint32_t*>(mbase + static_cast<long long>(s >> 3) * bl);
-      uint32_t* w = reinterpret_cast<uint32_t*>(mk);
-      for (int i = threadIdx.x; i < bl / 4; i += blockDim.x) w[i] = g[i];
-      __syncthreads();
-    }
-    const int lg = st.lg[s];
-    const int d = 1 << lg;
-    for (int j = threadIdx.x; j < bl / 2; j += blockDim.x) {
-      const int i = ((j >> lg) << (lg + 1)) | (j & (d - 1));
-      const int q = i | d;
-      const bool mi = (mk[i] >> bit) & 1;
-      const bool mq = (mk[q] >> bit) & 1;
-      if (mi | mq) {
-#pragma unroll
-        for (int p = 0; p < NP; ++p) {
-          const T a = y[p * bl + i];
-          const T c = y[p * bl + q];
-          y[p * bl + i] = mi ? c : a;
-          y[p * bl + q] = mq ? a : c;
-        }
-      }
-    }
-    __syncthreads();
-  }
-  if (st.n == 0) __syncthreads();
-  const long long dst_off = n * m + b * bl;
-#pragma unroll
-  for (int p = 0; p < NP; ++p) {
-    for (int i = threadIdx.x * 4; i < bl; i += blockDim.x * 4) {
-      *reinterpret_cast<Quad<T>*>(dsts[p] + dst_off + i) =
-          *reinterpret_cast<const Quad<T>*>(y + p * bl + i);
-    }
-  }
-}
 
 // ------------------------------------------------------------ K4 butterfly
 
@@ -246,8 +162,8 @@ __global__ void hier_window_kernel(const T* __restrict__ s0,
   __syncthreads();
   // block 0's left neighbour is block nblocks - 1 (its switches are zero,
   // but a switch of block 0 itself may still reach across)
-  const long long left = n * sstride + phys_block((b + nblocks - 1) % nblocks, lay) * bl;
-  const long long self = n * sstride + phys_block(b, lay) * bl;
+  const long long left = n * sstride + phys_of((b + nblocks - 1) % nblocks, lay) * bl;
+  const long long self = n * sstride + phys_of(b, lay) * bl;
   const long long dst = n * m + b * bl;
   const T* srcs[2] = {s0, s1};
   T* dsts[2] = {d0, d1};
@@ -278,8 +194,8 @@ __global__ void hier_bigshift_kernel(const T* __restrict__ s0,
   const long long b = blockIdx.y;
   const long long n = blockIdx.z;
   const long long nblocks = gridDim.y;
-  const long long far = n * sstride + phys_block((b + nblocks - db) % nblocks, lay) * bl + off;
-  const long long self = n * sstride + phys_block(b, lay) * bl + off;
+  const long long far = n * sstride + phys_of((b + nblocks - db) % nblocks, lay) * bl + off;
+  const long long self = n * sstride + phys_of(b, lay) * bl + off;
   const long long dst = n * m + b * bl + off;
   const uint32_t mw =
       *reinterpret_cast<const uint32_t*>(masks + (n * nblocks + b) * bl + off);
@@ -331,33 +247,53 @@ int block_threads(int work) {
   return t;
 }
 
-template <typename T, int NP, bool REV>
-cudaError_t launch_inner_dir(const void* s0, const void* s1, long long sstride,
-                             void* d0, void* d1, long long m, int N, int bl,
-                             const void* masks, int P, const Stages& st,
-                             const Layout& lay, cudaStream_t stream) {
+template <int ES, int NP, int RB, bool REV>
+cudaError_t launch_inner_rb(const void* s0, const void* s1, long long sstride,
+                            void* d0, void* d1, long long m, int N, int bl,
+                            int lbits, const void* masks, int P,
+                            const inner::Sched& sc, const Layout& lay,
+                            cudaStream_t stream) {
   static SmemAllowed allowed;
-  const size_t smem = static_cast<size_t>(NP) * bl * sizeof(T) + bl;
-  cudaError_t err = allow_smem(hier_inner_kernel<T, NP, REV>, smem, &allowed);
+  auto* kern = inner::kernel<ES, NP, RB, REV>;
+  const size_t smem = inner::smem_bytes(NP, ES, bl, P);
+  cudaError_t err = allow_smem(kern, smem, &allowed);
   if (err != cudaSuccess) return err;
   dim3 grid(static_cast<unsigned>(m / bl), static_cast<unsigned>(N));
-  hier_inner_kernel<T, NP, REV><<<grid, block_threads(bl / 2), smem, stream>>>(
-      static_cast<const T*>(s0), static_cast<const T*>(s1), sstride,
-      static_cast<T*>(d0), static_cast<T*>(d1), m, bl,
-      static_cast<const uint8_t*>(masks), P, st, lay);
+  kern<<<grid, bl >> RB, smem, stream>>>(
+      static_cast<const uint32_t*>(s0), static_cast<const uint32_t*>(s1), sstride,
+      static_cast<uint32_t*>(d0), static_cast<uint32_t*>(d1), m, bl, lbits,
+      static_cast<const uint8_t*>(masks), P, sc, lay);
   return cudaGetLastError();
 }
 
+template <int ES, int NP, bool REV>
+cudaError_t launch_inner_dir(const void* s0, const void* s1, long long sstride,
+                             void* d0, void* d1, long long m, int N, int bl,
+                             int lbits, const void* masks, int P,
+                             const inner::Sched& sc, const Layout& lay,
+                             cudaStream_t stream) {
+  switch (sc.rb) {
+    case 2:
+      return launch_inner_rb<ES, NP, 2, REV>(s0, s1, sstride, d0, d1, m, N, bl, lbits, masks, P, sc, lay, stream);
+    case 3:
+      return launch_inner_rb<ES, NP, 3, REV>(s0, s1, sstride, d0, d1, m, N, bl, lbits, masks, P, sc, lay, stream);
+    default:
+      return launch_inner_rb<ES, NP, 4, REV>(s0, s1, sstride, d0, d1, m, N, bl, lbits, masks, P, sc, lay, stream);
+  }
+}
+
+// the word width as template arguments (bytes, planes); T only names it
 template <typename T, int NP>
 cudaError_t launch_inner(bool rev, const void* s0, const void* s1,
                          long long sstride, void* d0, void* d1, long long m,
-                         int N, int bl, const void* masks, int P,
-                         const Stages& st, const Layout& lay,
+                         int N, int bl, int lbits, const void* masks, int P,
+                         const inner::Sched& sc, const Layout& lay,
                          cudaStream_t stream) {
+  constexpr int ES = sizeof(T);
   if (rev) {
-    return launch_inner_dir<T, NP, true>(s0, s1, sstride, d0, d1, m, N, bl, masks, P, st, lay, stream);
+    return launch_inner_dir<ES, NP, true>(s0, s1, sstride, d0, d1, m, N, bl, lbits, masks, P, sc, lay, stream);
   }
-  return launch_inner_dir<T, NP, false>(s0, s1, sstride, d0, d1, m, N, bl, masks, P, st, lay, stream);
+  return launch_inner_dir<ES, NP, false>(s0, s1, sstride, d0, d1, m, N, bl, lbits, masks, P, sc, lay, stream);
 }
 
 template <typename T, int NP, int LG, bool REV>
@@ -461,45 +397,96 @@ namespace {
 int run_inner(bool rev, const void* s0, const void* s1, int nplanes, int esize,
               long long sstride, void* d0, void* d1, long long m, int N, int bl,
               const void* masks, int P, int S, const unsigned char* lg,
-              int nbits, const unsigned char* layout, void* stream) {
-  Stages st;
+              int nbits, const unsigned char* layout, const void* sched,
+              void* stream) {
   Layout lay;
-  if (!shape_ok(m, N, bl, nplanes, esize) || S < 0 || S > 64 ||
-      (S > 0 && P != (S + 7) / 8) || !fill_layout(&lay, nbits, layout)) {
+  if (!shape_ok(m, N, bl, nplanes, esize) || S < 0 || S > inner::kMaxStages ||
+      (S > 0 && P != (S + 7) / 8) || !fill_layout(&lay, nbits, layout) ||
+      sched == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  st.n = S;
-  for (int s = 0; s < 64; ++s) {
-    st.lg[s] = s < S ? lg[s] : 0;
-    if (s < S && (1 << lg[s]) >= bl) return static_cast<int>(cudaErrorInvalidValue);
+  int lbits = 0;
+  while ((1 << lbits) < bl) ++lbits;
+  for (int s = 0; s < S; ++s) {
+    if (lg[s] >= lbits) return static_cast<int>(cudaErrorInvalidValue);
   }
+  const inner::Sched& sc = *static_cast<const inner::Sched*>(sched);
+  if (!inner::sched_ok(sc, S, lg, lbits)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   return static_cast<int>(LILAC_DISPATCH(launch_inner, rev, s0, s1, sstride, d0,
-                                         d1, m, N, bl, masks, P, st, lay, cs));
+                                         d1, m, N, bl, lbits, masks, P, sc, lay, cs));
 }
 
 }  // namespace
 
-// lg[S]: log2 of each xor distance, in the forward's stage order for both.
+// lg[S]: log2 of each xor distance, in the forward's stage order for both;
+// sched: the pass's inner::Sched (kernels/routed.py:inner_runs), checked
+// against lg before the launch.
 extern "C" int lilac_hier_inner(const void* s0, const void* s1, int nplanes,
                                 int esize, long long sstride, void* d0,
                                 void* d1, long long m, int N, int bl,
                                 const void* masks, int P, int S,
                                 const unsigned char* lg, int nbits,
-                                const unsigned char* layout, void* stream) {
+                                const unsigned char* layout, const void* sched,
+                                void* stream) {
   return run_inner(false, s0, s1, nplanes, esize, sstride, d0, d1, m, N, bl,
-                   masks, P, S, lg, nbits, layout, stream);
+                   masks, P, S, lg, nbits, layout, sched, stream);
 }
 
-// K7: the same stages, last one first.
+// K7: the same stages, last one first (runs in reverse order too).
 extern "C" int lilac_hier_inner_t(const void* s0, const void* s1, int nplanes,
                                   int esize, long long sstride, void* d0,
                                   void* d1, long long m, int N, int bl,
                                   const void* masks, int P, int S,
                                   const unsigned char* lg, int nbits,
-                                  const unsigned char* layout, void* stream) {
+                                  const unsigned char* layout, const void* sched,
+                                  void* stream) {
   return run_inner(true, s0, s1, nplanes, esize, sstride, d0, d1, m, N, bl,
-                   masks, P, S, lg, nbits, layout, stream);
+                   masks, P, S, lg, nbits, layout, sched, stream);
+}
+
+namespace {
+
+template <int ES, int NP, int RB>
+cudaError_t inner_attrs_rb(int bl, int P, int* threads, int* smem, int* ctas,
+                           int* regs, int* local_bytes) {
+  static SmemAllowed allowed;
+  auto* kern = inner::kernel<ES, NP, RB, false>;
+  const size_t bytes = inner::smem_bytes(NP, ES, bl, P);
+  cudaError_t err = allow_smem(kern, bytes, &allowed);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, kern);
+  if (err != cudaSuccess) return err;
+  *threads = bl >> RB;
+  *smem = static_cast<int>(bytes);
+  *regs = fa.numRegs;
+  *local_bytes = static_cast<int>(fa.localSizeBytes);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, kern, *threads, bytes);
+}
+
+template <typename T, int NP>
+cudaError_t inner_attrs(int rb, int bl, int P, int* threads, int* smem, int* ctas,
+                        int* regs, int* local_bytes) {
+  constexpr int ES = sizeof(T);
+  if (rb == 2) return inner_attrs_rb<ES, NP, 2>(bl, P, threads, smem, ctas, regs, local_bytes);
+  if (rb == 3) return inner_attrs_rb<ES, NP, 3>(bl, P, threads, smem, ctas, regs, local_bytes);
+  return inner_attrs_rb<ES, NP, 4>(bl, P, threads, smem, ctas, regs, local_bytes);
+}
+
+}  // namespace
+
+// How the inner pass launches for one shape: threads and dynamic shared
+// memory a thread block, thread blocks resident on one SM, registers a
+// thread and local (spilled) bytes of the kernel. For reports only.
+extern "C" int lilac_hier_inner_attrs(int nplanes, int esize, int bl, int P, int rb,
+                                      int* out) {
+  if (!shape_ok(bl, 1, bl, nplanes, esize) || rb < inner::kMinRegBits ||
+      rb > inner::kMaxRegBits || (bl >> rb) > inner::kMaxThreads || (bl >> rb) < 32) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(LILAC_DISPATCH(inner_attrs, rb, bl, P, &out[0], &out[1],
+                                         &out[2], &out[3], &out[4]));
 }
 
 namespace {

@@ -31,6 +31,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import itertools
+from collections import Counter
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -599,15 +601,14 @@ def smem_optin_bytes(device="cuda") -> int:
 def default_hier_bl(limit: int = HOPPER_SMEM_OPTIN) -> int:
     """Block length of hierarchical plans when LILAC_HIER_BL is unset.
 
-    The inner pass (K3, K7) keeps a block of bl slots on chip at 8 bytes a
-    slot (a df64 (hi, lo) pair or one f64 word, the widest the NPB path
-    routes) plus one resident mask plane of bl bytes, 9 * bl bytes. The
-    default is the largest power of two of which TWO such blocks fit the
-    opt-in limit, so that one block's barriers are covered by the other's
-    work: 2 * 9 * bl <= 232448 gives bl = 2^13 on an H100. The adjoint
-    window pass (K9) keeps bl + sum(d) < 2 * bl slots with their mask bytes,
-    so the same bound covers its worst case. The forward window, butterfly
-    and bigshift passes hold no slots on chip."""
+    The adjoint window pass (K9) keeps bl + sum(d) < 2 * bl slots on chip at
+    8 bytes a slot (a df64 (hi, lo) pair or one f64 word, the widest the NPB
+    path routes) and one mask byte each, at most 2 * 9 * bl bytes. The
+    default is the largest power of two that bound fits in the opt-in
+    limit: 2 * 9 * bl <= 232448 gives bl = 2^13 on an H100. The inner pass
+    (K3, K7) holds one block of bl slots and one 32-bit mask word a slot, 12
+    * bl bytes at 25 stages: two such blocks share an SM at 2^13. The
+    forward window, butterfly and bigshift passes hold no slots on chip."""
     bl = 128
     while 2 * 9 * (2 * bl) <= limit:
         bl *= 2
@@ -628,7 +629,8 @@ def pass_smem_bytes(p, bl: int, nplanes: int, esize: int = 4) -> int:
     directions."""
     kind = p[0]
     if kind == "inner":
-        return nplanes * bl * esize + bl  # the block + one mask plane
+        # the block's 32-bit words and one mask word a slot per 32 stages
+        return (nplanes * esize // 4 + (len(p[1]) + 31) // 32) * bl * 4
     if kind == "window":
         # the adjoint's bl + sum(d) slots (rounded up to 4) with their mask
         # bytes; the forward gathers its values and stages only the window's
@@ -665,6 +667,139 @@ def check_smem_feasible(passes, bl: int, nplanes: int, esize: int = 4, *,
             f"'{worst[0]}' needs {worst[1]} bytes a block at bl={bl}, "
             f"{nplanes} plane(s) of {esize}-byte words; the limit is {limit}. "
             "Lower LILAC_HIER_BL.")
+    if any(p[0] == "inner" for p in passes) and bl > INNER_MAX_BL:
+        raise ValueError(
+            f"routed plan {what}: block length bl={bl} is more than the inner "
+            f"pass's {INNER_MAX_BL} (1024 threads of {1 << INNER_MAX_REG_BITS} "
+            "slots). Lower LILAC_HIER_BL.")
+
+
+# ---- register schedule of the inner pass (K3, K3u, K7) ---------------------
+#
+# csrc/inner_pass.cuh runs an inner pass with a block's bl = 2^L slots
+# spread over the registers of its threads: a slot index splits into rb
+# register bits (2^rb slots a thread), 5 lane bits and L - rb - 5 warp bits.
+# An xor stage whose distance bit is a register bit is a select between two
+# registers of a thread, on a lane bit a warp shuffle; a stage on a warp bit
+# never runs in place. So the pass is cut into RUNS of consecutive stages,
+# each with its own assignment of slot bits (`perm`: bit t of
+# (thread << rb | register) is slot bit perm[t]), and the block goes once
+# through shared memory between runs. There it is stored swizzled, every
+# slot bit j folded onto bank bit j % 5: a run's lane bits have distinct
+# residues mod 5, so a warp's 32 lanes reach 32 banks. A run holds at most
+# 16 stages inside one 32-stage mask word. Any stage order is served; an
+# order whose stages wander over many bits only costs more runs.
+
+INNER_LANE_BITS = 5
+INNER_MAX_REG_BITS = 4
+INNER_MAX_BL = 1024 << INNER_MAX_REG_BITS
+INNER_MAX_STAGES = 64
+INNER_MAX_RUN = 16  # a thread keeps a run's switches of two slots in one register
+
+
+def inner_reg_bits(bl: int) -> int:
+    """Register bits of the inner pass at block length bl: 16 slots a thread
+    where the block has room for them beside 5 lane bits, fewer below 2^9."""
+    return min(INNER_MAX_REG_BITS, bl.bit_length() - 1 - INNER_LANE_BITS)
+
+
+def _run_layout(bits, L: int, rb: int):
+    """The assignment of one run whose distance bits are `bits` (stage
+    order): a tuple perm of the L slot bits, register bits first, then the 5
+    lane bits (one of each residue mod 5), then the warp bits; or None where
+    no assignment holds every distance bit in a register or a lane. Of the
+    assignments that do, the one with the fewest shuffle stages."""
+    need = set(bits)
+    if len(need) > rb + INNER_LANE_BITS:
+        return None
+    freq = Counter(bits)
+    classes = [[j for j in range(L) if j % INNER_LANE_BITS == c]
+               for c in range(INNER_LANE_BITS)]
+    best = None
+    for lanes in itertools.product(*classes):
+        regs = need.difference(lanes)
+        if len(regs) > rb:
+            continue
+        key = (sum(freq[b] for b in lanes), lanes)
+        if best is None or key < best[0]:
+            best = (key, lanes, regs)
+    if best is None:
+        return None
+    _, lanes, regs = best
+    rest = [j for j in range(L) if j not in lanes and j not in regs]
+    fill = rb - len(regs)
+    return tuple(sorted(regs)) + tuple(rest[:fill]) + tuple(lanes) + tuple(rest[fill:])
+
+
+@functools.lru_cache(maxsize=256)
+def inner_runs(dists: Tuple[int, ...], bl: int, rb: int | None = None
+               ) -> Tuple[Tuple[int, int, Tuple[int, ...]], ...]:
+    """Cut an inner pass's xor stages into runs: a tuple of (first stage,
+    end stage, perm), the stages in order, each run's distance bits all
+    register or lane bits of its perm (see above). Reads only the distances,
+    bl and rb, so one cached schedule serves every call of a plan, forwards
+    and (runs last one first) in reverse. Runs are as long as they can be,
+    which gives the fewest."""
+    L = bl.bit_length() - 1
+    rb = inner_reg_bits(bl) if rb is None else rb
+    if bl != 1 << L or not 2 <= rb <= INNER_MAX_REG_BITS or rb + INNER_LANE_BITS > L \
+            or bl >> rb > 1024:
+        raise ValueError(f"inner pass: no register schedule for bl={bl}, rb={rb}")
+    bits = []
+    for d in dists:
+        if not 1 <= d < bl or d & (d - 1):
+            raise ValueError(f"inner pass: bad xor distance {d} for bl={bl}")
+        bits.append(d.bit_length() - 1)
+    runs = []
+    a = 0
+    while a < len(bits):
+        b = a + 1
+        perm = _run_layout(bits[a:b], L, rb)
+        while b < len(bits) and b % 32 and b - a < INNER_MAX_RUN:
+            nxt = _run_layout(bits[a:b + 1], L, rb)
+            if nxt is None:
+                break
+            perm, b = nxt, b + 1
+        runs.append((a, b, perm))
+        a = b
+    return tuple(runs)
+
+
+def inner_stage_codes(dists, runs, rb: int) -> Tuple[int, ...]:
+    """Per stage, what the kernel exchanges across: register bit q (q), or
+    lane bit q (8 + q), in its run's assignment."""
+    codes = []
+    for a, b, perm in runs:
+        for d in dists[a:b]:
+            t = perm.index(d.bit_length() - 1)
+            codes.append(t if t < rb else 8 + t - rb)
+    return tuple(codes)
+
+
+class _InnerRun(ctypes.Structure):
+    _fields_ = [("a", ctypes.c_ubyte), ("b", ctypes.c_ubyte),
+                ("perm", ctypes.c_ubyte * 16)]
+
+
+class _InnerSched(ctypes.Structure):  # inner::Sched of csrc/inner_pass.cuh
+    _fields_ = [("nruns", ctypes.c_int), ("rb", ctypes.c_int),
+                ("code", ctypes.c_ubyte * INNER_MAX_STAGES),
+                ("run", _InnerRun * INNER_MAX_STAGES)]  # at most a run a stage
+
+
+@functools.lru_cache(maxsize=256)
+def _inner_sched(dists: Tuple[int, ...], bl: int, rb: int) -> _InnerSched:
+    """The C struct of one pass's schedule, cached with it."""
+    runs = inner_runs(dists, bl, rb)
+    sc = _InnerSched()
+    sc.nruns, sc.rb = len(runs), rb
+    for s, c in enumerate(inner_stage_codes(dists, runs, rb)):
+        sc.code[s] = c
+    for r, (a, b, perm) in enumerate(runs):
+        sc.run[r].a, sc.run[r].b = a, b
+        for t, bit in enumerate(perm):
+            sc.run[r].perm[t] = bit
+    return sc
 
 
 def compile_hier(kinds, dists, masks_host, bl: int, *, gmax: int = 2):
@@ -1079,7 +1214,8 @@ def _hier_lib():
         ub = ctypes.POINTER(ctypes.c_ubyte)
         head = [vp, vp, ci, ci, ll, vp, vp, ll, ci, ci, vp]
         for fn in (lib.lilac_hier_inner, lib.lilac_hier_inner_t):
-            fn.argtypes = head + [ci, ci, ub, ci, ub, vp]
+            fn.argtypes = head + [ci, ci, ub, ci, ub, vp, vp]
+        lib.lilac_hier_inner_attrs.argtypes = [ci, ci, ci, ci, ci, ctypes.POINTER(ci)]
         for fn in (lib.lilac_hier_butterfly, lib.lilac_hier_butterfly_t):
             fn.argtypes = head + [ci, ci, ub, ctypes.POINTER(ci), vp]
         lib.lilac_hier_window.argtypes = head + [
@@ -1089,7 +1225,7 @@ def _hier_lib():
         for fn in (lib.lilac_hier_inner, lib.lilac_hier_butterfly,
                    lib.lilac_hier_window, lib.lilac_hier_bigshift,
                    lib.lilac_hier_inner_t, lib.lilac_hier_butterfly_t,
-                   lib.lilac_hier_smem_optin):
+                   lib.lilac_hier_smem_optin, lib.lilac_hier_inner_attrs):
             fn.restype = ci
         lib._typed = True
     return lib
@@ -1130,16 +1266,18 @@ def _launch_hier(fn_name, what, x_planes, mk, N, nblocks, bl, tail, lib=_hier_li
     return tuple(outs)
 
 
-def _inner(x_planes, masks, kinds, dists, layout, net_axis, reverse=False):
+def _inner(x_planes, masks, kinds, dists, layout, net_axis, reverse=False,
+           reg_bits=None):
     """The CUDA inner pass, forward or (reverse) adjoint: xor stages only,
     which are their own adjoints, so the adjoint is the stage loop run
-    backwards."""
+    backwards. reg_bits forces the schedule's register bits, for checks of
+    the other instantiations only; every wrapper takes inner_reg_bits(bl)."""
     what = "routed_apply_sliced_bt" if reverse else "routed_apply_sliced"
     mk = _net_masks(masks, net_axis, True, what)
     N, nblocks, P, R, _ = mk.shape
     bl = R * 128
     S = len(kinds)
-    if S != len(dists) or (S and P != (S + 7) // 8) or S > 64:
+    if S != len(dists) or (S and P != (S + 7) // 8) or S > INNER_MAX_STAGES:
         raise ValueError(
             f"{what}: {S} kinds, {len(dists)} dists, {P} mask planes (at most "
             "64 stages a pass)")
@@ -1154,11 +1292,31 @@ def _inner(x_planes, masks, kinds, dists, layout, net_axis, reverse=False):
     check_smem_feasible(
         (("inner", kinds, dists),), bl, len(x_planes), x_planes[0].element_size(),
         limit=smem_optin_bytes(mk.device), what=what)
+    rb = inner_reg_bits(bl) if reg_bits is None else reg_bits
+    sched = _inner_sched(tuple(int(d) for d in dists), bl, rb)
     tail = (P, S, _ubytes([int(d).bit_length() - 1 for d in dists]),
-            len(lay), _ubytes(lay))
+            len(lay), _ubytes(lay), ctypes.addressof(sched))
     outs = _launch_hier("lilac_hier_inner_t" if reverse else "lilac_hier_inner",
                         what, x_planes, mk, N, nblocks, bl, tail)
     return outs if net_axis else tuple(o[0] for o in outs)
+
+
+def inner_launch_config(nplanes: int, esize: int, bl: int, dists, *, N: int = 1,
+                        nblocks: int = 1, device="cuda") -> dict:
+    """How the CUDA inner pass launches for one shape, for reports: grid,
+    threads, dynamic shared memory and registers of a thread block, thread
+    blocks resident on one SM, spilled bytes, and the runs of the stage
+    schedule."""
+    rb = inner_reg_bits(bl)
+    dists = tuple(int(d) for d in dists)
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(torch.device(device)):
+        _cuda.check(_hier_lib().lilac_hier_inner_attrs(
+            nplanes, esize, bl, (len(dists) + 7) // 8, rb, out), "inner_launch_config")
+    return {"grid": [nblocks, N], "threads": out[0],
+            "smem_bytes": out[1], "ctas_per_sm": out[2], "regs": out[3],
+            "local_bytes": out[4], "reg_bits": rb,
+            "runs": [[a, b] for a, b, _ in inner_runs(dists, bl, rb)]}
 
 
 def routed_apply_sliced_b(x_planes, masks, kinds, dists, *, layout=None):
@@ -1167,7 +1325,8 @@ def routed_apply_sliced_b(x_planes, masks, kinds, dists, *, layout=None):
     block b is read at physical block _phys_expr(b, layout); the result is
     [N, mrows, 128] planes in natural block order.
 
-    CUDA tensors go through csrc/hier.cu (one launch, grid (nblocks, N)),
+    CUDA tensors go through csrc/inner_pass.cuh (one launch, grid
+    (nblocks, N), the stages in registers by the schedule of inner_runs),
     which runs xor stages only and raises NotImplementedError for others;
     the launch error code is raised. Only CPU tensors take the plain
     version."""
@@ -1316,8 +1475,8 @@ def routed_apply_sliced_bt(x_planes, masks, kinds, dists, *, dfpair: bool = Fals
     per-net [N, mrows, 128] cotangents, logical block b read at physical
     block _phys_expr(b, layout); natural block order out.
 
-    CUDA tensors go through csrc/hier.cu (K3's kernel with the stage loop
-    running backwards: xor stages are their own adjoints and need no merge,
+    CUDA tensors go through csrc/inner_pass.cuh (K3's kernel with the runs
+    and their stages running backwards: xor stages are their own adjoints and need no merge,
     so `dfpair` changes nothing there); other stage kinds raise
     NotImplementedError. Only CPU tensors take the plain version, which
     serves all three kinds."""

@@ -12,13 +12,15 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
 from lilac_tpu_torch.generate.npb import CLASSES
-from lilac_tpu_torch.plan import FactoredNPBPlan
+from lilac_tpu_torch.generate.npb import make_cg_matrix
+from lilac_tpu_torch.kernels.registry import get_kernel
+from lilac_tpu_torch.plan import FactoredNPBPlan, SpmvPlan
 from lilac_tpu_torch.solvers.algebra import get_algebra
 from lilac_tpu_torch.solvers.cg import npb_power_method
 
@@ -38,7 +40,9 @@ class NPBCGResult:
     kernel: str
     rnorm_last: float
     zeta_history: Optional[np.ndarray] = None  # zeta after each outer step
-    factored_vt: str = "plan"  # how V^T was applied: its own plan, or V's in reverse
+    # how V^T was applied: its own plan, or V's in reverse (None: an
+    # assembled matrix, no factored operator)
+    factored_vt: Optional[str] = "plan"
 
 
 def nnz_per_row_flops(cls) -> float:
@@ -57,13 +61,20 @@ def run(
     dtype: str = "f64",
     kernel: str = "factored",
     niter: Optional[int] = None,
-    plan: Optional[FactoredNPBPlan] = None,
+    plan: Optional[Union[FactoredNPBPlan, SpmvPlan]] = None,
     verbose: bool = False,
     steps_per_dispatch: Optional[int] = None,
     device="cuda",
 ) -> NPBCGResult:
     """Run NPB CG for one class on `device` (ignored when a plan is given:
-    the plan's device is used)."""
+    the plan's device is used).
+
+    kernel="factored" (the default) stages the factored operator
+    (FactoredNPBPlan); any other registry name assembles NPB's matrix
+    (make_cg_matrix) into an SpmvPlan with that kernel, as the reference
+    does. The reference defaults to "auto" (its SpmvPlan selector); the
+    port keeps "factored", the operator its main path measures. A name the
+    registry lacks raises the registry's KeyError."""
     cls = CLASSES[class_name.upper()]
     n_it = niter if niter is not None else cls.niter
     if steps_per_dispatch is None:
@@ -76,12 +87,14 @@ def run(
     chunk = max(1, min(chunk, n_it))
 
     if plan is None:
-        if kernel != "factored":
-            raise NotImplementedError(
-                f"kernel={kernel!r}: only the factored operator is ported; "
-                "the assembled-matrix kernels come with SpmvPlan"
-            )
-        plan = FactoredNPBPlan(class_name, dtype=dtype, device=device)
+        if kernel == "factored":
+            plan = FactoredNPBPlan(class_name, dtype=dtype, device=device)
+        else:
+            if kernel != "auto":
+                get_kernel(kernel)
+            indptr, indices, data, _ = make_cg_matrix(class_name)
+            plan = SpmvPlan(indptr, indices, data, (cls.na, cls.na), dtype=dtype,
+                            kernel=kernel, device=device)
     device = plan.device
     alg = get_algebra(dtype, device=device)
 
@@ -140,7 +153,7 @@ def run(
         kernel=plan.kernel,
         rnorm_last=float(rnorm_hist[-1]),
         zeta_history=zeta_hist,
-        factored_vt=plan.factored_vt,
+        factored_vt=getattr(plan, "factored_vt", None),
     )
 
 

@@ -222,10 +222,33 @@ def test_npb_run_options(data_dirs, monkeypatch):
     assert not r32.verified and r32.rel_err < 1e-5
 
 
+@pytest.mark.parametrize("dtype,kernel", [
+    ("f64", "xla_ell"), ("f64", "xla_sell"),
+    ("df64", "xla_ell_df"), ("df64", "xla_sell_df")])
+def test_npb_registry_kernels_match_reference(dtype, kernel, data_dirs):
+    """npb_cg.run with a registry kernel assembles NPB's matrix into an
+    SpmvPlan, as the reference does: the port's whole class S run verifies
+    at NPB's 1e-10, and its zeta after 3 outer steps is the JAX package's
+    3-step run with the same kernel, within 1e-12 relative in f64 and 1e-8
+    in df64 (the bar test_npb_class_s_verifies states for the JAX CPU
+    run)."""
+    torch.set_num_threads(1)
+    data_dirs("torch")
+    r = trun.run("S", dtype=dtype, kernel=kernel, device="cpu")
+    assert r.kernel == kernel and r.factored_vt is None
+    assert r.verified and r.rel_err <= 1e-10, r.rel_err
+    data_dirs("jax")
+    ref = jrun.run("S", dtype=dtype, kernel=kernel, niter=3)
+    assert ref.kernel == kernel and r.nnz == ref.nnz
+    tol = {"f64": 1e-12, "df64": 1e-8}[dtype]
+    assert abs(r.zeta_history[2] - ref.zeta) <= tol * abs(ref.zeta)
+
+
 def test_unported_paths_raise(data_dirs, monkeypatch):
     data_dirs("torch")
-    with pytest.raises(NotImplementedError, match="SpmvPlan"):
-        trun.run("S", kernel="xla_ell", device="cpu")
+    # a kernel the port's registry lacks raises the registry's error, naming it
+    with pytest.raises(KeyError, match="xla_segscan"):
+        trun.run("S", kernel="xla_segscan", device="cpu")
     for mode in ("scan", "mixed"):
         monkeypatch.setenv("LILAC_FACTORED_SEGMODE", mode)
         with pytest.raises(NotImplementedError, match="routed_apply_sliced_b|SegELLScan"):
