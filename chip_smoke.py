@@ -18,7 +18,8 @@ proves on the card that
   single-table ones (K1, K11) also with forced small tiles at m = 2^16 so
   that every pass kind of their schedule runs, the inner pass (K3, K3u,
   K7) also on forced stage schedules at m = 2^16 (1 to 7 register runs a
-  pass, every word format, NaN payloads and signed zeros), and the
+  pass, every word format, NaN payloads and signed zeros), the window pass
+  (K5, K5u) at every span of output slots a thread block takes, and the
   exchange passes equal the gather on the index they compose (timed as
   their library yardstick),
 * a general sparse matrix (unsorted rows, a column dense enough to need
@@ -33,9 +34,12 @@ proves on the card that
   each path launched on that run; each class also runs a few outer steps
   in the other factored_vt mode (class C: adj, which launches K11; class D:
   plan, two forward plans) and the two zeta histories agree to 1e-12,
-* the Parboil paths: sgemm's product (kernel K12, matmul_nt) within
+* the Parboil paths: sgemm's product (kernel K12, matmul_nt: an exact
+  three-piece bf16 split, then the tensor cores) within
   K*2^-24*(|A||B|^T) + 2^-24*|C| of the f64 product at ragged small shapes
-  and at Parboil's width (n = 4096), then sgemm.run_arrays at n = 4096; and
+  (K = 0 included) and at Parboil's width (n = 4096), on four input kinds,
+  its split bit for bit against the plain version, then sgemm.run_arrays at
+  n = 4096; and
   Parboil spmv at the scale of its large dataset (Dubcova3: 146 689 rows,
   about 3.6 M entries after mirroring) from a MatrixMarket file through
   read_matrix_market -> SpmvPlan -> 50 chained products, matched against a
@@ -57,10 +61,13 @@ card, to 1e-10 relative. Arguments name phases to run alone, for finding a
 fault ("hier" = the small hierarchical checks and the general matrix, "k11"
 = the single-table adjoint at a small size, "tiles" = K1 and K11 with
 forced small tiles at m = 2^16, "inner" = K3, K3u and K7 on forced stage
-schedules at m = 2^16 and timed at the main paths' shapes, "c" = K1, K2,
-K11 on the class C plan, "d" = the class D plan, its kernels and its runs,
-"gemm" = K12 and sgemm, "parboil" = Parboil spmv); such a run exits 2
-without the last line.
+schedules at m = 2^16 and timed at the main paths' shapes, "window" = K5
+and K5u at every span, bit for bit, "c" = K1, K2, K11 on the class C plan,
+"d" = the class D plan, its kernels and its runs, "gemm" = K12 and sgemm,
+"parboil" = Parboil spmv; opt-in, never in the whole run: "inner_diag",
+"window_diag" = K5 and K5u timed at every span, "gemm_diag" = how the
+tensor cores round K12's f32 sums); such a run exits
+2 without the last line.
 """
 
 from __future__ import annotations
@@ -135,8 +142,11 @@ def phase_build() -> dict:
                if "registers" in ln or "spill" in ln]
         for name, text in info["ptxas"].items()
     }
+    warnings = {name: [ln.strip() for ln in text.splitlines() if "warning" in ln.lower()]
+                for name, text in info["ptxas"].items()}
     line = {"phase": "build", "seconds": round(info["seconds"], 2),
-            "built": info["built"], "ptxas": regs}
+            "built": info["built"], "ptxas": regs,
+            "warnings": {k: v for k, v in warnings.items() if v}}
     emit(line)
     return line
 
@@ -659,6 +669,10 @@ def _inner_row(rd, row, planes, meta, bl: int, N: int, m: int) -> None:
         len(planes), planes[0].element_size(), bl, meta[2], N=N, nblocks=m // bl)
 
 
+def _window_spans(bl: int) -> list:
+    return [1 << j for j in range(7, 13) if (1 << j) <= bl]
+
+
 def _call_pass(fn, meta, planes, mk, bl, layout):
     """One pass through `fn` (a wrapper or a plain version): (planes,
     layout the next pass reads through; None = natural order)."""
@@ -722,7 +736,10 @@ def _walk_schedule(rd, planes, metas, masks, bl, batched: bool, what: str,
         if timed is not None and name not in timed and not opening:
             esize = planes[0].element_size()
             m = planes[0].shape[-2] * 128
-            nbytes = (sum(p.numel() for p in planes) * esize + mk.numel()
+            mask_bytes = mk.numel()
+            if kind == "window":  # a block's own masks and the sum(d) just left of them
+                mask_bytes = mk.numel() // 2 + N * (m // bl) * min(sum(meta[1]), bl)
+            nbytes = (sum(p.numel() for p in planes) * esize + mask_bytes
                       + N * m * esize * len(planes))
             ms = time_ms(lambda: _call_pass(fn, meta, planes, mk, bl, layout), reps)
             plain_ms = time_ms(
@@ -747,6 +764,9 @@ def _walk_schedule(rd, planes, metas, masks, bl, batched: bool, what: str,
             }
             if kind == "inner":
                 _inner_row(rd, timed[name], planes, meta, bl, N, m)
+            if kind == "window":
+                timed[name]["launch"] = rd.window_launch_config(bl, meta[1], N=N,
+                                                                nblocks=m // bl)
         planes, layout = got, new_layout
     return planes, layout
 
@@ -1241,6 +1261,99 @@ def phase_inner() -> dict:
     return line
 
 
+def _window_dists(bl: int) -> list:
+    """Shift sets of the window checks: one shift of 1, NPB's (1, 2, 4, 8),
+    the general matrix's eight (1 .. 128; bl >= 256), one shift of bl - 1 (a window across the whole left block) and eight shifts
+    that sum to bl - 1."""
+    top = [bl >> j for j in range(1, 8)]
+    general = tuple(1 << j for j in range(8))
+    return [(1,), (1, 2, 4, 8), general, (bl - 1,), tuple(top + [bl - 1 - sum(top)])]
+
+
+def phase_window() -> dict:
+    """K5 and K5u (window_shift_apply_b / window_shift_apply) at m = 2^16,
+    bit for bit (int view) against window_shift_apply_plain at every span
+    the kernel takes (128 to min(bl, 4096) output slots a thread block): bl
+    256, 1024 and the default, the shift sets of _window_dists (sum(d) up to
+    bl - 1), random masks (so block 0 reaches into block nblocks - 1),
+    identity and scrambled layouts, N = 1 and 16, shared and per-net input,
+    every word format, NaN payloads and signed zeros."""
+    from lilac_tpu_torch.kernels import routed as rd
+
+    rng = np.random.default_rng(41)
+    m = 1 << 16
+    checks = 0
+    t0 = time.time()
+    for bl in sorted({256, 1024, rd.default_hier_bl(rd.smem_optin_bytes(DEVICE))}):
+        nb = m // bl
+        for span in _window_spans(bl):
+            for dists in _window_dists(bl):
+                for N in (1, 16):
+                    j = checks
+                    dtype, nplanes = FORMATS[j % len(FORMATS)]
+                    per_net = (j // 2) % 2 == 1
+                    lay = (tuple(int(v) for v in rng.permutation(nb.bit_length() - 1))
+                           if j % 3 else None)
+                    one_net = N == 1 and not per_net  # the un-batched K5u
+                    mk = torch.as_tensor(rng.integers(
+                        0, 256, size=(() if one_net else (N,)) + (nb, 2 * bl // 128, 128),
+                        dtype=np.uint8).view(np.int8), device=DEVICE)
+                    xs = _inner_planes(rng, dtype, nplanes,
+                                       ((N,) if per_net else ()) + (m // 128, 128))
+                    fn = rd.window_shift_apply if one_net else rd.window_shift_apply_b
+                    got = fn(xs, mk, dists, bl, layout=lay, span=span)
+                    want = rd.window_shift_apply_plain(xs, mk, dists, bl, layout=lay)
+                    torch.cuda.synchronize()
+                    if not all(_bits_equal(g, w) for g, w in zip(got, want)):
+                        raise AssertionError(
+                            f"window: bl={bl} span={span} dists={dists} N={N} "
+                            f"{dtype.__name__} x{nplanes} per_net={per_net} layout={lay}: "
+                            "kernel != plain")
+                    checks += 1
+    line = {"phase": "window", "m": m, "checks": checks, "check_s": round(time.time() - t0, 1),
+            "formats": ["float32 x1", "float32 x2", "float64 x1"]}
+    emit(line)
+    return line
+
+
+def phase_window_diag() -> dict:
+    """K5 and K5u at every span (output slots a thread block) the kernel
+    takes, at the main paths' shapes with random masks (opt-in,
+    `window_diag`; not part of the whole run): K5 at class D's (N = 16, m =
+    2^21, shifts 1, 2, 4, 8, input per net, scrambled layout), K5u at the
+    general matrix's (m = 2^19, shifts 1 .. 128), df64 pairs. Each span is
+    held bit for bit against the plain version before it is timed."""
+    from lilac_tpu_torch.kernels import routed as rd
+
+    rng = np.random.default_rng(43)
+    bl = rd.default_hier_bl(rd.smem_optin_bytes(DEVICE))
+    rows = []
+    for name, N, m, dists in (("window_shift_apply_b", 16, 1 << 21, (1, 2, 4, 8)),
+                              ("window_shift_apply", 1, 1 << 19,
+                               tuple(1 << j for j in range(8)))):
+        nb = m // bl
+        lay = tuple(int(v) for v in rng.permutation(nb.bit_length() - 1)) if N > 1 else None
+        mk = torch.as_tensor(rng.integers(
+            0, 256, size=((N,) if N > 1 else ()) + (nb, 2 * bl // 128, 128),
+            dtype=np.uint8).view(np.int8), device=DEVICE)
+        xs = _inner_planes(rng, np.float32, 2, ((N,) if N > 1 else ()) + (m // 128, 128))
+        fn = getattr(rd, name)
+        want = rd.window_shift_apply_plain(xs, mk, dists, bl, layout=lay)
+        ms = {}
+        for span in _window_spans(bl):
+            got = fn(xs, mk, dists, bl, layout=lay, span=span)
+            if not all(_bits_equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"window_diag: {name} span={span} != plain")
+            ms[str(span)] = time_ms(lambda: fn(xs, mk, dists, bl, layout=lay, span=span), 20)
+        rows.append({"kernel": name, "N": N, "m": m, "bl": bl, "dists": list(dists),
+                     "default_span": rd.window_span(bl), "ms_by_span": ms})
+        del xs, mk, want
+    torch.cuda.empty_cache()
+    line = {"phase": "window_diag", "rows": rows}
+    emit(line)
+    return line
+
+
 def phase_hier_general(kernels: dict, n: int = 400_000, bl: int | None = None) -> dict:
     """The second driven path: y = A x for a general sparse matrix through
     build_routed_csr_hier at the default block length. Rows come unsorted (so
@@ -1521,8 +1634,48 @@ def phase_hier_class_d(plan_d, kernels: dict) -> dict:
 # Parboil: sgemm (kernel K12) and spmv (gather kernels, K1 / K11 in f32)
 # ---------------------------------------------------------------------------
 
-GEMM_SMALL = ((1, 1, 1), (17, 33, 5), (150, 90, 70), (300, 260, 600))
+GEMM_SMALL = ((1, 1, 1), (17, 33, 5), (150, 90, 70), (300, 260, 600), (5, 7, 0))
 GEMM_WIDE = ((4096, 4096, 4096), (4000, 3000, 1500))
+# input kinds every shape is checked on: standard normal; U(0, 1), one sign,
+# so that a biased accumulation shows; rows and columns scaled by 2^e, e in
+# [-40, 40]; every value with 24 random significand bits, so that all three
+# bf16 pieces are non-zero; standard normal with one column of A and one of
+# Bt between bf16's largest finite value and f32's (see _gemm_operands)
+GEMM_KINDS = ("normal", "positive", "wide", "dense_bits", "huge")
+PEAK_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak (data sheet)
+
+
+def _gemm_operand(rng, rows: int, k: int, kind: str) -> np.ndarray:
+    if kind in ("normal", "huge"):
+        return rng.standard_normal((rows, k)).astype(np.float32)
+    if kind == "positive":
+        return rng.random((rows, k)).astype(np.float32)
+    if kind == "wide":
+        e = rng.integers(-20, 21, size=(rows, 1)) + rng.integers(-20, 21, size=(1, k))
+        return (rng.standard_normal((rows, k)) * np.exp2(e)).astype(np.float32)
+    if kind == "dense_bits":  # 1.xxx (23 random fraction bits) * 2^[-4, 4], signed
+        frac = rng.integers(0, 1 << 23, size=(rows, k)).astype(np.float64)
+        sign = rng.choice([-1.0, 1.0], size=(rows, k))
+        return (sign * (1.0 + frac * 2.0 ** -23)
+                * np.exp2(rng.integers(-4, 5, size=(rows, k)))).astype(np.float32)
+    raise ValueError(kind)
+
+
+def _gemm_operands(rng, m: int, n: int, k: int, kind: str) -> tuple:
+    """A [m, k] and Bt [n, k] of one kind, on the card. `huge`: column 0 of
+    A and column 1 of Bt lie between bf16's largest finite value and f32's
+    (either sign), the other operand's entries there in (-1/4, 1/4), so
+    every product and sum stays finite."""
+    a, bt = _gemm_operand(rng, m, k, kind), _gemm_operand(rng, n, k, kind)
+    if kind == "huge":
+        top = float(np.finfo(np.float32).max)
+        for big, small, j in ((a, bt, 0), (bt, a, 1)):
+            if j < k:
+                big[:, j] = (rng.uniform(float(torch.finfo(torch.bfloat16).max), top,
+                                         big.shape[0])
+                             * rng.choice([-1.0, 1.0], big.shape[0]))
+                small[:, j] = rng.uniform(-0.25, 0.25, small.shape[0])
+    return torch.as_tensor(a, device=DEVICE), torch.as_tensor(bt, device=DEVICE)
 
 
 def _gemm_check(gemm, a, bt, c, what: str) -> dict:
@@ -1547,64 +1700,63 @@ def _gemm_check(gemm, a, bt, c, what: str) -> dict:
     return row
 
 
+def _split_bits_equal(gemm, a, bt) -> None:
+    """split_bf16x3 against its plain version, bit for bit."""
+    got = gemm.split_bf16x3(a, bt)
+    want = gemm.split_bf16x3_plain(a, bt)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        if g.shape != w.shape or not torch.equal(g.view(torch.int16), w.view(torch.int16)):
+            raise AssertionError(f"split_bf16x3 {tuple(a.shape)} != its plain version")
+
+
 def phase_gemm(kernels: dict) -> dict:
-    """K12 against its plain version at ragged small shapes (K = 600 crosses
-    a 512-wide K step; K = 5 and 70 take the scalar loads), from a
-    non-contiguous and from a misaligned operand, and at Parboil's width;
-    timed at n = 4096 beside the plain version and torch.matmul with TF32
-    off. Then sgemm.run_arrays at n = 4096 through the entry point, launch
-    count set to 0 just before and read just after."""
+    """K12 against its plain version at ragged small shapes (K = 0, and
+    K = 5, 70, 600 that pad the pieces' rows) and at Parboil's width, on
+    every input kind of GEMM_KINDS; split_bf16x3 bit for bit against its
+    plain version; a non-contiguous and a misaligned operand give the same
+    bits. Timed at n = 4096: K12 (split + GEMM), the GEMM and the split
+    alone, beside the plain version and torch.matmul with TF32 off, with
+    the launch configuration. Then sgemm.run_arrays at n = 4096 through the
+    entry point, launch count set to 0 just before and read just after."""
     from lilac_tpu_torch.kernels import gemm
     from lilac_tpu_torch.workloads import sgemm
 
     rng = np.random.default_rng(31)
 
-    def operands(m, n, k):
-        return (torch.as_tensor(rng.standard_normal((m, k)).astype(np.float32), device=DEVICE),
-                torch.as_tensor(rng.standard_normal((n, k)).astype(np.float32), device=DEVICE))
+    def operands(m, n, k, kind):
+        return _gemm_operands(rng, m, n, k, kind)
 
-    checked = []
-    for m, n, k in GEMM_SMALL:
-        a, bt = operands(m, n, k)
-        c = gemm.matmul_nt(a, bt)
-        torch.cuda.synchronize()
-        checked.append(_gemm_check(gemm, a, bt, c, f"{(m, n, k)}"))
-        # a transposed view (as read_col_major gives) and an operand one word
-        # off 16-byte alignment (scalar loads) give the same bits
-        a_view = a.T.contiguous().T
-        buf = torch.empty(a.numel() + 1, dtype=torch.float32, device=DEVICE)
-        a_off = buf[1:].view(m, k)
-        a_off.copy_(a)
-        for other, how in ((a_view, "non-contiguous"), (a_off, "misaligned")):
-            if not torch.equal(gemm.matmul_nt(other, bt), c):
-                raise AssertionError(f"matmul_nt {(m, n, k)} {how} A differs")
+    checked = {kind: [] for kind in GEMM_KINDS}
+    for kind in GEMM_KINDS:
+        for m, n, k in GEMM_SMALL:
+            a, bt = operands(m, n, k, kind)
+            _split_bits_equal(gemm, a, bt)
+            c = gemm.matmul_nt(a, bt)
+            torch.cuda.synchronize()
+            checked[kind].append(_gemm_check(gemm, a, bt, c, f"{(m, n, k)} {kind}"))
+            # a transposed view (as read_col_major gives) and an operand one word
+            # off 16-byte alignment give the same bits
+            a_view = a.T.contiguous().T
+            buf = torch.empty(a.numel() + 1, dtype=torch.float32, device=DEVICE)
+            a_off = buf[1:].view(m, k)
+            a_off.copy_(a)
+            for other, how in ((a_view, "non-contiguous"), (a_off, "misaligned")):
+                if not _bits_equal(gemm.matmul_nt(other, bt), c):
+                    raise AssertionError(f"matmul_nt {(m, n, k)} {kind} {how} A differs")
     timed = None
     for m, n, k in GEMM_WIDE:
-        a, bt = operands(m, n, k)
-        c = gemm.matmul_nt(a, bt)
-        torch.cuda.synchronize()
-        checked.append(_gemm_check(gemm, a, bt, c, f"{(m, n, k)}"))
-        if timed is None:  # Parboil's square bench shape
-            ms = time_ms(lambda: gemm.matmul_nt(a, bt), 20)
-            plain_ms = time_ms(lambda: gemm.matmul_nt_plain(a, bt), 5)
-            library_ms = time_ms(lambda: gemm.matmul_nt_torch(a, bt), 20)
-            flops = 2.0 * m * n * k
-            nbytes = 4 * (m * k + n * k + m * n)
-            tb, tf = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
-            timed = {
-                "name": "matmul_nt", "route": "cuda",
-                "source": "lilac_tpu_torch/csrc/gemm.cu",
-                "replaces": "lilac_tpu/kernels/pallas_gemm.py:46",
-                "launches": 0, "max_abs_err": checked[-1]["max_abs_err_vs_plain"],
-                "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": max(tb, tf), "bound_by": "bytes" if tb >= tf else "operations",
-                "library_ms": library_ms,
-                "library": "torch.matmul, allow_tf32 = False",
-                "shape": {"M": m, "N": n, "K": k, "dtype": "float32"},
-                "bytes": nbytes, "flops": flops, "gflops": flops / ms / 1e6,
-                "library_gflops": flops / library_ms / 1e6,
-            }
-        del a, bt, c
+        for kind in GEMM_KINDS:
+            a, bt = operands(m, n, k, kind)
+            if kind in ("dense_bits", "huge"):
+                _split_bits_equal(gemm, a, bt)
+            c = gemm.matmul_nt(a, bt)
+            torch.cuda.synchronize()
+            checked[kind].append(_gemm_check(gemm, a, bt, c, f"{(m, n, k)} {kind}"))
+            if timed is None and kind == "normal":  # Parboil's square bench shape
+                timed = _gemm_timing(gemm, a, bt, checked[kind][-1])
+            del a, bt, c
+    torch.cuda.empty_cache()
 
     # the main path: sgemm.run_arrays at Parboil's bench width, kernel K12
     n = GEMM_WIDE[0][0]
@@ -1622,12 +1774,126 @@ def phase_gemm(kernels: dict) -> dict:
     timed["launches"] = launches
     timed["launches_on"] = "sgemm.run_arrays, n = 4096 (a warm-up and 4 chained repetitions)"
     kernels["matmul_nt"] = timed
-    line = {"phase": "gemm", "checked": checked,
-            "k12_ms": timed["ms"], "k12_gflops": timed["gflops"],
+    line = {"phase": "gemm", "kinds": list(GEMM_KINDS),
+            "max_err_over_bound": {kind: max(r["max_err_over_bound"] for r in rows)
+                                   for kind, rows in checked.items()},
+            "checked": checked,
+            "k12_ms": timed["ms"], "gemm_ms": timed["gemm_ms"],
+            "split_ms": timed["split_ms"], "k12_gflops": timed["gflops"],
             "plain_ms": timed["plain_ms"], "torch_matmul_ms": timed["library_ms"],
             "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
+            "f32_bound_ms": timed["f32_bound_ms"], "launch": timed["launch"],
             "sgemm_run_arrays": {"time_s": res.time_s, "gflops": res.gflops,
                                  "launches": launches, **run_check}}
+    emit(line)
+    return line
+
+
+def _gemm_timing(gemm, a, bt, check: dict) -> dict:
+    """K12's row at one shape: the call (split + GEMM), each grid alone, the
+    plain version and torch.matmul (TF32 off), the route's bound (8 bf16
+    products a term on the tensor cores) and the FP32 bound beside it."""
+    m, k = a.shape
+    n = bt.shape[0]
+    pa, pb = gemm.split_bf16x3(a, bt)
+    ms = time_ms(lambda: gemm.matmul_nt(a, bt), 20)
+    gemm_ms = time_ms(lambda: gemm.gemm_bf16x3(pa, pb), 20)
+    split_ms = time_ms(lambda: gemm.split_bf16x3(a, bt), 20)
+    plain_ms = time_ms(lambda: gemm.matmul_nt_plain(a, bt), 5)
+    library_ms = time_ms(lambda: gemm.matmul_nt_torch(a, bt), 20)
+    launch = gemm.gemm_launch_config(m, n, k)
+    if launch["gemm"]["tile"][2] != gemm.KPAD:  # the pieces' rows pad to whole K tiles
+        raise AssertionError(f"gemm.KPAD {gemm.KPAD} != the kernel's BK {launch['gemm']}")
+    flops = 2.0 * m * n * k
+    nbytes = 4 * (m * k + n * k + m * n)
+    tb = nbytes / PEAK_BYTES_S * 1e3
+    tf = 8 * flops / PEAK_BF16_FLOPS * 1e3
+    return {
+        "name": "matmul_nt", "route": "cuda",
+        "source": "lilac_tpu_torch/csrc/gemm.cu",
+        "replaces": "lilac_tpu/kernels/pallas_gemm.py:46",
+        "launches": 0, "max_abs_err": check["max_abs_err_vs_plain"],
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(tb, tf), "bound_by": "bytes" if tb >= tf else "operations",
+        "library_ms": library_ms,
+        "library": "torch.matmul, allow_tf32 = False",
+        "f32_bound_ms": flops / PEAK_F32_FLOPS * 1e3,
+        "gemm_ms": gemm_ms, "split_ms": split_ms,
+        "grids_per_call": 2,
+        "launch": launch,
+        "shape": {"M": m, "N": n, "K": k, "dtype": "float32"},
+        "bytes": nbytes, "flops": flops, "tensor_core_flops": 8 * flops,
+        "gflops": flops / ms / 1e6, "library_gflops": flops / library_ms / 1e6,
+    }
+
+
+def phase_gemm_diag() -> dict:
+    """How the tensor cores round K12's f32 accumulation (opt-in, not part
+    of the whole run; times nothing). One-piece operands (pieces 1 and 2
+    zero) go straight to gemm_bf16x3, so each row of C is one wgmma
+    accumulation acc_hi of exact bf16 products whose exact sum needs more
+    than 24 bits: against 1 (u = 2^-23, the ulp of 1) a small product in
+    the same K step of 16 or in a later one, a tie, many small products,
+    cancellation of two large ones, and bf16 / f32 subnormals. Each case
+    reports the value it got against the exact sum rounded to nearest and
+    toward zero."""
+    from fractions import Fraction
+
+    from lilac_tpu_torch.kernels import gemm
+
+    u = 2.0 ** -23
+    # (name, {k: a}, B row): B row 0 is all ones, 1 has 2^20 at k = 0, 2 has
+    # 2^-70 at k = 0
+    cases = [
+        ("small_in_step", {0: 1.0, 1: 0.75 * u}, 0),
+        ("small_in_step_negative", {0: -1.0, 1: -0.75 * u}, 0),
+        ("tie_in_step", {0: 1.0, 1: 0.5 * u}, 0),
+        ("above_tie_in_step", {0: 1.0, 1: 0.5 * u, 2: 2.0 ** -40}, 0),
+        ("fifteen_quarters_in_step", {0: 1.0, **{j: 0.25 * u for j in range(1, 16)}}, 0),
+        ("small_next_step", {0: 1.0, 16: 0.75 * u}, 0),
+        ("small_next_step_negative", {0: -1.0, 16: -0.75 * u}, 0),
+        ("small_next_tile", {0: 1.0, 64: 0.75 * u}, 0),
+        ("sixteen_quarters_next_step", {0: 1.0, **{j: 0.25 * u for j in range(16, 32)}}, 0),
+        ("cancel_in_step", {0: 1.0, 1: -1.0, 2: 2.0 ** -30}, 0),
+        ("cancel_across_steps", {0: 1.0, 16: -1.0, 17: 2.0 ** -30}, 0),
+        ("bf16_subnormal_piece", {0: 2.0 ** -130}, 1),
+        ("f32_subnormal_product", {0: 2.0 ** -70}, 2),
+    ]
+    K = 128
+    M = len(cases)
+    A = np.zeros((M, K), dtype=np.float64)
+    for i, (_, vals, _) in enumerate(cases):
+        for k, v in vals.items():
+            A[i, k] = v
+    B = np.zeros((3, K))
+    B[0, :] = 1.0
+    B[1, 0] = 2.0 ** 20
+    B[2, 0] = 2.0 ** -70
+    pa = torch.zeros((3, M, K), dtype=torch.bfloat16, device=DEVICE)
+    pb = torch.zeros((3, 3, K), dtype=torch.bfloat16, device=DEVICE)
+    pa[0] = torch.as_tensor(A.astype(np.float32), device=DEVICE).to(torch.bfloat16)
+    pb[0] = torch.as_tensor(B.astype(np.float32), device=DEVICE).to(torch.bfloat16)
+    # every value above is a bf16 (a subnormal one too), so the pieces are exact
+    if not torch.equal(pa[0].double().cpu(), torch.as_tensor(A)) or not torch.equal(
+            pb[0].double().cpu(), torch.as_tensor(B)):
+        raise AssertionError("gemm_diag: an input is not a bf16")
+    c = gemm.gemm_bf16x3(pa, pb).cpu().numpy()
+    rows = []
+    for i, (name, vals, brow) in enumerate(cases):
+        exact = sum(Fraction(v) * Fraction(B[brow, k]) for k, v in vals.items())
+        rn = np.float32(float(exact))  # f64 holds every exact sum here
+        rz = np.nextafter(rn, np.float32(0)) if abs(Fraction(float(rn))) > abs(exact) else rn
+        got = np.float32(c[i, brow])
+        how = "nearest" if got == rn else "toward zero" if got == rz else "other"
+        ulp = float(np.spacing(np.float32(max(abs(float(exact)), 2.0 ** -149))))
+        rows.append({"case": name, "exact": float(exact), "got": float(got),
+                     "nearest": float(rn), "toward_zero": float(rz), "matches": how,
+                     "err_ulps": float(abs(Fraction(float(got)) - exact) / Fraction(ulp))})
+    # the cases where nearest and toward zero differ by a whole ulp
+    decisive = {r["matches"] for r in rows
+                if r["case"].startswith("small_") or r["case"] == "above_tie_in_step"}
+    verdict = decisive.pop() if len(decisive) == 1 else "mixed"
+    line = {"phase": "gemm_diag", "accumulation": verdict, "cases": rows}
     emit(line)
     return line
 
@@ -2099,7 +2365,8 @@ def build_plan_c():
     return plan_c
 
 
-PARTS = {"hier", "inner", "inner_diag", "k11", "tiles", "c", "d", "gemm", "parboil"}
+PARTS = {"hier", "inner", "inner_diag", "window", "window_diag", "k11", "tiles", "c",
+         "d", "gemm", "gemm_diag", "parboil"}
 
 
 def main(argv) -> int:
@@ -2122,11 +2389,17 @@ def main(argv) -> int:
         phase_inner()
     if "inner_diag" in only:
         phase_inner_diag()
+    if "window" in only:
+        phase_window()
+    if "window_diag" in only:
+        phase_window_diag()
     if "c" in only:
         kernels.update(phase_kernels(build_plan_c()))
     if "hier" in only:
         phase_hier_small()
         phase_hier_general(kernels)
+    if "gemm_diag" in only:
+        phase_gemm_diag()
     if "gemm" in only:
         phase_gemm(kernels)
     if "parboil" in only:
@@ -2155,6 +2428,7 @@ def main(argv) -> int:
 
     phase_hier_small()
     phase_inner()
+    phase_window()
     phase_hier_general(kernels)
     phase_npb_small()
     phase_gemm(kernels)

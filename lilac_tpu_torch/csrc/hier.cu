@@ -38,7 +38,17 @@
 //   K5 needs no resident window. y[i] <- m_s[i] ? y[i - d_s] : y[i] over
 //      <= 8 stages composes into one gather: walking the stages backwards
 //      from output slot i through the mask bits gives the slot the value
-//      came from. Only the 2*bl mask bytes are staged in shared memory.
+//      came from, at most sum(d) to its left. A block is cut into bl / C
+//      thread blocks of C output slots (C = 128: 4096 thread blocks of 32
+//      threads for one net at m = 2^19, bl = 2^13, where whole blocks gave
+//      64 for 132 SMs; C = 1024 took 0.333 ms against 0.293 at class D's
+//      shapes on an H100 80GB HBM3 at 700 W). Each stages only the mask
+//      bytes its walks can read, [bl + c0 - sum(d), bl + c0 + C) of the
+//      (left, self) window, with 16-byte cp.async; a thread walks 4
+//      consecutive slots, reads their sources through L1 (one vector load
+//      where the 4 are consecutive) and stores them as one vector a plane.
+//      Staging the sources in shared memory, or loading a thread's own
+//      words while its mask bytes arrive, measured slower.
 //   K6 is one select between two blocks.
 // Shared memory bounds bl through K9 (adjoint.cu), not through these; the
 // inner pass takes at most 2^14 slots, 1024 threads of 16 (see
@@ -138,43 +148,70 @@ struct Shifts {
   int d[8];
 };
 
-// grid (nblocks, N). masks [N, nblocks, 2 * bl] bytes: the first bl are the
-// left neighbour's switches (zero for block 0), bit s is stage s. Shared
-// memory: the 2 * bl mask bytes.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+// grid (nblocks * bl / span, N), span / 4 threads: thread block x serves
+// output slots [c0, c0 + span) of block x / (bl / span). masks [N, nblocks,
+// 2 * bl] bytes (16-byte aligned): the first bl are the left neighbour's
+// switches (zero for block 0), bit s is stage s. Shared memory: the mask
+// bytes of window positions [w0, bl + c0 + span), w0 = (bl + c0 - sum(d))
+// & ~15, by 16-byte cp.async.
 template <typename T, int NP>
-__global__ void hier_window_kernel(const T* __restrict__ s0,
-                                   const T* __restrict__ s1, long long sstride,
-                                   T* __restrict__ d0, T* __restrict__ d1,
-                                   long long m, int bl,
-                                   const uint8_t* __restrict__ masks,
-                                   Shifts sh, Layout lay) {
-  extern __shared__ __align__(32) unsigned char smem_raw[];
+__global__ void __launch_bounds__(1024)
+    hier_window_kernel(const T* __restrict__ s0, const T* __restrict__ s1,
+                       long long sstride, T* __restrict__ d0, T* __restrict__ d1,
+                       long long m, int bl, const uint8_t* __restrict__ masks,
+                       Shifts sh, int sumd, int span, Layout lay) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   uint8_t* mk = smem_raw;
-  const long long b = blockIdx.x;
+  const int parts = bl / span;
+  const long long b = blockIdx.x / parts;
+  const int c0 = (blockIdx.x % parts) * span;
   const long long n = blockIdx.y;
-  const long long nblocks = gridDim.x;
+  const long long nblocks = gridDim.x / parts;
+  const int w0 = (bl + c0 - sumd) & ~15;
   {
-    const uint32_t* g =
-        reinterpret_cast<const uint32_t*>(masks + (n * nblocks + b) * 2 * bl);
-    uint32_t* w = reinterpret_cast<uint32_t*>(mk);
-    for (int i = threadIdx.x; i < bl / 2; i += blockDim.x) w[i] = g[i];
+    const uint8_t* g = masks + (n * nblocks + b) * 2 * bl + w0;
+    const int chunks = (bl + c0 + span - w0) / 16;
+    for (int j = threadIdx.x; j < chunks; j += blockDim.x) cp_async16(mk + 16 * j, g + 16 * j);
+    asm volatile("cp.async.wait_all;" ::: "memory");
   }
   __syncthreads();
   // block 0's left neighbour is block nblocks - 1 (its switches are zero,
   // but a switch of block 0 itself may still reach across)
   const long long left = n * sstride + phys_of((b + nblocks - 1) % nblocks, lay) * bl;
   const long long self = n * sstride + phys_of(b, lay) * bl;
-  const long long dst = n * m + b * bl;
+  const int i0 = c0 + 4 * threadIdx.x;
+  long long src[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    int w = bl + i0 + j;  // position in the (left, self) window
+    for (int s = sh.n - 1; s >= 0; --s) {
+      if ((mk[w - w0] >> s) & 1) w -= sh.d[s];  // sum(d) < bl keeps w > 0
+    }
+    src[j] = (w >= bl) ? self + (w - bl) : left + w;
+  }
+  // the four sources in a row from a multiple of 4: one aligned vector load
+  const bool run = src[1] == src[0] + 1 && src[2] == src[0] + 2 &&
+                   src[3] == src[0] + 3 && (src[0] & 3) == 0;
+  const long long dst = n * m + b * bl + i0;
   const T* srcs[2] = {s0, s1};
   T* dsts[2] = {d0, d1};
-  for (int i = threadIdx.x; i < bl; i += blockDim.x) {
-    int w = bl + i;  // position in the (left, self) window
-    for (int s = sh.n - 1; s >= 0; --s) {
-      if ((mk[w] >> s) & 1) w -= sh.d[s];  // sum(d) < bl keeps w > 0
-    }
-    const long long src = (w >= bl) ? self + (w - bl) : left + w;
 #pragma unroll
-    for (int p = 0; p < NP; ++p) dsts[p][dst + i] = srcs[p][src];
+  for (int p = 0; p < NP; ++p) {
+    Quad<T> q;
+    if (run) {
+      q = *reinterpret_cast<const Quad<T>*>(srcs[p] + src[0]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) q.v[j] = __ldg(srcs[p] + src[j]);
+    }
+    *reinterpret_cast<Quad<T>*>(dsts[p] + dst) = q;
   }
 }
 
@@ -336,20 +373,24 @@ cudaError_t launch_butterfly(bool rev, int g, const void* s0, const void* s1,
   return launch_butterfly_dir<T, NP, false>(g, s0, s1, sstride, d0, d1, m, N, bl, masks, map, stream);
 }
 
+// shared memory of a window thread block: the mask bytes of its span and of
+// the sum(d) positions before it, from a 16-byte boundary
+int window_smem(int span, int sumd) { return (span + sumd + 15 + 15) & ~15; }
+
 template <typename T, int NP>
 cudaError_t launch_window(const void* s0, const void* s1, long long sstride,
                           void* d0, void* d1, long long m, int N, int bl,
-                          const void* masks, const Shifts& sh,
+                          const void* masks, const Shifts& sh, int sumd, int span,
                           const Layout& lay, cudaStream_t stream) {
   static SmemAllowed allowed;
-  const size_t smem = 2 * static_cast<size_t>(bl);
+  const size_t smem = window_smem(span, sumd);
   cudaError_t err = allow_smem(hier_window_kernel<T, NP>, smem, &allowed);
   if (err != cudaSuccess) return err;
-  dim3 grid(static_cast<unsigned>(m / bl), static_cast<unsigned>(N));
-  hier_window_kernel<T, NP><<<grid, block_threads(bl), smem, stream>>>(
+  dim3 grid(static_cast<unsigned>(m / bl * (bl / span)), static_cast<unsigned>(N));
+  hier_window_kernel<T, NP><<<grid, span / 4, smem, stream>>>(
       static_cast<const T*>(s0), static_cast<const T*>(s1), sstride,
       static_cast<T*>(d0), static_cast<T*>(d1), m, bl,
-      static_cast<const uint8_t*>(masks), sh, lay);
+      static_cast<const uint8_t*>(masks), sh, sumd, span, lay);
   return cudaGetLastError();
 }
 
@@ -535,19 +576,22 @@ extern "C" int lilac_hier_butterfly_t(const void* s0, const void* s1,
                        masks, g, nrest, gid_pos, mem_phys, stream);
 }
 
+// span: output slots a thread block, a power of two from 128 to
+// min(bl, 4096); masks 16-byte aligned.
 extern "C" int lilac_hier_window(const void* s0, const void* s1, int nplanes,
                                  int esize, long long sstride, void* d0,
                                  void* d1, long long m, int N, int bl,
                                  const void* masks, int S, const int* dists,
-                                 int nbits, const unsigned char* layout,
+                                 int nbits, const unsigned char* layout, int span,
                                  void* stream) {
   Shifts sh;
   Layout lay;
   if (!shape_ok(m, N, bl, nplanes, esize) || S < 0 || S > 8 ||
-      !fill_layout(&lay, nbits, layout)) {
+      !fill_layout(&lay, nbits, layout) || span < 128 || span > 4096 || span > bl ||
+      (span & (span - 1)) != 0 || reinterpret_cast<uintptr_t>(masks) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  long long total = 0;
+  int total = 0;
   sh.n = S;
   for (int s = 0; s < 8; ++s) {
     sh.d[s] = s < S ? dists[s] : 0;
@@ -557,7 +601,7 @@ extern "C" int lilac_hier_window(const void* s0, const void* s1, int nplanes,
   if (total >= bl) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   return static_cast<int>(LILAC_DISPATCH(launch_window, s0, s1, sstride, d0, d1,
-                                         m, N, bl, masks, sh, lay, cs));
+                                         m, N, bl, masks, sh, total, span, lay, cs));
 }
 
 extern "C" int lilac_hier_bigshift(const void* s0, const void* s1, int nplanes,

@@ -31,9 +31,10 @@ SOURCES = ("routed", "dfmulred", "hier", "adjoint", "gemm")
 # --fmad=false holds for EVERY source: no contraction of a*b+c into FMA
 # anywhere (the error-free transformations of the df64 kernel and of the
 # adjoint merges need every step rounded on its own; the sources also use
-# the _rn intrinsics). A kernel that wants fused multiply-adds spells them
-# out: gemm.cu (K12) writes its inner product with __fmaf_rn, since under
-# this flag a written a*b+c is an FMUL and an FADD. No -use_fast_math.
+# the _rn intrinsics). A kernel that wants a fused multiply-add spells it
+# out (__fmaf_rn), since under this flag a written a*b+c is an FMUL and an
+# FADD; gemm.cu (K12) multiplies on the tensor cores and rounds its split
+# and epilogue with _rn intrinsics. No -use_fast_math.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -633,8 +633,9 @@ def pass_smem_bytes(p, bl: int, nplanes: int, esize: int = 4) -> int:
         return (nplanes * esize // 4 + (len(p[1]) + 31) // 32) * bl * 4
     if kind == "window":
         # the adjoint's bl + sum(d) slots (rounded up to 4) with their mask
-        # bytes; the forward gathers its values and stages only the window's
-        # 2 * bl mask bytes, always less
+        # bytes; the forward gathers its values and stages only the mask
+        # bytes its span of output slots can reach (window_smem_bytes: span +
+        # sum(d), span <= bl), always less
         slots = (bl + sum(p[1]) + 3) // 4 * 4
         return slots * (nplanes * esize + 1)
     if kind in ("butterfly", "bigshift"):
@@ -1219,7 +1220,7 @@ def _hier_lib():
         for fn in (lib.lilac_hier_butterfly, lib.lilac_hier_butterfly_t):
             fn.argtypes = head + [ci, ci, ub, ctypes.POINTER(ci), vp]
         lib.lilac_hier_window.argtypes = head + [
-            ci, ctypes.POINTER(ci), ci, ub, vp]
+            ci, ctypes.POINTER(ci), ci, ub, ci, vp]
         lib.lilac_hier_bigshift.argtypes = head + [ll, ci, ub, vp]
         lib.lilac_hier_smem_optin.argtypes = [ctypes.POINTER(ci)]
         for fn in (lib.lilac_hier_inner, lib.lilac_hier_butterfly,
@@ -1391,8 +1392,32 @@ def butterfly_apply(x_planes, masks, block_bits, bl: int, *, layout=None):
     return out
 
 
-def _window(x_planes, masks, dists, bl, layout, net_axis):
+WINDOW_SPAN = 128  # output slots of one window thread block (4 a thread)
+
+
+def window_span(bl: int, span: int | None = None) -> int:
+    """Output slots of one thread block of the window pass: the caller's (a
+    test forcing another), checked, or WINDOW_SPAN. A power of two from 128
+    to min(bl, 4096) (4 slots a thread, at most 1024 threads)."""
+    if span is None:
+        return WINDOW_SPAN
+    if span < 128 or span & (span - 1) or span > min(bl, 4096):
+        raise ValueError(
+            f"window span {span} must be a power of two from 128 to min(bl={bl}, 4096)")
+    return span
+
+
+def window_smem_bytes(span: int, dists) -> int:
+    """Shared memory of one thread block of the forward window pass: the mask
+    bytes its walks can read, span + sum(d) positions from a 16-byte
+    boundary."""
+    return (span + sum(dists) + 30) & ~15
+
+
+def _window(x_planes, masks, dists, bl, layout, net_axis, span=None):
     if not masks.is_cuda:
+        if span is not None:
+            window_span(bl, span)
         return window_shift_apply_plain(x_planes, masks, dists, bl, layout=layout)
     what = "window_shift_apply"
     mk = _net_masks(masks, net_axis, False, what)
@@ -1402,30 +1427,42 @@ def _window(x_planes, masks, dists, bl, layout, net_axis):
         raise ValueError(f"{what}: masks {tuple(mk.shape)} do not match bl={bl}")
     if S > 8 or sum(dists) >= bl or any(d < 1 for d in dists):
         raise ValueError(f"{what}: takes <= 8 shifts with sum < bl, got {dists}")
+    if mk.data_ptr() % 16:
+        raise ValueError(f"{what}: masks must be 16-byte aligned")
+    span = window_span(bl, span)
     lay = _norm_layout(layout, nblocks)
     check_smem_feasible(
         (("window", dists),), bl, len(x_planes), x_planes[0].element_size(),
         limit=smem_optin_bytes(mk.device), what=what)
-    tail = (S, (ctypes.c_int * 8)(*[int(d) for d in dists]), len(lay), _ubytes(lay))
+    tail = (S, (ctypes.c_int * 8)(*[int(d) for d in dists]), len(lay), _ubytes(lay), span)
     outs = _launch_hier("lilac_hier_window", what, x_planes, mk, N, nblocks, bl, tail)
     return outs if net_axis else tuple(o[0] for o in outs)
 
 
-def window_shift_apply_b(x_planes, masks, dists, bl: int, *, layout=None):
+def window_launch_config(bl: int, dists, *, N: int = 1, nblocks: int = 1) -> dict:
+    """How the forward window pass launches for one shape, for reports."""
+    span = window_span(bl)
+    return {"grid": [nblocks * (bl // span), N], "threads": span // 4,
+            "span": span, "smem_bytes": window_smem_bytes(span, dists)}
+
+
+def window_shift_apply_b(x_planes, masks, dists, bl: int, *, layout=None, span=None):
     """Net-batched window pass (kernel K5): <= 8 fused shift stages
     y[i] <- y[i - d] where mask, sum(d) < bl, over the window (block b - 1,
     block b); writes block b in natural order. masks [N, nblocks, 2R, 128].
-    CUDA tensors take the kernel, CPU tensors the plain version."""
-    outs = _window(x_planes, masks, dists, bl, layout, True)
+    span forces the output slots of one thread block (window_span), for
+    checks only. CUDA tensors take the kernel, CPU tensors the plain
+    version."""
+    outs = _window(x_planes, masks, dists, bl, layout, True, span)
     if masks.is_cuda:
         window_shift_apply_b.launches += 1
     return outs
 
 
-def window_shift_apply(x_planes, masks, dists, bl: int, *, layout=None):
+def window_shift_apply(x_planes, masks, dists, bl: int, *, layout=None, span=None):
     """Window pass of one net (kernel K5u: K5 at N = 1). masks
     [nblocks, 2R, 128]."""
-    outs = _window(x_planes, masks, dists, bl, layout, False)
+    outs = _window(x_planes, masks, dists, bl, layout, False, span)
     if masks.is_cuda:
         window_shift_apply.launches += 1
     return outs
