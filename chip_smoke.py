@@ -19,7 +19,8 @@ proves on the card that
   that every pass kind of their schedule runs, the inner pass (K3, K3u,
   K7) also on forced stage schedules at m = 2^16 (1 to 7 register runs a
   pass, every word format, NaN payloads and signed zeros), the window pass
-  (K5, K5u) at every span of output slots a thread block takes, and the
+  (K5, K5u) and its adjoint (K9) at every span of output slots a thread
+  block takes, K2 on whole products (every chunk in one launch), and the
   exchange passes equal the gather on the index they compose (timed as
   their library yardstick),
 * a general sparse matrix (unsorted rows, a column dense enough to need
@@ -61,11 +62,12 @@ card, to 1e-10 relative. Arguments name phases to run alone, for finding a
 fault ("hier" = the small hierarchical checks and the general matrix, "k11"
 = the single-table adjoint at a small size, "tiles" = K1 and K11 with
 forced small tiles at m = 2^16, "inner" = K3, K3u and K7 on forced stage
-schedules at m = 2^16 and timed at the main paths' shapes, "window" = K5
-and K5u at every span, bit for bit, "c" = K1, K2, K11 on the class C plan,
+schedules at m = 2^16 and timed at the main paths' shapes, "window" = K5,
+K5u and K9 at every span, bit for bit, "c" = K1, K2, K11 on the class C plan,
 "d" = the class D plan, its kernels and its runs, "gemm" = K12 and sgemm,
 "parboil" = Parboil spmv; opt-in, never in the whole run: "inner_diag",
-"window_diag" = K5 and K5u timed at every span, "gemm_diag" = how the
+"window_diag" = K5 and K5u timed at every span, "window_bt_diag" = K9
+timed at every span, "gemm_diag" = how the
 tensor cores round K12's f32 sums); such a run exits
 2 without the last line.
 """
@@ -112,6 +114,25 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_cold_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of fn() with the L2 cache flushed before each
+    call (128 MB written, the H100's L2 holds 50 MB), by CUDA events around
+    each call alone: for a kernel whose inputs fit in L2, which back-to-back
+    calls would otherwise read from there."""
+    fn()
+    flush = torch.empty(32 << 20, dtype=torch.float32, device=DEVICE)
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+             for _ in range(reps)]
+    torch.cuda.synchronize()
+    for start, end in pairs:
+        flush.zero_()  # also keeps the card busy while the call is enqueued
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in pairs) / reps
 
 
 # ---------------------------------------------------------------------------
@@ -425,12 +446,42 @@ def phase_k11_small() -> dict:
     return line
 
 
-def _k2_bound(K: int, R: int):
-    nbytes = 4 * K * R * 4 + 2 * R * 4
+def _k2_bound(chunks):
+    """K2's bound over [(K, R), ...] chunks: (ms, "bytes" | "operations", bytes)."""
+    nbytes = sum(4 * K * R * 4 + 2 * R * 4 for K, R in chunks)
     # per term: TwoProd 17, cross terms 4, TwoSum 6, compensation 2
-    flops = 29 * K * R + 6 * R
+    flops = sum(29 * K * R + 6 * R for K, R in chunks)
     tb, tf = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
     return max(tb, tf), ("bytes" if tb >= tf else "operations"), nbytes
+
+
+def _k2_product(dfk, args, what: str) -> dict:
+    """Time K2 on one whole product (args: dfmulred_chunks' planes and
+    table) beside the same sums one launch a chunk and a torch.cat, as the
+    product was served before, and the plain version; the bound is
+    _k2_bound's bytes and operations summed over the product's chunks. A
+    class C product's 40 MB fit in L2, so its times are taken with L2
+    flushed before each call (`warm_ms`: back to back)."""
+    vh, vl, xh, xl, table = args
+    per_chunk = []
+    for slot0, rows, K, _ in table.spec:
+        sl = slice(slot0, slot0 + K * rows)
+        per_chunk.append(tuple(t[sl].view(K, rows) for t in (vh, vl, xh, xl)))
+
+    def old_path():
+        parts = [dfk.dfmulred(*a) for a in per_chunk]
+        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+    got = dfk.dfmulred_chunks(*args)
+    if not all(_bits_equal(g, w) for g, w in zip(got, old_path())):
+        raise AssertionError(f"K2 on {what}: one launch != one launch a chunk")
+    bound_ms, bound_by, nbytes = _k2_bound([(K, rows) for _, rows, K, _ in table.spec])
+    return {"ms": time_cold_ms(lambda: dfk.dfmulred_chunks(*args), 50),
+            "warm_ms": time_ms(lambda: dfk.dfmulred_chunks(*args), 100),
+            "per_chunk_ms": time_cold_ms(old_path, 50),
+            "plain_ms": time_ms(lambda: dfk.dfmulred_chunks_plain(*args), 3),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "chunks": len(table.spec), "rows": table.rows,
+            "grid": [int(table.blocks.shape[0])], "threads": dfk.K2_ROWS}
 
 
 def phase_kernels(plan_c) -> dict:
@@ -439,6 +490,7 @@ def phase_kernels(plan_c) -> dict:
     plan itself (the shapes the main path gives it), where it is timed."""
     from lilac_tpu_torch.kernels import dfmulred as dfk
     from lilac_tpu_torch.kernels import routed as rd
+    from lilac_tpu_torch.kernels import routed_spmv as rs
     from lilac_tpu_torch.kernels import routenet as rn
     from lilac_tpu_torch.ops.dfloat import split_f64_np
 
@@ -601,18 +653,39 @@ def phase_kernels(plan_c) -> dict:
     ph, pl_ = dfk.dfmulred_plain(*k2_args)
     if not (torch.equal(gh, ph) and torch.equal(gl, pl_)):
         raise AssertionError("dfmulred != plain on the class C plan's values")
-    k2_ms = time_ms(lambda: dfk.dfmulred(*k2_args), 200)
-    k2_plain_ms = time_ms(lambda: dfk.dfmulred_plain(*k2_args), 5)
-    bound_ms, bound_by, k2_bytes = _k2_bound(K_c, R_c)
+    chunk_ms = time_ms(lambda: dfk.dfmulred(*k2_args), 200)
+    chunk_bound_ms, _, chunk_bytes = _k2_bound([(K_c, R_c)])
+    # --- K2 over whole products: V's and V^T's chunks in one launch each ----
+    products = {}
+    for label, M in (("V", V), ("VT", plan_c.A.VT)):
+        table = rs._single_table_k2(M.chunks, M.m)
+        vflat = M.vals.reshape(-1, 2)
+        ph = torch.as_tensor(rng.standard_normal(vflat.shape[0]).astype(np.float32),
+                             device=DEVICE)
+        pl_ = (ph * 2.0 ** -26).contiguous()
+        args = (vflat[:, 0], vflat[:, 1], ph, pl_, table)
+        got = dfk.dfmulred_chunks(*args)
+        want = dfk.dfmulred_chunks_plain(*args)
+        if not all(_bits_equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"dfmulred_chunks != plain on the class C {label} product")
+        products[label] = _k2_product(dfk, args, f"class C {label}")
+        checked.append({"kernel": "dfmulred", "product": f"class C {label}",
+                        "chunks": len(M.chunks), "rows": table.rows})
     k2 = {
         "name": "dfmulred", "route": "cuda",
         "source": "lilac_tpu_torch/csrc/dfmulred.cu",
         "replaces": "lilac_tpu/kernels/dfmulred.py:94",
         "launches": 0, "max_abs_err": k2_err,
-        "ms": k2_ms, "plain_ms": k2_plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-        "shape": {"K": K_c, "R": R_c, "dtype": "float32 (hi, lo)"},
-        "bytes": k2_bytes,
+        "ms": products["V"]["ms"], "plain_ms": products["V"]["plain_ms"],
+        "bound_ms": products["V"]["bound_ms"], "bound_by": products["V"]["bound_by"],
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes a df64 dot2",
+        "shape": {"product": "class C V, all chunks in one launch",
+                  "chunks": products["V"]["chunks"], "rows": products["V"]["rows"],
+                  "dtype": "float32 (hi, lo)"},
+        "bytes": products["V"]["bytes"], "products": products,
+        "chunk_ms": chunk_ms, "chunk_bound_ms": chunk_bound_ms,
+        "chunk_shape": {"K": K_c, "R": R_c}, "chunk_bytes": chunk_bytes,
     }
     emit({"phase": "kernels", "checked": checked,
           "grids_per_call": {"routed_apply": k1_grids, "routed_apply_t": k11_grids},
@@ -621,7 +694,7 @@ def phase_kernels(plan_c) -> dict:
                        "routed_apply_index_gather": gather_ms,
                        "routed_apply_t": k11_ms, "routed_apply_t_plain": k11_plain_ms,
                        "routed_apply_t_index_add": k11_lib_ms,
-                       "dfmulred": k2_ms, "dfmulred_plain": k2_plain_ms}})
+                       "dfmulred_chunk": chunk_ms, "dfmulred_products": products}})
     return {"routed_apply": k1, "dfmulred": k2, "routed_apply_t": k11}
 
 
@@ -778,6 +851,20 @@ def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
         a.contiguous().view(as_int), b.contiguous().view(as_int))
 
 
+def _bits_diff(got, want, show: int = 4) -> list:
+    """Where two lists of planes differ in their bits: per plane the count,
+    the first positions and both words there, for a failure's message."""
+    out = []
+    for g, w in zip(got, want):
+        as_int = torch.int32 if g.element_size() == 4 else torch.int64
+        gi, wi = g.contiguous().view(as_int).reshape(-1), w.contiguous().view(as_int).reshape(-1)
+        bad = (gi != wi).nonzero().reshape(-1)
+        out.append({"differ": int(bad.numel()), "at": bad[:show].tolist(),
+                    "got": [hex(v) for v in gi[bad[:show]].tolist()],
+                    "want": [hex(v) for v in wi[bad[:show]].tolist()]})
+    return out
+
+
 def _call_pass_t(fn, meta, planes, mk, bl, layout, dfpair):
     """One ADJOINT pass through `fn` (a wrapper or a plain version)."""
     kind = meta[0]
@@ -897,6 +984,9 @@ def _walk_schedule_t(rd, planes, metas, masks, bl, dfpair: bool, what: str,
             }
             if kind == "inner":
                 _inner_row(rd, timed[name], planes, meta, bl, N, m)
+            if kind == "window":
+                timed[name]["launch"] = rd.window_bt_launch_config(
+                    bl, meta[1], len(planes), esize, N=N, nblocks=m // bl)
         planes, layout = got, new_layout
     return planes, layout
 
@@ -1277,7 +1367,8 @@ def phase_window() -> dict:
     256, 1024 and the default, the shift sets of _window_dists (sum(d) up to
     bl - 1), random masks (so block 0 reaches into block nblocks - 1),
     identity and scrambled layouts, N = 1 and 16, shared and per-net input,
-    every word format, NaN payloads and signed zeros."""
+    every word format, NaN payloads and signed zeros. Then K9 the same way
+    (_window_bt_checks)."""
     from lilac_tpu_torch.kernels import routed as rd
 
     rng = np.random.default_rng(41)
@@ -1310,10 +1401,95 @@ def phase_window() -> dict:
                             f"{dtype.__name__} x{nplanes} per_net={per_net} layout={lay}: "
                             "kernel != plain")
                     checks += 1
-    line = {"phase": "window", "m": m, "checks": checks, "check_s": round(time.time() - t0, 1),
-            "formats": ["float32 x1", "float32 x2", "float64 x1"]}
+    checks_bt = _window_bt_checks(rd, rng, m)
+    line = {"phase": "window", "m": m, "checks": checks, "checks_bt": checks_bt,
+            "check_s": round(time.time() - t0, 1),
+            "formats": ["float32 x1", "float32 x2", "float64 x1"],
+            "formats_bt": ["float32 x1", "float32 x2", "float32 df64 pair", "float64 x1"]}
     emit(line)
     return line
+
+
+F64_NAN = float(np.array(0x7FF80000000BEEF5, dtype=np.int64).view(np.float64))
+
+
+def _window_bt_dists(bl: int) -> list:
+    """Shift sets of the adjoint window checks: class D's (8, 4, 2, 1), the
+    general matrix's eight (1 .. 128), one shift of bl - 1 and eight shifts
+    that sum to bl - 1."""
+    top = [bl >> j for j in range(1, 8)]
+    return [(8, 4, 2, 1), tuple(1 << j for j in range(8)), (bl - 1,),
+            tuple(top + [bl - 1 - sum(top)])]
+
+
+def _network_windows(m: int, bl: int, N: int, seed: int) -> list:
+    """The window passes compile_hier cuts from N Benes gather networks over
+    m slots (a sixteenth of each net's slots ask for one column, so that
+    broadcast runs cross blocks): [(dists, masks [N, nblocks, 2R, 128])]."""
+    from lilac_tpu_torch.kernels import routed as rd
+    from lilac_tpu_torch.kernels import routenet as rn
+
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, m - 100, size=(N, m))
+    for n in range(N):
+        idx[n, rng.choice(m, size=m // 16, replace=False)] = 5 + n
+    net = rn.build_gather_network(idx, m - 100, m, drop_empty=False)
+    per_net = [rd.compile_hier(net.kinds, net.dists, net.masks[:, n, :], bl)
+               for n in range(N)]
+    return [(p[1], torch.as_tensor(np.stack([per_net[n][j][-1] for n in range(N)]),
+                                   device=DEVICE))
+            for j, p in enumerate(per_net[0]) if p[0] == "window"]
+
+
+def _window_bt_checks(rd, rng, m: int) -> int:
+    """K9 (window_shift_apply_bt) bit for bit (int view) against
+    window_shift_apply_bt_plain at every span it takes (128 to bl output
+    slots a thread block): bl 256, 1024 and the default, the shift sets of
+    _window_bt_dists with random masks (so the last block wraps to block 0)
+    and the window passes of gather networks, identity and scrambled
+    layouts, N = 1 and 16, every word format (f32, f32 x2, an f32 df64
+    pair, f64), NaN payloads and signed zeros in the input. The f64 planes
+    hold NaNs of one payload: where two NaNs of different payloads meet in
+    an f64 add, the H100 keeps one payload and PyTorch's add (a + alpha * b,
+    an FMA on the card) may keep the other. IEEE 754 leaves that choice
+    open, and nvcc may swap an add's operands, so no operand order fixes
+    it. An f32 NaN sum on the card is the canonical NaN either way."""
+    checks = 0
+    limit = rd.smem_optin_bytes(DEVICE)
+    for bl in sorted({256, 1024, rd.default_hier_bl(limit)}):
+        nb = m // bl
+        cases = [(dists, N, None) for dists in _window_bt_dists(bl) for N in (1, 16)]
+        cases += [(dists, mk.shape[0], mk) for dists, mk in _network_windows(m, bl, 2, bl)]
+        for span in (1 << j for j in range(7, 14)):
+            if span > bl:
+                break
+            for dists, N, mk in cases:
+                dtype, nplanes, dfpair = ADJ_FORMATS[checks % len(ADJ_FORMATS)]
+                esize = np.dtype(dtype).itemsize
+                if rd.window_bt_smem_bytes(span, dists, nplanes, esize) > limit:
+                    continue  # the wrapper refuses a span that does not fit
+                lay = (tuple(int(v) for v in rng.permutation(nb.bit_length() - 1))
+                       if checks % 3 else None)
+                if mk is None:
+                    mk = torch.as_tensor(rng.integers(
+                        0, 256, size=(N, nb, 2 * bl // 128, 128),
+                        dtype=np.uint8).view(np.int8), device=DEVICE)
+                xs = _inner_planes(rng, dtype, nplanes, (N, m // 128, 128))
+                if dtype == np.float64:  # see the docstring: one NaN payload
+                    for x in xs:
+                        x[torch.isnan(x)] = F64_NAN
+                got = rd.window_shift_apply_bt(xs, mk, dists, bl, dfpair=dfpair,
+                                               layout=lay, span=span)
+                want = rd.window_shift_apply_bt_plain(xs, mk, dists, bl, dfpair=dfpair,
+                                                      layout=lay)
+                torch.cuda.synchronize()
+                if not all(_bits_equal(g, w) for g, w in zip(got, want)):
+                    raise AssertionError(
+                        f"window_bt: bl={bl} span={span} dists={dists} N={N} "
+                        f"{dtype.__name__} x{nplanes} dfpair={dfpair} layout={lay}: "
+                        f"kernel != plain: {_bits_diff(got, want)}")
+                checks += 1
+    return checks
 
 
 def phase_window_diag() -> dict:
@@ -1350,6 +1526,62 @@ def phase_window_diag() -> dict:
         del xs, mk, want
     torch.cuda.empty_cache()
     line = {"phase": "window_diag", "rows": rows}
+    emit(line)
+    return line
+
+
+def phase_window_bt_diag() -> dict:
+    """K9 (window_shift_apply_bt) at every span (output slots a thread
+    block) it takes, at the main paths' shapes with random masks (opt-in,
+    `window_bt_diag`; not part of the whole run): class D's (N = 16, m =
+    2^21, shifts 8, 4, 2, 1, scrambled layout) and the general matrix's (N =
+    6, m = 2^19, shifts 1 .. 128), df64 pairs. Each span is held bit for bit
+    against the plain version before it is timed."""
+    from lilac_tpu_torch.kernels import routed as rd
+
+    rng = np.random.default_rng(47)
+    bl = rd.default_hier_bl(rd.smem_optin_bytes(DEVICE))
+    rows = []
+    for what, N, m, dists in (("class D", 16, 1 << 21, (8, 4, 2, 1)),
+                              ("general matrix", 6, 1 << 19,
+                               tuple(1 << j for j in range(8)))):
+        nb = m // bl
+        lay = tuple(int(v) for v in rng.permutation(nb.bit_length() - 1))
+        mk = torch.as_tensor(rng.integers(0, 256, size=(N, nb, 2 * bl // 128, 128),
+                                          dtype=np.uint8).view(np.int8), device=DEVICE)
+        us = _adj_planes(rng, (N, m // 128, 128), np.float32, 2, True)
+        want = rd.window_shift_apply_bt_plain(us, mk, dists, bl, dfpair=True, layout=lay)
+        def timed(span, shifts=dists):
+            got = rd.window_shift_apply_bt(us, mk, shifts, bl, dfpair=True, layout=lay,
+                                           span=span)
+            if shifts == dists and not all(_bits_equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"window_bt_diag: {what} span={span} "
+                                     f"spans={rd.WINDOW_BT_SPANS} != plain")
+            return time_ms(lambda: rd.window_shift_apply_bt(
+                us, mk, shifts, bl, dfpair=True, layout=lay, span=span), 20)
+
+        ms = {str(span): timed(span) for span in (1 << j for j in range(7, 14))
+              if span <= bl}
+        # spans a thread block takes in turn, at the default span; and the
+        # same thread blocks with no stage: staging and storing alone
+        span0 = rd.window_bt_span(bl, dists, 2, 4)
+        default_spans = rd.WINDOW_BT_SPANS
+        by_spans = {}
+        try:
+            for spans in (1, 4, 16, 64):
+                rd.WINDOW_BT_SPANS = spans
+                by_spans[str(spans)] = timed(span0)
+        finally:
+            rd.WINDOW_BT_SPANS = default_spans
+        no_stage = {str(span): timed(span, ()) for span in (128, 1024) if span <= bl}
+        nbytes = 2 * N * m * 4 * 2 + mk.numel() // 2
+        rows.append({"shape": what, "N": N, "m": m, "bl": bl, "dists": list(dists),
+                     "default_span": span0, "default_spans_per_block": default_spans,
+                     "bound_ms": nbytes / PEAK_BYTES_S * 1e3, "ms_by_span": ms,
+                     "ms_by_spans_per_block": by_spans, "no_stage_ms_by_span": no_stage})
+        del us, mk, want
+    torch.cuda.empty_cache()
+    line = {"phase": "window_bt_diag", "rows": rows}
     emit(line)
     return line
 
@@ -1537,6 +1769,23 @@ def phase_hier_class_d(plan_d, kernels: dict) -> dict:
     _walk_schedule_t(rd, tuple(u[:1].contiguous() for u in us), grp.pass_meta,
                      [mk[:1].contiguous() for mk in grp.pass_masks], V.bl, True,
                      "class D V plan, one net (N = 1), reversed")
+    # K2 on the group's whole product: every chunk of its nets in one launch
+    from lilac_tpu_torch.kernels import dfmulred as dfk
+    from lilac_tpu_torch.kernels import routed_spmv as rs
+
+    gi = next(i for i, g in enumerate(V.groups) if g is grp)
+    table = rs._hier_k2(V.chunks, tuple(g.net_ids for g in V.groups), V.m)[gi]
+    ph = torch.as_tensor(rng.standard_normal(N * V.m).astype(np.float32), device=DEVICE)
+    k2_args = (grp.vals[0].reshape(-1), grp.vals[1].reshape(-1), ph,
+               (ph * 2.0 ** -26).contiguous(), table)
+    got = dfk.dfmulred_chunks(*k2_args)
+    want = dfk.dfmulred_chunks_plain(*k2_args)
+    if not all(_bits_equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError("dfmulred_chunks != plain on class D's group product")
+    k2_row = kernels.setdefault("dfmulred", {"name": "dfmulred", "launches": 0})
+    k2_row.setdefault("products", {})["class D group"] = _k2_product(
+        dfk, k2_args, "class D's group")
+    del ph, k2_args, got, want
     # NPB's broadcast runs are short, so its plans hold no block-aligned
     # shift: K6 and K10 meet class D's shapes on a random 0/1 mask instead,
     # planes per net, read through the layout a butterfly pass leaves
@@ -1625,7 +1874,8 @@ def phase_hier_class_d(plan_d, kernels: dict) -> dict:
             "schedule_t_ms": schedule_t_ms, "index_add_ms": index_add_ms,
             "transpose_max_err_over_sum_abs": transpose_err,
             "adjoint_identity_err_over_sum_abs": adjoint_identity_err,
-            "bigshift_at_class_d_shapes": shift_extra}
+            "bigshift_at_class_d_shapes": shift_extra,
+            "dfmulred_group_product": k2_row["products"]["class D group"]}
     emit(line)
     return line
 
@@ -2181,8 +2431,9 @@ def phase_main_path_c(kernels: dict) -> dict:
         raise AssertionError(
             f"routed_apply launched {rd.routed_apply.launches} times on "
             f"{matvecs} matvecs (two per matvec expected)")
-    if k2_c < 2 * matvecs:
-        raise AssertionError(f"dfmulred launched only {k2_c} times")
+    if k2_c != 2 * matvecs:
+        raise AssertionError(f"dfmulred launched {k2_c} times on {matvecs} matvecs "
+                             "(one a product, two a matvec expected)")
     kernels["dfmulred"]["launches"] = k2_c
     kernels["dfmulred"]["launches_class_c"] = k2_c
 
@@ -2201,10 +2452,12 @@ def phase_main_path_c(kernels: dict) -> dict:
         routed_apply_t_launches=k11,
         routed_apply_t_grid_launches=rd.routed_apply_t.stage_launches,
         full_width="class C", outer_steps=adj_steps))
-    if k11 != matvecs_adj or rd.routed_apply.launches != matvecs_adj:
+    if (k11 != matvecs_adj or rd.routed_apply.launches != matvecs_adj
+            or dfk.dfmulred.launches != matvecs_adj):
         raise AssertionError(
             f"class C adj: routed_apply {rd.routed_apply.launches}, routed_apply_t "
-            f"{k11} launches on {matvecs_adj} matvecs (one each per matvec expected)")
+            f"{k11}, dfmulred {dfk.dfmulred.launches} launches on {matvecs_adj} "
+            "matvecs (one each per matvec expected)")
     _compare_histories(adj, res, "class C")
     kernels["routed_apply_t"]["launches"] = k11
     kernels["routed_apply_t"]["grid_launches"] = rd.routed_apply_t.stage_launches
@@ -2258,8 +2511,10 @@ def phase_main_path_d(kernels: dict, plan_d):
     for name in ("bigshift_apply_b", "bigshift_apply_bt"):
         if counts[name]:
             kernels[name]["launches_class_d"] = counts[name]
-    if k2_d < matvecs:
-        raise AssertionError(f"dfmulred launched only {k2_d} times on class D")
+    ngroups = len(plan_d.A.V.groups)
+    if k2_d != ngroups * matvecs:
+        raise AssertionError(f"dfmulred launched {k2_d} times on {matvecs} matvecs of "
+                             f"class D (one a packed group, {ngroups} a matvec expected)")
     kernels["dfmulred"]["launches_class_d"] = k2_d
     kernels["dfmulred"]["launches"] += k2_d
     return line, res
@@ -2301,6 +2556,10 @@ def phase_plan_mode_d(kernels: dict, adj_res) -> dict:
         dfmulred_launches=dfk.dfmulred.launches, full_width="class D, na = 1500000",
         outer_steps=steps, factored_vt=res.factored_vt)
     emit(line)
+    k2_groups = len(V.groups) + len(VT.groups)
+    if dfk.dfmulred.launches != k2_groups * matvecs:
+        raise AssertionError(f"plan mode: dfmulred launched {dfk.dfmulred.launches} times "
+                             f"on {matvecs} matvecs ({k2_groups} a matvec expected)")
     for name in FWD_D:
         if counts[name] < 2 * matvecs:
             raise AssertionError(f"plan mode: {name} launched {counts[name]} times on "
@@ -2365,8 +2624,8 @@ def build_plan_c():
     return plan_c
 
 
-PARTS = {"hier", "inner", "inner_diag", "window", "window_diag", "k11", "tiles", "c",
-         "d", "gemm", "gemm_diag", "parboil"}
+PARTS = {"hier", "inner", "inner_diag", "window", "window_diag", "window_bt_diag", "k11",
+         "tiles", "c", "d", "gemm", "gemm_diag", "parboil"}
 
 
 def main(argv) -> int:
@@ -2393,6 +2652,8 @@ def main(argv) -> int:
         phase_window()
     if "window_diag" in only:
         phase_window_diag()
+    if "window_bt_diag" in only:
+        phase_window_bt_diag()
     if "c" in only:
         kernels.update(phase_kernels(build_plan_c()))
     if "hier" in only:

@@ -25,19 +25,30 @@
 //
 // Bound: bytes, for all three (a handful of additions per slot moved).
 // What the design does about it:
-//   K9  is the one pass that must keep slots on chip: up to 8 dependent
-//       stages over the window (block b, block b + 1). One thread block per
-//       (block, net) loads the bl slots of block b and only the sum(d)
-//       slots of block b + 1 that can reach them (sum(d) < bl is what keeps
-//       cyclic wrap-around out of the first bl outputs, so it is never
-//       computed), with the two mask rows, into shared memory; every stage
-//       runs there, in place. In place is safe because a stage reads only
-//       upwards (i and i + d): the block sweeps the window in ascending
-//       chunks of blockDim slots, each chunk read into registers, one
-//       barrier, then written; a later chunk never reads what an earlier
-//       one wrote. No second copy of the window is needed, which at
-//       bl = 2^13 and a df64 pair would not fit beside the first. Stage s
-//       produces only the slots the stages still to come can reach.
+//   K9  keeps slots on chip: up to 8 dependent stages over the window
+//       (block b, block b + 1). A stage reads upwards only (i and i + d),
+//       so the C outputs of a span [c0, c0 + C) need input slots [c0, c0 +
+//       C + sum(d)) of the window and their mask bytes, nothing else: a
+//       thread block stages exactly that (16-byte cp.async; the right block
+//       is read through the layout like block b, and sum(d) < bl keeps
+//       cyclic wrap-around out of the span). C is a power of two from 128
+//       to bl (window_bt_span in kernels/routed.py: 512 for class D's
+//       shifts, 1024 for the general matrix's), C / 4 threads of 4
+//       consecutive slots. Stage s (last to first) produces slots [0, C +
+//       d[0] + .. + d[s-1]) of the span, reading one buffer and writing the
+//       other: one barrier a stage; a thread reads its own 4 words and mask
+//       bytes as vectors, those at i + d as the vectors around them, and
+//       the few halo slots past C go one a thread. The span is stored as
+//       one 16-byte vector a plane a thread. A thread block takes G spans
+//       of one window block in turn (window_bt_spans: 16) and copies span
+//       g + 1 into its second input slot while span g's stages run:
+//       staging alone was bound by the copies a thread block has in flight
+//       (class D, no stage: 0.373 ms one span a thread block, 0.227 with
+//       G = 16, H100 80GB HBM3 at 700 W). The halo slots computed and
+//       thrown away are sum(d) / C of the span. The first design (one
+//       thread block a window block, 1024 threads, the window updated in
+//       place in 9 chunks a stage with two barriers a chunk, 74 KB of
+//       shared memory) took 0.541 ms at class D's shapes.
 //   K10 is one merge of two blocks read through the layout.
 //   K11 runs K1's passes (tile_pass.cuh) last to first, each pass's stages
 //       backwards, with the merges above in place of the copies: a pass's
@@ -80,87 +91,160 @@ __device__ __forceinline__ long long phys_block(long long b, const Layout& l) {
 struct Shifts {
   int n;
   int d[8];
-  int lim[9];  // lim[s] = bl + d[0] + .. + d[s-1]: slots stage s must produce
+  int pre[9];  // pre[s] = d[0] + .. + d[s-1]: stage s produces C + pre[s] slots
 };
 
-// grid (nblocks, N). masks [N, nblocks, 2 * bl] bytes as the forward pass
-// reads them; the adjoint's window masks are the SECOND halves (a block's
-// own switches) of blocks b and b + 1, bit s = stage s. W = lim[n] rounded
-// up to 4 slots. Shared memory: NP planes of W words, then W mask bytes.
-template <typename T, int NP, bool DF>
-__global__ void adj_window_kernel(const T* __restrict__ s0,
-                                  const T* __restrict__ s1, long long sstride,
-                                  T* __restrict__ d0, T* __restrict__ d1,
-                                  long long m, int bl,
-                                  const uint8_t* __restrict__ masks, Shifts sh,
-                                  int W, Layout lay) {
-  extern __shared__ __align__(32) unsigned char smem_raw[];
-  T* u = reinterpret_cast<T*>(smem_raw);
-  uint8_t* mk = smem_raw + static_cast<size_t>(NP) * W * sizeof(T);
+// words r .. r + 3 of the 8 in x, y (r = 1, 2, 3)
+template <typename T>
+__device__ __forceinline__ Quad<T> shifted(const Quad<T>& x, const Quad<T>& y, int r) {
+  Quad<T> o;
+  if (r == 1) {
+    o.v[0] = x.v[1]; o.v[1] = x.v[2]; o.v[2] = x.v[3]; o.v[3] = y.v[0];
+  } else if (r == 2) {
+    o.v[0] = x.v[2]; o.v[1] = x.v[3]; o.v[2] = y.v[0]; o.v[3] = y.v[1];
+  } else {
+    o.v[0] = x.v[3]; o.v[1] = y.v[0]; o.v[2] = y.v[1]; o.v[3] = y.v[2];
+  }
+  return o;
+}
 
-  const long long b = blockIdx.x;
+// One stage of the adjoint over a span held in shared memory: slots [0,
+// lim) of v from u, u' = (m[i] ? 0 : u[i]) + (m[i + d] ? u[i + d] : 0). The
+// span's slots go 4 consecutive a thread, its own words and mask bytes as
+// vectors and those at i + d as the vectors around them; the halo past the
+// span (lim - span slots) one a thread.
+template <typename T, int NP, bool DF>
+__device__ __forceinline__ void window_stage(const T* u, T* v, const uint8_t* mk,
+                                             int Wv, int span, int lim, int d, int s) {
+  const int r = d & 3, d4 = d - r;
+  for (int i = threadIdx.x * 4; i < span; i += blockDim.x * 4) {
+    const uint32_t mw = *reinterpret_cast<const uint32_t*>(mk + i);
+    uint32_t mjw = *reinterpret_cast<const uint32_t*>(mk + i + d4);
+    if (r) {
+      mjw = __funnelshift_r(mjw, *reinterpret_cast<const uint32_t*>(mk + i + d4 + 4),
+                            8 * r);
+    }
+    Quad<T> a[NP], c[NP], o[NP];
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      a[p] = *reinterpret_cast<const Quad<T>*>(u + p * Wv + i);
+      const Quad<T> c0 = *reinterpret_cast<const Quad<T>*>(u + p * Wv + i + d4);
+      c[p] = r ? shifted(c0, *reinterpret_cast<const Quad<T>*>(u + p * Wv + i + d4 + 4), r)
+               : c0;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bool mi = (mw >> (8 * j + s)) & 1u;
+      const bool mj = (mjw >> (8 * j + s)) & 1u;
+      T kept[NP], moved[NP], out[NP];
+#pragma unroll
+      for (int p = 0; p < NP; ++p) {
+        kept[p] = mi ? T(0) : a[p].v[j];
+        moved[p] = mj ? c[p].v[j] : T(0);
+      }
+      merge<T, NP, DF>(kept, moved, out);
+#pragma unroll
+      for (int p = 0; p < NP; ++p) o[p].v[j] = out[p];
+    }
+#pragma unroll
+    for (int p = 0; p < NP; ++p) *reinterpret_cast<Quad<T>*>(v + p * Wv + i) = o[p];
+  }
+  for (int i = span + threadIdx.x; i < lim; i += blockDim.x) {
+    const bool mi = (mk[i] >> s) & 1;
+    const bool mj = (mk[i + d] >> s) & 1;
+    T kept[NP], moved[NP], out[NP];
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+      kept[p] = mi ? T(0) : u[p * Wv + i];
+      moved[p] = mj ? u[p * Wv + i + d] : T(0);
+    }
+    merge<T, NP, DF>(kept, moved, out);
+#pragma unroll
+    for (int p = 0; p < NP; ++p) v[p * Wv + i] = out[p];
+  }
+}
+
+// grid (nblocks * bl / (span * G), N), min(span / 4, 1024) threads: thread
+// block x serves G consecutive spans of output slots of window block b, the
+// g-th at c0 = (x * G % (bl / span) + g) * span. masks [N, nblocks, 2 * bl]
+// bytes (16-byte aligned) as the forward pass reads them; the adjoint's
+// window masks are the SECOND halves (a block's own switches) of blocks b
+// and b + 1, bit s = stage s. Shared memory: input slots (two where G > 1,
+// else one), each NP planes of Wv words (span + sum(d) rounded up to 4) and
+// Wm mask bytes (rounded up to 32), then one more buffer of NP planes for
+// the stages' ping-pong. The copies for span g + 1 are issued before span
+// g's stages run.
+template <typename T, int NP, bool DF>
+__global__ void __launch_bounds__(1024)
+    adj_window_kernel(const T* __restrict__ s0, const T* __restrict__ s1,
+                      long long sstride, T* __restrict__ d0, T* __restrict__ d1,
+                      long long m, int bl, const uint8_t* __restrict__ masks,
+                      Shifts sh, int span, int G, int Wv, int Wm, Layout lay) {
+  extern __shared__ __align__(32) unsigned char smem_raw[];
+  const int slot_bytes = NP * Wv * sizeof(T) + Wm;
+  T* const tmp = reinterpret_cast<T*>(smem_raw + (G > 1 ? 2 : 1) * slot_bytes);
+
+  const int parts = bl / span;
+  const long long first = static_cast<long long>(blockIdx.x) * G;
+  const long long b = first / parts;
+  const int k0 = static_cast<int>(first % parts);
   const long long n = blockIdx.y;
-  const long long nblocks = gridDim.x;
+  const long long nblocks = gridDim.x * static_cast<long long>(G) / parts;
   const long long rb = (b + 1) % nblocks;  // the last block's right is block 0
   const long long self = n * sstride + phys_block(b, lay) * bl;
   const long long right = n * sstride + phys_block(rb, lay) * bl;
+  const uint8_t* mself = masks + ((n * nblocks + b) * 2 + 1) * bl;
+  const uint8_t* mright = masks + ((n * nblocks + rb) * 2 + 1) * bl;
   const T* srcs[2] = {s0, s1};
   T* dsts[2] = {d0, d1};
 
+  // window positions [c0, c0 + Wv) of every plane and [c0, c0 + Wm) of the
+  // masks into input slot q; a 16-byte copy never straddles slot bl
+  auto stage_in = [&](int g, int q) {
+    const int c0 = (k0 + g) * span;
+    T* u = reinterpret_cast<T*>(smem_raw + q * slot_bytes);
+    uint8_t* mk = smem_raw + q * slot_bytes + NP * Wv * sizeof(T);
+    constexpr int kPer = 16 / sizeof(T);
 #pragma unroll
-  for (int p = 0; p < NP; ++p) {
-    for (int i = threadIdx.x * 4; i < W; i += blockDim.x * 4) {
-      const T* g = i < bl ? srcs[p] + self + i : srcs[p] + right + (i - bl);
-      *reinterpret_cast<Quad<T>*>(u + p * W + i) =
-          *reinterpret_cast<const Quad<T>*>(g);
-    }
-  }
-  {
-    const uint8_t* mself = masks + ((n * nblocks + b) * 2 + 1) * bl;
-    const uint8_t* mright = masks + ((n * nblocks + rb) * 2 + 1) * bl;
-    uint32_t* w = reinterpret_cast<uint32_t*>(mk);
-    for (int i = threadIdx.x * 4; i < W; i += blockDim.x * 4) {
-      w[i >> 2] = *reinterpret_cast<const uint32_t*>(
-          i < bl ? mself + i : mright + (i - bl));
-    }
-  }
-  __syncthreads();
-
-  for (int s = sh.n - 1; s >= 0; --s) {
-    const int d = sh.d[s];
-    const int lim = sh.lim[s];  // i < lim reads i + d < lim[s + 1] <= W
-    for (int base = 0; base < lim; base += blockDim.x) {
-      const int i = base + threadIdx.x;
-      const bool active = i < lim;
-      T out[NP];
-      if (active) {
-        const bool mi = (mk[i] >> s) & 1;
-        const bool mj = (mk[i + d] >> s) & 1;
-        T kept[NP], moved[NP];
-#pragma unroll
-        for (int p = 0; p < NP; ++p) {
-          const T a = u[p * W + i];
-          const T c = u[p * W + i + d];
-          kept[p] = mi ? T(0) : a;
-          moved[p] = mj ? c : T(0);
-        }
-        merge<T, NP, DF>(kept, moved, out);
-      }
-      __syncthreads();  // the chunk is read: slots below base + blockDim may change
-      if (active) {
-#pragma unroll
-        for (int p = 0; p < NP; ++p) u[p * W + i] = out[p];
+    for (int p = 0; p < NP; ++p) {
+      for (int i = threadIdx.x * kPer; i < Wv; i += blockDim.x * kPer) {
+        const int w = c0 + i;
+        lilac_tiles::copy16_async(u + p * Wv + i,
+                                  srcs[p] + (w < bl ? self + w : right + (w - bl)));
       }
     }
-    __syncthreads();  // the next stage starts again at slot 0
-  }
+    for (int i = threadIdx.x * 16; i < Wm; i += blockDim.x * 16) {
+      const int w = c0 + i;
+      lilac_tiles::copy16_async(mk + i, w < bl ? mself + w : mright + (w - bl));
+    }
+  };
 
-  const long long dst = n * m + b * bl;
+  stage_in(0, 0);
+  for (int g = 0; g < G; ++g) {
+    // span g has landed in slot g % 2, and every thread is done with span
+    // g - 1 (slot (g + 1) % 2 and tmp), so span g + 1 may be copied there
+    lilac_tiles::copies_wait();
+    __syncthreads();
+    if (g + 1 < G) stage_in(g + 1, (g + 1) % 2);
+    T* in = reinterpret_cast<T*>(smem_raw + (g % 2) * slot_bytes);
+    const uint8_t* mk = smem_raw + (g % 2) * slot_bytes + NP * Wv * sizeof(T);
+    T* bufs[2] = {in, tmp};
+    int cur = 0;
+    for (int s = sh.n - 1; s >= 0; --s) {
+      // stage s produces span + pre[s] slots, reading up to span + pre[s + 1]
+      window_stage<T, NP, DF>(bufs[cur], bufs[cur ^ 1], mk, Wv, span, span + sh.pre[s],
+                              sh.d[s], s);
+      __syncthreads();  // the stage is written: the next one reads it
+      cur ^= 1;
+    }
+    const T* u = bufs[cur];
+    const long long dst = n * m + b * bl + (k0 + g) * span;
 #pragma unroll
-  for (int p = 0; p < NP; ++p) {
-    for (int i = threadIdx.x * 4; i < bl; i += blockDim.x * 4) {
-      *reinterpret_cast<Quad<T>*>(dsts[p] + dst + i) =
-          *reinterpret_cast<const Quad<T>*>(u + p * W + i);
+    for (int p = 0; p < NP; ++p) {
+      for (int i = threadIdx.x * 4; i < span; i += blockDim.x * 4) {
+        *reinterpret_cast<Quad<T>*>(dsts[p] + dst + i) =
+            *reinterpret_cast<const Quad<T>*>(u + p * Wv + i);
+      }
     }
   }
 }
@@ -300,14 +384,24 @@ struct SmemAllowed {
   size_t bytes[64] = {};
 };
 
+// shared memory of a K9 thread block (as kernels/routed.py:
+// window_bt_smem_bytes): its input slots of NP planes and mask bytes, and
+// one more buffer of NP planes
+size_t window_smem(int span, int sumd, int nplanes, int esize, int G) {
+  const int reach = span + sumd;
+  const size_t words = static_cast<size_t>(nplanes) * esize * ((reach + 3) & ~3);
+  const int slots = G > 1 ? 2 : 1;
+  return (slots + 1) * words + slots * ((reach + 31) & ~31);
+}
+
 template <typename T, int NP, bool DF>
 cudaError_t launch_window(const void* s0, const void* s1, long long sstride,
                           void* d0, void* d1, long long m, int N, int bl,
-                          const void* masks, const Shifts& sh,
+                          const void* masks, const Shifts& sh, int span, int G,
                           cudaStream_t stream, const Layout& lay) {
   static SmemAllowed allowed;
-  const int W = (sh.lim[sh.n] + 3) & ~3;
-  const size_t smem = static_cast<size_t>(NP) * W * sizeof(T) + W;
+  const int reach = span + sh.pre[sh.n];
+  const size_t smem = window_smem(span, sh.pre[sh.n], NP, sizeof(T), G);
   if (smem > 48 * 1024) {
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
@@ -321,11 +415,13 @@ cudaError_t launch_window(const void* s0, const void* s1, long long sstride,
       *seen = smem;
     }
   }
-  dim3 grid(static_cast<unsigned>(m / bl), static_cast<unsigned>(N));
-  adj_window_kernel<T, NP, DF><<<grid, block_threads(bl), smem, stream>>>(
+  dim3 grid(static_cast<unsigned>(m / span / G), static_cast<unsigned>(N));
+  const int threads = span / 4 < 1024 ? span / 4 : 1024;
+  adj_window_kernel<T, NP, DF><<<grid, threads, smem, stream>>>(
       static_cast<const T*>(s0), static_cast<const T*>(s1), sstride,
       static_cast<T*>(d0), static_cast<T*>(d1), m, bl,
-      static_cast<const uint8_t*>(masks), sh, W, lay);
+      static_cast<const uint8_t*>(masks), sh, span, G, (reach + 3) & ~3,
+      (reach + 31) & ~31, lay);
   return cudaGetLastError();
 }
 
@@ -418,29 +514,36 @@ bool shape_ok(long long m, int N, int bl, int nplanes, int esize) {
 // permutation of the input. Every function returns the cudaError_t of its
 // launch.
 
+// span: output slots a thread block takes at a time, a power of two from
+// 128 to bl; G: spans a thread block takes in turn, a power of two up to
+// bl / span; masks 16-byte aligned.
 extern "C" int lilac_adj_window(const void* s0, const void* s1, int nplanes,
                                 int esize, long long sstride, void* d0,
                                 void* d1, long long m, int N, int bl,
                                 const void* masks, int dfpair, int S,
                                 const int* dists, int nbits,
-                                const unsigned char* layout, void* stream) {
+                                const unsigned char* layout, int span, int G,
+                                void* stream) {
   Shifts sh;
   Layout lay;
   if (!shape_ok(m, N, bl, nplanes, esize) || S < 0 || S > 8 ||
-      !fill_layout(&lay, nbits, layout)) {
+      !fill_layout(&lay, nbits, layout) || span < 128 || span > bl ||
+      (span & (span - 1)) != 0 || G < 1 || (G & (G - 1)) != 0 || G > bl / span ||
+      reinterpret_cast<uintptr_t>(masks) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   sh.n = S;
-  sh.lim[0] = bl;
+  sh.pre[0] = 0;
   for (int s = 0; s < 8; ++s) {
     sh.d[s] = s < S ? dists[s] : 0;
     if (s < S && dists[s] < 1) return static_cast<int>(cudaErrorInvalidValue);
-    sh.lim[s + 1] = sh.lim[s] + sh.d[s];
+    sh.pre[s + 1] = sh.pre[s] + sh.d[s];
   }
-  if (sh.lim[S] >= 2 * bl) return static_cast<int>(cudaErrorInvalidValue);
+  if (sh.pre[S] >= bl) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   return static_cast<int>(LILAC_ADJ_DISPATCH(launch_window, s0, s1, sstride, d0,
-                                             d1, m, N, bl, masks, sh, cs, lay));
+                                             d1, m, N, bl, masks, sh, span, G,
+                                             cs, lay));
 }
 
 extern "C" int lilac_adj_bigshift(const void* s0, const void* s1, int nplanes,

@@ -50,9 +50,11 @@
 //      Staging the sources in shared memory, or loading a thread's own
 //      words while its mask bytes arrive, measured slower.
 //   K6 is one select between two blocks.
-// Shared memory bounds bl through K9 (adjoint.cu), not through these; the
-// inner pass takes at most 2^14 slots, 1024 threads of 16 (see
-// kernels/routed.py:pass_smem_bytes and check_smem_feasible).
+// Shared memory bounds bl through the plan's budget for a window pass, one
+// window of bl + sum(d) slots and their mask bytes (kernels/routed.py:
+// pass_smem_bytes and check_smem_feasible), not through these kernels; K9
+// (adjoint.cu) stages two buffers of only span + sum(d) slots, within that
+// budget. The inner pass takes at most 2^14 slots, 1024 threads of 16.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -414,7 +414,7 @@ def _adj_lib():
         ub = ctypes.POINTER(ctypes.c_ubyte)
         head = [vp, vp, ci, ci, ll, vp, vp, ll, ci, ci, vp]
         lib.lilac_adj_window.argtypes = head + [
-            ci, ci, ctypes.POINTER(ci), ci, ub, vp]
+            ci, ci, ctypes.POINTER(ci), ci, ub, ci, ci, vp]
         lib.lilac_adj_bigshift.argtypes = head + [ci, ll, ci, ub, vp]
         lib.lilac_adj_routed.argtypes = [
             vp, vp, ci, ci, ci, vp, vp, vp, vp, vp, ci, ci, ll, ci,
@@ -601,14 +601,16 @@ def smem_optin_bytes(device="cuda") -> int:
 def default_hier_bl(limit: int = HOPPER_SMEM_OPTIN) -> int:
     """Block length of hierarchical plans when LILAC_HIER_BL is unset.
 
-    The adjoint window pass (K9) keeps bl + sum(d) < 2 * bl slots on chip at
-    8 bytes a slot (a df64 (hi, lo) pair or one f64 word, the widest the NPB
-    path routes) and one mask byte each, at most 2 * 9 * bl bytes. The
-    default is the largest power of two that bound fits in the opt-in
-    limit: 2 * 9 * bl <= 232448 gives bl = 2^13 on an H100. The inner pass
-    (K3, K7) holds one block of bl slots and one 32-bit mask word a slot, 12
-    * bl bytes at 25 stages: two such blocks share an SM at 2^13. The
-    forward window, butterfly and bigshift passes hold no slots on chip."""
+    A window pass may hold up to bl + sum(d) < 2 * bl slots on chip at 8
+    bytes a slot (a df64 (hi, lo) pair or one f64 word, the widest the NPB
+    path routes) and one mask byte each, at most 2 * 9 * bl bytes
+    (pass_smem_bytes); the default is the largest power of two that bound
+    fits in the opt-in limit: 2 * 9 * bl <= 232448 gives bl = 2^13 on an
+    H100. The window adjoint (K9) stages less: span + sum(d) slots of each
+    of its two buffers (window_bt_span). The inner pass (K3, K7) holds one
+    block of bl slots and one 32-bit mask word a slot, 12 * bl bytes at 25
+    stages: two such blocks share an SM at 2^13. The forward window,
+    butterfly and bigshift passes hold no slots on chip."""
     bl = 128
     while 2 * 9 * (2 * bl) <= limit:
         bl *= 2
@@ -632,10 +634,12 @@ def pass_smem_bytes(p, bl: int, nplanes: int, esize: int = 4) -> int:
         # the block's 32-bit words and one mask word a slot per 32 stages
         return (nplanes * esize // 4 + (len(p[1]) + 31) // 32) * bl * 4
     if kind == "window":
-        # the adjoint's bl + sum(d) slots (rounded up to 4) with their mask
-        # bytes; the forward gathers its values and stages only the mask
-        # bytes its span of output slots can reach (window_smem_bytes: span +
-        # sum(d), span <= bl), always less
+        # one window of bl + sum(d) slots (rounded up to 4) with their mask
+        # bytes, the plan's budget for a window pass. The kernels stage
+        # less: the adjoint two buffers of span + sum(d) slots
+        # (window_bt_smem_bytes; window_bt_span keeps them within the
+        # device's limit), the forward only the mask bytes its span of
+        # output slots can reach (window_smem_bytes)
         slots = (bl + sum(p[1]) + 3) // 4 * 4
         return slots * (nplanes * esize + 1)
     if kind in ("butterfly", "bigshift"):
@@ -1540,18 +1544,83 @@ def butterfly_apply_bt(x_planes, masks, block_bits, bl: int, *, layout=None):
     return out
 
 
+WINDOW_BT_MIN_SPAN = 512  # output slots of one K9 span, at least (bl permitting)
+WINDOW_BT_SPANS = 16  # spans one K9 thread block takes in turn, at most
+
+
+def window_bt_smem_bytes(span: int, dists, nplanes: int, esize: int, spans: int = 1) -> int:
+    """Shared memory of one thread block of the window-pass adjoint (K9): its
+    input slots (two where it takes several spans in turn, one span's copies
+    landing while the other's stages run; else one), each the span + sum(d)
+    words of every plane (rounded up to 4) and their mask bytes (rounded up
+    to 32), and one more buffer of words for the stages' ping-pong."""
+    reach = span + sum(dists)
+    slots = 2 if spans > 1 else 1
+    return (slots + 1) * nplanes * esize * ((reach + 3) & ~3) + slots * ((reach + 31) & ~31)
+
+
+@functools.lru_cache(maxsize=None)
+def window_bt_span(bl: int, dists: Tuple[int, ...], nplanes: int = 2, esize: int = 4,
+                   limit: int = HOPPER_SMEM_OPTIN) -> int:
+    """Output slots of one span of the window-pass adjoint (K9).
+
+    The smallest power of two C >= WINDOW_BT_MIN_SPAN (or bl, if smaller)
+    whose halo sum(d) is at most C / 4 (so at most a fifth of the slots a
+    span computes are thrown away), or bl where no C <= bl is that wide;
+    halved while its two buffers (one span at a time) exceed `limit`.
+    Class D's shifts (sum 15) take 512, the general matrix's (sum 255)
+    1024, the fastest spans at those shapes (`chip_smoke.py window_bt_diag`).
+    C = 128 fits every pass check_smem_feasible admits: its footprint, 2
+    (128 + sum(d)) words a plane and as many mask bytes, is under the one
+    window of bl + sum(d) slots that check allows once bl >= 255 * (bytes a
+    slot) + 160, and under 140 000 bytes below that."""
+    sumd = sum(dists)
+    span = min(WINDOW_BT_MIN_SPAN, bl)
+    while span < bl and 4 * sumd > span:
+        span *= 2
+    while span > 128 and window_bt_smem_bytes(span, dists, nplanes, esize) > limit:
+        span //= 2
+    return span
+
+
+def window_bt_spans(bl: int, span: int, dists, nplanes: int, esize: int,
+                    limit: int = HOPPER_SMEM_OPTIN) -> int:
+    """Spans one K9 thread block takes in turn: WINDOW_BT_SPANS (at most the
+    bl / span of a window block) where the two input slots fit `limit`,
+    else 1."""
+    spans = min(bl // span, WINDOW_BT_SPANS)
+    if spans > 1 and window_bt_smem_bytes(span, dists, nplanes, esize, spans) <= limit:
+        return spans
+    return 1
+
+
+def window_bt_launch_config(bl: int, dists, nplanes: int, esize: int, *, N: int = 1,
+                            nblocks: int = 1) -> dict:
+    """How the window-pass adjoint launches for one shape, for reports."""
+    span = window_bt_span(bl, tuple(dists), nplanes, esize)
+    spans = window_bt_spans(bl, span, dists, nplanes, esize)
+    return {"grid": [nblocks * (bl // span) // spans, N],
+            "threads": min(span // 4, 1024), "span": span, "spans_per_block": spans,
+            "smem_bytes": window_bt_smem_bytes(span, dists, nplanes, esize, spans)}
+
+
 def window_shift_apply_bt(x_planes, masks, dists, bl: int, *, dfpair: bool = False,
-                          layout=None):
+                          layout=None, span=None):
     """Net-batched window-pass adjoint (kernel K9): the fused shift stages in
     reverse order as add-merges u'[i] = (1 - m[i]) u[i] + m[i + d] u[i + d]
     over the window (block b, block b + 1); writes block b in natural order.
-    masks [N, nblocks, 2R, 128], the forward's (the self halves are read).
-    CUDA tensors take the kernel (csrc/adjoint.cu), CPU tensors the plain
-    version."""
+    masks [N, nblocks, 2R, 128], the forward's (the self halves are read),
+    16-byte aligned. span forces the output slots of one thread block
+    (window_bt_span), for checks only. CUDA tensors take the kernel
+    (csrc/adjoint.cu), CPU tensors the plain version."""
+    what = "window_shift_apply_bt"
+    if span is not None and (span < 128 or span & (span - 1) or span > bl):
+        raise ValueError(f"{what}: span {span} must be a power of two from 128 to bl={bl}")
+    if masks.data_ptr() % 16:
+        raise ValueError(f"{what}: masks must be 16-byte aligned")
     if not masks.is_cuda:
         return window_shift_apply_bt_plain(
             x_planes, masks, dists, bl, dfpair=dfpair, layout=layout)
-    what = "window_shift_apply_bt"
     mk = _adj_args(x_planes, masks, False, what)
     N, nblocks = mk.shape[:2]
     S = len(dists)
@@ -1559,12 +1628,18 @@ def window_shift_apply_bt(x_planes, masks, dists, bl: int, *, dfpair: bool = Fal
         raise ValueError(f"{what}: masks {tuple(mk.shape)} do not match bl={bl}")
     if S > 8 or sum(dists) >= bl or any(d < 1 for d in dists):
         raise ValueError(f"{what}: takes <= 8 shifts with sum < bl, got {dists}")
+    nplanes, esize = len(x_planes), x_planes[0].element_size()
+    limit = smem_optin_bytes(mk.device)
+    check_smem_feasible((("window", dists),), bl, nplanes, esize, limit=limit, what=what)
+    if span is None:
+        span = window_bt_span(bl, tuple(dists), nplanes, esize, limit)
+    elif window_bt_smem_bytes(span, dists, nplanes, esize) > limit:
+        raise ValueError(f"{what}: span {span} needs more than the {limit} bytes of "
+                         "shared memory a block may hold")
+    spans = window_bt_spans(bl, span, dists, nplanes, esize, limit)
     lay = _norm_layout(layout, nblocks)
-    check_smem_feasible(
-        (("window", dists),), bl, len(x_planes), x_planes[0].element_size(),
-        limit=smem_optin_bytes(mk.device), what=what)
     tail = (int(bool(dfpair)), S, (ctypes.c_int * 8)(*[int(d) for d in dists]),
-            len(lay), _ubytes(lay))
+            len(lay), _ubytes(lay), span, spans)
     outs = _launch_hier("lilac_adj_window", what, x_planes, mk, N, nblocks, bl,
                         tail, lib=_adj_lib)
     window_shift_apply_bt.launches += 1

@@ -32,6 +32,7 @@ format, so a plan written by either package loads in the other.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import glob
 import json
 import os
@@ -252,23 +253,29 @@ def _chunk_reduce_df(prod, chunks, colmajor=False):
     return torch.cat(his), torch.cat(los)
 
 
-def _mulreduce_df_2d(vals, oh, ol, chunks, colmajor):
-    """df64 mul+row-sum for the [B, m] single-table container: chunk c is
-    net-row c's leading rows_c*k_c slots. Column-major plans with the
-    df_fused knob on take the fused kernel, else the op chain."""
+@functools.lru_cache(maxsize=64)
+def _single_table_k2(chunks, m: int) -> dfk.ChunkTable:
+    """K2's table of a single-table plan (built once per plan): chunk c is
+    net-row c's leading rows_c * k_c slots of the [B * m] planes."""
+    spec, row0 = [], 0
+    for c, (rows_c, k_c) in enumerate(chunks):
+        spec.append((c * m, rows_c, k_c, row0))
+        row0 += rows_c
+    return dfk.ChunkTable(spec)
+
+
+def _mulreduce_df_2d(A: RoutedMat, oh, ol):
+    """df64 mul+row-sum for the [B, m] single-table container. Column-major
+    plans with the df_fused knob on take the fused kernel, all chunks in one
+    launch; else the op chain."""
     from lilac_tpu_torch.config import cfg
 
-    if colmajor and cfg().df_fused:
-        his, los = [], []
-        for c, (rows_c, k_c) in enumerate(chunks):
-            h, l_ = dfk.chunk_mulreduce_df(
-                vals[c], oh[c], ol[c], ((0, rows_c, k_c),), True, fused=True
-            )
-            his.append(h)
-            los.append(l_)
-        return torch.cat(his), torch.cat(los)
-    prod = df.mul(df.DF(vals[..., 0], vals[..., 1]), df.DF(oh, ol))
-    return _chunk_reduce_df(prod, chunks, colmajor)
+    if A.colmajor and cfg().df_fused:
+        v = A.vals.reshape(-1, 2)
+        return dfk.dfmulred_chunks(v[:, 0], v[:, 1], oh.reshape(-1), ol.reshape(-1),
+                                   _single_table_k2(A.chunks, A.m))
+    prod = df.mul(df.DF(A.vals[..., 0], A.vals[..., 1]), df.DF(oh, ol))
+    return _chunk_reduce_df(prod, A.chunks, A.colmajor)
 
 
 def routed_spmv(A: RoutedMat, x: torch.Tensor) -> torch.Tensor:
@@ -288,9 +295,7 @@ def routed_spmv_df(A: RoutedMat, x: df.DF) -> df.DF:
         A.masks, A.kinds, A.dists,
     )
     B = len(A.chunks)
-    hi, lo = _mulreduce_df_2d(
-        A.vals, oh.view(B, A.m), ol.view(B, A.m), A.chunks, A.colmajor
-    )
+    hi, lo = _mulreduce_df_2d(A, oh.view(B, A.m), ol.view(B, A.m))
     if A.inv_perm is not None:
         hi, lo = hi[A.inv_perm], lo[A.inv_perm]
     return df.DF(hi[: A.shape[0]], lo[: A.shape[0]])
@@ -940,38 +945,83 @@ def _routed_hier_spmv_packed(A: RoutedMatHierP, x):
     return _hier_unperm(A, (torch.cat(parts),))[0]
 
 
+@functools.lru_cache(maxsize=64)
+def _hier_k2(chunks, groups, m: int) -> tuple:
+    """K2's table of each launch group of a hier plan (built once per plan):
+    net ids[li] of a group holds its chunks at slots li * m + s0 of the
+    group's [Ng * m] planes, and its row sums go where the chunk-concatenated
+    sorted output of all nets puts them."""
+    offs = np.concatenate([[0], np.cumsum(_hier_net_rows(chunks))])
+    tables = []
+    for net_ids in groups:
+        spec = []
+        for li, ni in enumerate(net_ids):
+            row0 = int(offs[ni])
+            for s0, rows_c, K in chunks[ni]:
+                spec.append((li * m + s0, rows_c, K, row0))
+                row0 += rows_c
+        tables.append(dfk.ChunkTable(spec))
+    return tuple(tables)
+
+
+def _k2_outputs(tables, like: torch.Tensor):
+    """The (hi, lo) planes every launch group's K2 writes its rows into."""
+    rows = max(t.rows for t in tables)
+    return tuple(torch.empty(rows, dtype=torch.float32, device=like.device)
+                 for _ in range(2))
+
+
 def _routed_hier_spmv_packed_df(A: RoutedMatHierP, x: df.DF) -> df.DF:
+    from lilac_tpu_torch.config import cfg
+
     planes = (_pad_plane(x.hi, A.m), _pad_plane(x.lo, A.m))
-    nnets = len(A.chunks)
-    parts_h = [None] * nnets
-    parts_l = [None] * nnets
-    for grp in A.groups:
+    if not (A.colmajor and cfg().df_fused):
+        nnets = len(A.chunks)
+        parts_h, parts_l = [None] * nnets, [None] * nnets
+        for grp in A.groups:
+            oh, ol = rd.hier_apply_batched(planes, grp.pass_meta, grp.pass_masks, A.bl)
+            for li, ni in enumerate(grp.net_ids):
+                parts_h[ni], parts_l[ni] = dfk.chunk_mulreduce_df(
+                    (grp.vals[0, li].reshape(A.m), grp.vals[1, li].reshape(A.m)),
+                    oh[li].reshape(A.m), ol[li].reshape(A.m),
+                    A.chunks[ni], A.colmajor)
+        return df.DF(*_hier_unperm(A, (torch.cat(parts_h), torch.cat(parts_l))))
+    tables = _hier_k2(A.chunks, tuple(g.net_ids for g in A.groups), A.m)
+    out = _k2_outputs(tables, planes[0])
+    for grp, table in zip(A.groups, tables):
         oh, ol = rd.hier_apply_batched(planes, grp.pass_meta, grp.pass_masks, A.bl)
-        for li, ni in enumerate(grp.net_ids):
-            parts_h[ni], parts_l[ni] = dfk.chunk_mulreduce_df(
-                (grp.vals[0, li].reshape(A.m), grp.vals[1, li].reshape(A.m)),
-                oh[li].reshape(A.m), ol[li].reshape(A.m),
-                A.chunks[ni], A.colmajor,
-            )
-    return df.DF(*_hier_unperm(A, (torch.cat(parts_h), torch.cat(parts_l))))
+        out = dfk.dfmulred_chunks(grp.vals[0].reshape(-1), grp.vals[1].reshape(-1),
+                                  oh.reshape(-1), ol.reshape(-1), table, out)
+    return df.DF(*_hier_unperm(A, out))
 
 
 def routed_hier_spmv_df(A, x: df.DF) -> df.DF:
     """df64 y = A x for a RoutedMatHier or a RoutedMatHierP: the (hi, lo)
     planes go through identical switches, then the fused multiply + row sum
-    (kernels/dfmulred.py) per chunk."""
+    (kernels/dfmulred.py), one launch a packed group (or a net, unpacked)
+    into one pair of output planes."""
+    from lilac_tpu_torch.config import cfg
+
     _require_device_plan(A)
     if isinstance(A, RoutedMatHierP):
         return _routed_hier_spmv_packed_df(A, x)
     planes = (_pad_plane(x.hi, A.m), _pad_plane(x.lo, A.m))
-    his, los = [], []
-    for net, vals, chlist in zip(A.nets, A.vals, A.chunks):
+    if not (A.colmajor and cfg().df_fused):
+        his, los = [], []
+        for net, vals, chlist in zip(A.nets, A.vals, A.chunks):
+            oh, ol = hier_net_apply(net, planes, A.bl)
+            h, l_ = dfk.chunk_mulreduce_df(
+                vals, oh.reshape(A.m), ol.reshape(A.m), chlist, A.colmajor)
+            his.append(h)
+            los.append(l_)
+        return df.DF(*_hier_unperm(A, (torch.cat(his), torch.cat(los))))
+    tables = _hier_k2(A.chunks, tuple((ni,) for ni in range(len(A.nets))), A.m)
+    out = _k2_outputs(tables, planes[0])
+    for net, vals, table in zip(A.nets, A.vals, tables):
         oh, ol = hier_net_apply(net, planes, A.bl)
-        h, l_ = dfk.chunk_mulreduce_df(
-            vals, oh.reshape(A.m), ol.reshape(A.m), chlist, A.colmajor)
-        his.append(h)
-        los.append(l_)
-    return df.DF(*_hier_unperm(A, (torch.cat(his), torch.cat(los))))
+        out = dfk.dfmulred_chunks(vals[:, 0], vals[:, 1], oh.reshape(-1),
+                                  ol.reshape(-1), table, out)
+    return df.DF(*_hier_unperm(A, out))
 
 
 # ---------------------------------------------------------------------------

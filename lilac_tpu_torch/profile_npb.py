@@ -39,7 +39,7 @@ def _trace(fn):
     return wall, kernels
 
 
-def _summary(wall, kernels, top=12):
+def _summary(wall, kernels, top=20):
     launches = sum(c for c, _ in kernels.values())
     busy_us = sum(us for _, us in kernels.values())
     rows = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:top]
