@@ -35,6 +35,15 @@ proves on the card that
   each path launched on that run; each class also runs a few outer steps
   in the other factored_vt mode (class C: adj, which launches K11; class D:
   plan, two forward plans) and the two zeta histories agree to 1e-12,
+* cg_solve (CG to rtol = 1e-10) on class C's matrix, through the factored
+  routed plan in df64 (K1, K2) and through SpmvPlan's xla_ell in f64,
+  stops before maxit with ||b - A x|| / ||b|| <= 10 rtol (scipy, f64),
+* the factored operator's scan layout (factored_segmode=scan, SegELLScan,
+  plain torch gathers a column segment at a time) verifies classes S and W
+  in df64 and holds class D's first 3 zeta values to the adj run's to
+  1e-12 (10 segments and a tail, its bytes, build and step wall beside
+  adj's), and the general matrix below multiplies right through SegELLScan
+  and multi-segment SegBucketELL (3 segments) in f64 and df64,
 * the Parboil paths: sgemm's product (kernel K12, matmul_nt: an exact
   three-piece bf16 split, then the tensor cores) within
   K*2^-24*(|A||B|^T) + 2^-24*|C| of the f64 product at ragged small shapes
@@ -65,15 +74,19 @@ forced small tiles at m = 2^16, "inner" = K3, K3u and K7 on forced stage
 schedules at m = 2^16 and timed at the main paths' shapes, "window" = K5,
 K5u and K9 at every span, bit for bit, "c" = K1, K2, K11 on the class C plan,
 "d" = the class D plan, its kernels and its runs, "gemm" = K12 and sgemm,
-"parboil" = Parboil spmv; opt-in, never in the whole run: "inner_diag",
-"window_diag" = K5 and K5u timed at every span, "window_bt_diag" = K9
-timed at every span, "gemm_diag" = how the
-tensor cores round K12's f32 sums); such a run exits
-2 without the last line.
+"parboil" = Parboil spmv, "cg" = cg_solve on class C, "scan" = the scan
+layout (class D against 3 steps of adj); opt-in, never in the whole run:
+"inner_diag", "window_diag" = K5 and K5u timed at every span,
+"window_bt_diag" = K9 timed at every span, "exchange_diag" = K4u and K6u
+at every launch shape, L2 flushed and back to back, beside copy_ (also
+run beside an older tree of the package), "gemm_diag" = how the tensor
+cores round K12's f32 sums); such a run exits 2 without the last line.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -120,14 +133,20 @@ def time_cold_ms(fn, reps: int) -> float:
     """Mean device milliseconds of fn() with the L2 cache flushed before each
     call (128 MB written, the H100's L2 holds 50 MB), by CUDA events around
     each call alone: for a kernel whose inputs fit in L2, which back-to-back
-    calls would otherwise read from there."""
+    calls would otherwise read from there. As in time_ms, a long matrix
+    product is queued first, so that every call is enqueued before the card
+    reaches it and the events bracket the kernel, not the host's pace (a
+    wrapper's Python takes longer than the flush)."""
     fn()
     flush = torch.empty(32 << 20, dtype=torch.float32, device=DEVICE)
+    blocker = torch.ones((8192, 8192), device=DEVICE)
     pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
              for _ in range(reps)]
     torch.cuda.synchronize()
+    for _ in range(3):
+        torch.mm(blocker, blocker)
     for start, end in pairs:
-        flush.zero_()  # also keeps the card busy while the call is enqueued
+        flush.zero_()
         start.record()
         fn()
         end.record()
@@ -840,8 +859,35 @@ def _walk_schedule(rd, planes, metas, masks, bl, batched: bool, what: str,
             if kind == "window":
                 timed[name]["launch"] = rd.window_launch_config(bl, meta[1], N=N,
                                                                 nblocks=m // bl)
+            if kind in ("butterfly", "bigshift"):
+                timed[name]["launch"] = _exchange_launch(rd, meta, planes, N, m, bl)
+                if not batched:
+                    # one net's 8.9 MB stay in L2 between back-to-back calls
+                    timed[name].update(
+                        warm_ms=ms, ms=time_cold_ms(
+                            lambda: _call_pass(fn, meta, planes, mk, bl, layout), reps),
+                        copy_ms=_copy_ms(nbytes, reps),
+                        copy_warm_ms=_copy_ms(nbytes, reps, warm=True))
         planes, layout = got, new_layout
     return planes, layout
+
+
+def _exchange_launch(rd, meta, planes, N: int, m: int, bl: int) -> dict:
+    """The launch shape of a butterfly (K4, K4u, K8) or block-aligned shift
+    (K6, K6u) pass, as the wrapper chooses it on this card."""
+    g = len(meta[1]) if meta[0] == "butterfly" else 0
+    return rd.butterfly_launch_config(
+        N, (m // bl) >> g, bl, g, len(planes), planes[0].element_size(),
+        torch.cuda.get_device_properties(0).multi_processor_count)
+
+
+def _copy_ms(nbytes: int, reps: int, warm: bool = False) -> float:
+    """A torch.Tensor.copy_ that moves `nbytes` (half read, half written),
+    flushed (or back to back): the practical floor of a pass that moves as
+    many."""
+    src = torch.ones(nbytes // 2, dtype=torch.uint8, device=DEVICE)
+    dst = torch.empty_like(src)
+    return (time_ms if warm else time_cold_ms)(lambda: dst.copy_(src), reps)
 
 
 def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -987,6 +1033,8 @@ def _walk_schedule_t(rd, planes, metas, masks, bl, dfpair: bool, what: str,
             if kind == "window":
                 timed[name]["launch"] = rd.window_bt_launch_config(
                     bl, meta[1], len(planes), esize, N=N, nblocks=m // bl)
+            if kind == "butterfly":
+                timed[name]["launch"] = _exchange_launch(rd, meta, planes, N, m, bl)
         planes, layout = got, new_layout
     return planes, layout
 
@@ -1073,6 +1121,23 @@ def phase_hier_small() -> dict:
                             f"small: {fn.__name__} != {name_p} ({meta[:2]}, layout "
                             f"{layout}, {dtype.__name__} x{nplanes}, per_net={per_net})")
                     checks += 1
+            if meta[0] in ("butterfly", "bigshift"):
+                # every launch shape (slots, threads) the kernel takes within bl
+                for shape in EXCHANGE_SHAPES:
+                    if shape[0] * shape[1] > bl:
+                        continue
+                    for dtype, nplanes in FORMATS:
+                        mk = rand_mask((N,) + mshape, bits)
+                        _, planes = _planes_for(rng, m, dtype, nplanes, (N,))
+                        fn = functools.partial(getattr(rd, name_b), launch=shape)
+                        got, lay = _call_pass(fn, meta, planes, mk, bl, layout)
+                        want, lay_p = _call_pass(plain, meta, planes, mk, bl, layout)
+                        if lay != lay_p or not all(
+                                _bits_equal(g, w) for g, w in zip(got, want)):
+                            raise AssertionError(
+                                f"small: {name_b} at launch {shape} != {name_p} "
+                                f"({meta[:2]}, layout {layout}, {dtype.__name__} x{nplanes})")
+                        checks += 1
             # the adjoint pass on the same masks: per-net planes, N nets and one
             name_t, name_tp = ADJ_FNS[meta[0]]
             for dtype, nplanes, dfpair in ADJ_FORMATS:
@@ -1586,6 +1651,91 @@ def phase_window_bt_diag() -> dict:
     return line
 
 
+def _general_matrix(rng, n: int) -> tuple:
+    """The general n x n matrix of phase_hier_general as host CSR (indptr,
+    indices, data): 1 to 11 entries a row, columns unsorted and possibly
+    repeated, column 7 in a quarter of the rows (its broadcast run needs
+    block-aligned shifts)."""
+    counts = rng.integers(1, 12, size=n)
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    indices = rng.integers(0, n, size=int(indptr[-1]))
+    dense_rows = rng.choice(n, size=n // 4, replace=False)
+    indices[indptr[dense_rows]] = 7  # column 7 stands in a quarter of the rows
+    data = rng.standard_normal(len(indices))
+    return indptr, indices, data
+
+
+EXCHANGE_SHAPES = ((4, 256), (4, 64), (4, 32), (2, 128), (2, 64), (1, 128), (1, 64))
+
+
+def phase_exchange_diag() -> dict:
+    """K4u and K6u on the general matrix's net-by-net plan (opt-in,
+    `exchange_diag`; not in the whole run): the first butterfly pass and
+    the first block-aligned shift of a net's schedule, with L2 flushed and
+    back to back, beside a flushed copy_ of the same bytes, at the default
+    launch shape and at every (slots, threads) of EXCHANGE_SHAPES, each
+    held bit for bit against the plain version. (4, 256) is the shape K4u
+    launched before butterfly_launch_config. Run beside an older tree of
+    the package, whose wrappers take no `launch`, it times the default
+    shape alone."""
+    import inspect
+
+    from lilac_tpu_torch.kernels import routed as rd
+    from lilac_tpu_torch.kernels import routed_spmv as rs
+    from lilac_tpu_torch.ops import dfloat as df
+
+    rng = np.random.default_rng(23)
+    n = 400_000
+    indptr, indices, data = _general_matrix(rng, n)
+    x = rng.standard_normal(n)
+    M = rs.build_routed_csr_hier(indptr, indices, data, (n, n), dtype="df64")
+    os.environ["LILAC_HIER_PACK"] = "0"
+    try:
+        P = rs.maybe_pack_hier(M, DEVICE)
+    finally:
+        del os.environ["LILAC_HIER_PACK"]
+    net = next(g for g in P.nets if any(mt[0] == "bigshift" for mt in g.pass_meta))
+    xh, xl = df.from_f64(x, device=DEVICE)
+    planes = (_plane(xh, M.m), _plane(xl, M.m))
+    shapes = [None]
+    if "launch" in inspect.signature(rd.butterfly_apply).parameters:
+        shapes += list(EXCHANGE_SHAPES)
+    line = {"phase": "exchange_diag", "m": M.m, "bl": M.bl, "passes": {}}
+    layout = None
+    for meta, mk in zip(net.pass_meta, net.pass_masks):
+        kind = meta[0]
+        fn = getattr(rd, PASS_FNS[kind][1])
+        got, new_layout = _call_pass(fn, meta, planes, mk, M.bl, layout)
+        if kind in ("butterfly", "bigshift") and kind not in line["passes"]:
+            want, _ = _call_pass(getattr(rd, PASS_FNS[kind][2]), meta, planes, mk,
+                                 M.bl, layout)
+            nbytes = 2 * sum(p.numel() for p in planes) * 4 + mk.numel()
+            row = {"pass": [str(v) for v in meta], "bytes": nbytes,
+                   "bound_ms": nbytes / PEAK_BYTES_S * 1e3,
+                   "copy_ms": _copy_ms(nbytes, 20),
+                   "copy_warm_ms": _copy_ms(nbytes, 20, warm=True), "shapes": []}
+            for shape in shapes:
+                call = fn if shape is None else functools.partial(fn, launch=shape)
+                out, _ = _call_pass(call, meta, planes, mk, M.bl, layout)
+                if not all(_bits_equal(o, w) for o, w in zip(out, want)):
+                    raise AssertionError(f"exchange_diag: {kind} at {shape} != plain")
+
+                def run():
+                    return _call_pass(call, meta, planes, mk, M.bl, layout)
+
+                row["shapes"].append({
+                    "launch": "default" if shape is None else list(shape),
+                    "ms": time_cold_ms(run, 20), "warm_ms": time_ms(run, 20)})
+            if hasattr(rd, "butterfly_launch_config"):
+                row["default"] = _exchange_launch(rd, meta, planes, 1, M.m, M.bl)
+            line["passes"][kind] = row
+            del want
+        planes, layout = got, new_layout
+    emit(line)
+    return line
+
+
 def phase_hier_general(kernels: dict, n: int = 400_000, bl: int | None = None) -> dict:
     """The second driven path: y = A x for a general sparse matrix through
     build_routed_csr_hier at the default block length. Rows come unsorted (so
@@ -1607,13 +1757,7 @@ def phase_hier_general(kernels: dict, n: int = 400_000, bl: int | None = None) -
 
     rng = np.random.default_rng(23)
     ncol = n
-    counts = rng.integers(1, 12, size=n)
-    indptr = np.zeros(n + 1, dtype=np.int64)
-    np.cumsum(counts, out=indptr[1:])
-    indices = rng.integers(0, ncol, size=int(indptr[-1]))
-    dense_rows = rng.choice(n, size=n // 4, replace=False)
-    indices[indptr[dense_rows]] = 7  # column 7 stands in a quarter of the rows
-    data = rng.standard_normal(len(indices))
+    indptr, indices, data = _general_matrix(rng, n)
     # scipy gets copies: abs() below merges duplicate entries in place
     A = sp.csr_matrix((data.copy(), indices.copy(), indptr.copy()), shape=(n, ncol))
     x = rng.standard_normal(ncol)
@@ -2466,6 +2610,185 @@ def phase_main_path_c(kernels: dict) -> dict:
     return line
 
 
+def _tensor_bytes(obj) -> int:
+    """Bytes of the tensors a container holds (dataclass fields, tuples)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if dataclasses.is_dataclass(obj):
+        return sum(_tensor_bytes(getattr(obj, f.name)) for f in dataclasses.fields(obj))
+    if isinstance(obj, (tuple, list)):
+        return sum(_tensor_bytes(v) for v in obj)
+    return 0
+
+
+def phase_cg_solve() -> dict:
+    """cg_solve (CG to a residual tolerance, one host read of its stopping
+    test an iteration) on NPB class C's matrix, b = ones, rtol = 1e-10,
+    maxit = 1000: through the factored routed plan in df64 (kernels K1 and
+    K2, launch counts set to 0 before and read after) and through
+    SpmvPlan(kernel="xla_ell") in f64 on the assembled matrix. Each must
+    stop before maxit with ||b - A x||_2 / ||b||_2 <= 10 rtol, A x taken in
+    f64 on the host by scipy from the assembled CSR. The factored plan runs
+    in its relabelled column space (kernels/factored.py), so its x is
+    mapped back first."""
+    import scipy.sparse as sp
+
+    from lilac_tpu_torch.generate.npb import CLASSES, _generate_triples, make_cg_matrix
+    from lilac_tpu_torch.kernels import dfmulred as dfk
+    from lilac_tpu_torch.kernels import routed as rd
+    from lilac_tpu_torch.plan import FactoredNPBPlan, SpmvPlan
+    from lilac_tpu_torch.solvers.algebra import get_algebra
+    from lilac_tpu_torch.solvers.cg import cg_solve
+
+    cls = CLASSES["C"]
+    n = cls.na
+    rtol, maxit = 1e-10, 1000
+    t0 = time.time()
+    indptr, indices, data, _ = make_cg_matrix("C")
+    A = sp.csr_matrix((data, indices, indptr), shape=(n, n))
+    # the factored plan's column labels: by descending count in V, stable
+    _, ivc, _ = _generate_triples(cls)
+    sigma = np.argsort(-np.bincount(ivc - 1, minlength=n), kind="stable")
+    rank = np.empty(n, dtype=np.int64)
+    rank[sigma] = np.arange(n)
+    setup_s = time.time() - t0
+    b = np.ones(n)
+    line = {"phase": "cg_solve", "class": "C", "n": n, "nnz_assembled": int(A.nnz),
+            "rtol": rtol, "maxit": maxit, "setup_s": round(setup_s, 2), "runs": []}
+    for name, dtype, make, relabel in (
+            ("factored routed", "df64",
+             lambda: FactoredNPBPlan("C", dtype="df64", device=DEVICE), True),
+            ("xla_ell", "f64",
+             lambda: SpmvPlan(indptr, indices, data, (n, n), dtype="f64",
+                              kernel="xla_ell", device=DEVICE), False)):
+        t0 = time.time()
+        plan = make()
+        build_s = time.time() - t0
+        _reset_hier_counts(rd, dfk)
+        t0 = time.time()
+        x, iters, rnorm = cg_solve(plan.matvec_with, get_algebra(dtype, device=DEVICE),
+                                   plan.A, plan.vec_in(b), rtol=rtol, maxit=maxit)
+        xh = plan.vec_out(x)
+        solve_s = time.time() - t0
+        if relabel:
+            xh = xh[rank]
+        rel_res = float(np.linalg.norm(b - A @ xh) / np.linalg.norm(b))
+        run = {"operator": plan.kernel, "dtype": dtype, "iterations": iters,
+               "rnorm": float(np.asarray(plan.vec_out(rnorm))),
+               "true_rel_residual": rel_res, "build_s": round(build_s, 2),
+               "solve_s": solve_s, "routed_apply_launches": rd.routed_apply.launches,
+               "dfmulred_launches": dfk.dfmulred.launches}
+        line["runs"].append(run)
+        if not isinstance(iters, int) or not 0 < iters < maxit:
+            raise AssertionError(f"cg_solve {name}: {iters} iterations (maxit {maxit})")
+        if not np.isfinite(xh).all() or not rel_res <= 10 * rtol:
+            raise AssertionError(f"cg_solve {name}: ||b - A x|| / ||b|| = {rel_res:.3e}")
+        if relabel and not (rd.routed_apply.launches >= 2 * iters
+                            and dfk.dfmulred.launches >= 2 * iters):
+            raise AssertionError(f"cg_solve {name}: K1 / K2 not on the path: {run}")
+        del plan, x
+    emit(line)
+    return line
+
+
+def _general_layouts() -> dict:
+    """The general 400 000-row matrix of phase_hier_general (sorted by
+    column within each row, as the converters need) through
+    csr_to_seg_ell_scan and multi-segment csr_to_seg_bucket_ell at their
+    default seg_size (3 segments) in f64 and df64, against scipy's A x in
+    f64: to 1e-13 (f64) and 4e-14 (df64) of sum |a x| a row."""
+    import scipy.sparse as sp
+
+    from lilac_tpu_torch.formats import convert as tconv
+    from lilac_tpu_torch.kernels import gather
+    from lilac_tpu_torch.ops import dfloat as df
+
+    n = 400_000
+    rng = np.random.default_rng(23)
+    indptr, indices, data = _general_matrix(rng, n)
+    x = rng.standard_normal(n)
+    rows = np.repeat(np.arange(n), np.diff(indptr))
+    ip, ix, vv = tconv.coo_to_csr_arrays(rows, indices, data, (n, n), sum_duplicates=False)
+    A = sp.csr_matrix((vv.copy(), ix.copy(), ip.copy()), shape=(n, n))
+    want = A @ x
+    scale = abs(A) @ np.abs(x)
+    out = {}
+    for dtype, tol in (("f64", 1e-13), ("df64", 4e-14)):
+        vals = df.split_f64_np(vv) if dtype == "df64" else vv
+        xin = df.from_f64(x, device=DEVICE) if dtype == "df64" else torch.as_tensor(
+            x, device=DEVICE)
+        for layout, build, spmv in (
+                ("SegELLScan", tconv.csr_to_seg_ell_scan,
+                 gather.seg_ell_scan_spmv_df if dtype == "df64" else gather.seg_ell_scan_spmv),
+                ("SegBucketELL", tconv.csr_to_seg_bucket_ell,
+                 gather.seg_bucket_ell_spmv_df if dtype == "df64"
+                 else gather.seg_bucket_ell_spmv)):
+            M = build(ip, ix, vals, (n, n), device=DEVICE)
+            got = spmv(M, xin)
+            got = df.to_f64(got) if dtype == "df64" else got.cpu().numpy()
+            err = float((np.abs(got - want) / scale).max())
+            segs = (M.nseg if layout == "SegELLScan"
+                    else sum(1 for p in M.parts if p[2] >= 0))
+            tail = (M.tail_data is not None if layout == "SegELLScan"
+                    else any(p[2] < 0 for p in M.parts))
+            out[f"{layout} {dtype}"] = {
+                "segments": segs, "tail": tail, "bytes_on_card": _tensor_bytes(M),
+                "max_err_over_sum_abs": err, "tol": tol,
+                "ms": time_ms(lambda: spmv(M, xin), 5)}
+            if got.shape != (n,) or not np.isfinite(got).all() or err > tol or segs != 3:
+                raise AssertionError(f"general matrix {layout} {dtype}: {out}")
+            del M
+    return out
+
+
+def phase_npb_scan(adj_res, adj_bytes: int, adj_build_s: float) -> dict:
+    """The factored operator in the scan layout (factored_segmode=scan: V
+    and V^T as SegELLScan, gathered one column segment at a time by plain
+    torch): NPB classes S and W in df64, uncut and verified; class D in
+    df64 for 3 outer steps (10 segments and a tail), its zeta history held
+    to the adj run's first 3 to 1e-12 relative (the same arithmetic, df64
+    sums in another order), with its bytes on the card, host build seconds
+    and untraced step wall beside adj's; then the general matrix's two
+    multi-segment layouts (_general_layouts)."""
+    from lilac_tpu_torch.formats.sparse import SegELLScan
+    from lilac_tpu_torch.plan import FactoredNPBPlan
+    from lilac_tpu_torch.workloads import npb_cg
+
+    scan = {"LILAC_FACTORED_SEGMODE": "scan"}
+    line = {"phase": "npb_scan", "runs": []}
+    for cls in ("S", "W"):
+        res = _with_env(scan, lambda: npb_cg.run(cls, dtype="df64", device=DEVICE))
+        line["runs"].append(_npb_line(res))
+        if res.kernel != "factored_gather_df" or not res.verified:
+            raise AssertionError(f"class {cls} scan layout: {line['runs'][-1]}")
+    t0 = time.time()
+    plan = _with_env(scan, lambda: FactoredNPBPlan("D", dtype="df64", device=DEVICE))
+    build_s = time.time() - t0
+    V, VT = plan.A.V, plan.A.VT
+    if not (isinstance(V, SegELLScan) and isinstance(VT, SegELLScan)):
+        raise AssertionError(f"class D scan: {type(V).__name__}, {type(VT).__name__}")
+    steps = min(3, adj_res.niter)
+    res = npb_cg.run("D", dtype="df64", niter=steps, plan=plan)
+    rel = np.abs(res.zeta_history - adj_res.zeta_history[:steps]) / np.abs(
+        adj_res.zeta_history[:steps])
+    line["class_d"] = {
+        **_npb_line(res), "nseg": [V.nseg, VT.nseg], "width": [V.width, VT.width],
+        "tail_rows": [0 if M.tail_data is None else int(M.tail_data.shape[1])
+                      for M in (V, VT)],
+        "zeta_history_max_rel_diff_vs_adj": float(rel.max()), "tol": 1e-12,
+        "bytes_on_card": {"scan": _tensor_bytes(plan.A), "adj": adj_bytes},
+        "host_build_s": {"scan": round(build_s, 2), "adj": round(adj_build_s, 2)},
+        "untraced_step_wall_s": {"scan": res.time_s / res.niter,
+                                 "adj": adj_res.time_s / adj_res.niter}}
+    if V.nseg != 10 or VT.nseg != 10 or not rel.max() <= 1e-12:
+        raise AssertionError(f"class D scan layout: {line['class_d']}")
+    del plan, V, VT
+    torch.cuda.empty_cache()
+    line["general_matrix"] = _general_layouts()
+    emit(line)
+    return line
+
+
 FWD_D = ("routed_apply_sliced_b", "butterfly_apply_b", "window_shift_apply_b")
 ADJ_D = ("routed_apply_sliced_bt", "butterfly_apply_bt", "window_shift_apply_bt")
 
@@ -2625,7 +2948,7 @@ def build_plan_c():
 
 
 PARTS = {"hier", "inner", "inner_diag", "window", "window_diag", "window_bt_diag", "k11",
-         "tiles", "c", "d", "gemm", "gemm_diag", "parboil"}
+         "tiles", "c", "d", "gemm", "gemm_diag", "parboil", "exchange_diag", "cg", "scan"}
 
 
 def main(argv) -> int:
@@ -2654,6 +2977,22 @@ def main(argv) -> int:
         phase_window_diag()
     if "window_bt_diag" in only:
         phase_window_bt_diag()
+    if "exchange_diag" in only:
+        phase_exchange_diag()
+    if "cg" in only:
+        phase_cg_solve()
+    if "scan" in only:
+        from lilac_tpu_torch.kernels import routed_spmv as rs
+        from lilac_tpu_torch.workloads import npb_cg
+
+        t0 = time.time()
+        plan_d = build_plan_d()
+        d_build_s = time.time() - t0
+        res_d = npb_cg.run("D", dtype="df64", niter=3, plan=plan_d)
+        d_bytes = rs.plan_bytes(plan_d.A.V)
+        del plan_d
+        torch.cuda.empty_cache()
+        phase_npb_scan(res_d, d_bytes, d_build_s)
     if "c" in only:
         kernels.update(phase_kernels(build_plan_c()))
     if "hier" in only:
@@ -2699,12 +3038,16 @@ def main(argv) -> int:
     # few steps of adj), class D (one hier plan; auto = adj, then a few steps
     # of plan)
     phase_main_path_c(kernels)
+    phase_cg_solve()
+    t0 = time.time()
     plan_d = build_plan_d()
+    d_build_s = time.time() - t0
     phase_hier_class_d(plan_d, kernels)
-    _, res_d = phase_main_path_d(kernels, plan_d)
+    line_d, res_d = phase_main_path_d(kernels, plan_d)
     del plan_d
     torch.cuda.empty_cache()
     phase_plan_mode_d(kernels, res_d)
+    phase_npb_scan(res_d, line_d["plan_bytes_on_card"], d_build_s)
 
     names = ["routed_apply", "dfmulred"] + [
         PASS_FNS[k][i] for i in (0, 1) for k in PASS_FNS] + ADJ_NAMES + [

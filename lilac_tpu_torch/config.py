@@ -73,10 +73,11 @@ KNOBS = (
          "rnorm histories (None = the whole loop, one read-back at the "
          "end)."),
     Knob("factored_segmode", "LILAC_FACTORED_SEGMODE", str, "auto",
-         "Layout for the factored NPB operator: auto | routed | single "
-         "(auto = routed when the plan's device is CUDA, single on CPU). "
-         "Routed plans are single-table up to n = 2^18 and hierarchical "
-         "beyond. 'scan' and 'mixed' are not ported yet ('mixed' with "
+         "Layout for the factored NPB operator: auto | routed | scan | "
+         "single (auto = routed when the plan's device is CUDA, single on "
+         "CPU). Routed plans are single-table up to n = 2^18 and "
+         "hierarchical beyond; scan is the column-segmented gather layout "
+         "(SegELLScan). 'mixed' is not ported ('mixed' with "
          "factored_vt=adj is 'routed')."),
     Knob("factored_vt", "LILAC_FACTORED_VT", str, "auto",
          "How the routed factored operator computes V^T u: 'plan' = stage "
@@ -84,6 +85,10 @@ KNOBS = (
          "own network in reverse with add-merges (one plan, half the plan "
          "bytes). 'auto' = adj for the hierarchical classes (n > 2^18), "
          "plan for the single-table ones."),
+    Knob("seg_quantile", "LILAC_SEG_QUANTILE", float, 97.0,
+         "Percentile of the (row, segment) run lengths that sets the one "
+         "slab width of the scan layout (SegELLScan); longer runs spill "
+         "into its tail."),
     Knob("bench_budget_s", "LILAC_BENCH_BUDGET_S", float, 480.0,
          "bench_npb wall budget in seconds; the class ladder stops before "
          "exceeding it."),
@@ -107,6 +112,7 @@ class Config:
     steps_per_dispatch: Optional[int]
     factored_segmode: str
     factored_vt: str
+    seg_quantile: float
     bench_budget_s: float
     bench_dtype: str
     bench_kernel: str

@@ -34,7 +34,12 @@
 //      shared memory between runs (inner_pass.cuh).
 //   K4 holds nothing on chip: a thread reads its offset's word from each of
 //      the 2^g member blocks, exchanges them in registers, writes them
-//      group-major.
+//      group-major. A thread takes 4, 2 or 1 consecutive slots and a
+//      thread block 32 to 256 threads, chosen so that the grid has two
+//      thread blocks an SM where the shape allows (kernels/routed.py:
+//      butterfly_launch_config): at one net of m = 2^19, bl = 2^13, g = 3,
+//      4 slots of 256 threads made 64 thread blocks for 132 SMs; 4 slots of
+//      32 threads make 512.
 //   K5 needs no resident window. y[i] <- m_s[i] ? y[i - d_s] : y[i] over
 //      <= 8 stages composes into one gather: walking the stages backwards
 //      from output slot i through the mask bits gives the slot the value
@@ -49,7 +54,9 @@
 //      where the 4 are consecutive) and stores them as one vector a plane.
 //      Staging the sources in shared memory, or loading a thread's own
 //      words while its mask bytes arrive, measured slower.
-//   K6 is one select between two blocks.
+//   K6 is one select between two blocks. A thread reads its mask bytes
+//      first, then only the block its slots take (one vector load), or
+//      both blocks as vectors where the bytes are mixed; sized as K4.
 // Shared memory bounds bl through the plan's budget for a window pass, one
 // window of bl + sum(d) slots and their mask bytes (kernels/routed.py:
 // pass_smem_bytes and check_smem_feasible), not through these kernels; K9
@@ -66,9 +73,28 @@ namespace {
 using Layout = inner::BlockLayout;
 using inner::phys_of;
 
+template <typename T, int SL>
+struct alignas(sizeof(T) * SL) Vec {
+  T v[SL];
+};
+
 template <typename T>
-struct alignas(sizeof(T) * 4) Quad {
-  T v[4];
+using Quad = Vec<T, 4>;
+
+// the mask bytes of SL consecutive slots as one word
+template <int SL>
+struct MaskWord;
+template <>
+struct MaskWord<4> {
+  using type = uint32_t;
+};
+template <>
+struct MaskWord<2> {
+  using type = uint16_t;
+};
+template <>
+struct MaskWord<1> {
+  using type = uint8_t;
 };
 
 // ------------------------------------------------------------ K4 butterfly
@@ -79,9 +105,10 @@ struct BflyMap {
   int mem_phys[8];            // physical block bits set by member s
 };
 
-// grid (ceil(bl / (4 * threads)), ngroups, N). masks [N, ngroups, G, bl]
-// bytes, member-major: bit k of member s's byte is stage k's switch.
-template <typename T, int NP, int LG, bool REV>
+// grid (bl / (SL * threads), ngroups, N), SL slots a thread. masks [N,
+// ngroups, G, bl] bytes, member-major: bit k of member s's byte is stage
+// k's switch.
+template <typename T, int NP, int LG, int SL, bool REV>
 __global__ void hier_butterfly_kernel(const T* __restrict__ s0,
                                       const T* __restrict__ s1,
                                       long long sstride, T* __restrict__ d0,
@@ -89,8 +116,8 @@ __global__ void hier_butterfly_kernel(const T* __restrict__ s0,
                                       const uint8_t* __restrict__ masks,
                                       BflyMap map) {
   constexpr int G = 1 << LG;
-  const int off = (blockIdx.x * blockDim.x + threadIdx.x) * 4;
-  if (off >= bl) return;
+  using M = typename MaskWord<SL>::type;
+  const int off = (blockIdx.x * blockDim.x + threadIdx.x) * SL;
   const long long gid = blockIdx.y;
   const long long n = blockIdx.z;
   const long long ngroups = gridDim.y;
@@ -100,16 +127,16 @@ __global__ void hier_butterfly_kernel(const T* __restrict__ s0,
   }
   const T* srcs[2] = {s0, s1};
   T* dsts[2] = {d0, d1};
-  Quad<T> cur[NP][G];
+  Vec<T, SL> cur[NP][G];
   uint32_t mw[G];
   const uint8_t* mbase = masks + (n * ngroups + gid) * G * bl + off;
 #pragma unroll
   for (int s = 0; s < G; ++s) {
-    mw[s] = *reinterpret_cast<const uint32_t*>(mbase + static_cast<long long>(s) * bl);
+    mw[s] = *reinterpret_cast<const M*>(mbase + static_cast<long long>(s) * bl);
     const long long src = n * sstride + (pg | map.mem_phys[s]) * bl + off;
 #pragma unroll
     for (int p = 0; p < NP; ++p) {
-      cur[p][s] = *reinterpret_cast<const Quad<T>*>(srcs[p] + src);
+      cur[p][s] = *reinterpret_cast<const Vec<T, SL>*>(srcs[p] + src);
     }
   }
 #pragma unroll
@@ -120,7 +147,7 @@ __global__ void hier_butterfly_kernel(const T* __restrict__ s0,
       if (s & (1 << k)) continue;
       const int t = s | (1 << k);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < SL; ++j) {
         const bool ms = (mw[s] >> (8 * j + k)) & 1u;
         const bool mt = (mw[t] >> (8 * j + k)) & 1u;
 #pragma unroll
@@ -138,7 +165,7 @@ __global__ void hier_butterfly_kernel(const T* __restrict__ s0,
     const long long dst = n * m + (gid * G + s) * bl + off;
 #pragma unroll
     for (int p = 0; p < NP; ++p) {
-      *reinterpret_cast<Quad<T>*>(dsts[p] + dst) = cur[p][s];
+      *reinterpret_cast<Vec<T, SL>*>(dsts[p] + dst) = cur[p][s];
     }
   }
 }
@@ -219,35 +246,48 @@ __global__ void __launch_bounds__(1024)
 
 // ------------------------------------------------------------- K6 bigshift
 
-// grid (ceil(bl / (4 * threads)), nblocks, N). masks [N, nblocks, bl]
-// bytes, non-zero = take the word of logical block b - db.
-template <typename T, int NP>
+// grid (bl / (SL * threads), nblocks, N), SL slots a thread. masks [N,
+// nblocks, bl] bytes, non-zero = take the word of logical block b - db.
+// The far block lies whole blocks away, so its SL words are as aligned as
+// the thread's own (the launcher checks the planes and the net stride).
+template <typename T, int NP, int SL>
 __global__ void hier_bigshift_kernel(const T* __restrict__ s0,
                                      const T* __restrict__ s1,
                                      long long sstride, T* __restrict__ d0,
                                      T* __restrict__ d1, long long m, int bl,
                                      const uint8_t* __restrict__ masks,
                                      long long db, Layout lay) {
-  const int off = (blockIdx.x * blockDim.x + threadIdx.x) * 4;
-  if (off >= bl) return;
+  using M = typename MaskWord<SL>::type;
+  const int off = (blockIdx.x * blockDim.x + threadIdx.x) * SL;
   const long long b = blockIdx.y;
   const long long n = blockIdx.z;
   const long long nblocks = gridDim.y;
+  const uint32_t mw =
+      *reinterpret_cast<const M*>(masks + (n * nblocks + b) * bl + off);
+  bool all = true;
+#pragma unroll
+  for (int j = 0; j < SL; ++j) all = all && ((mw >> (8 * j)) & 0xffu) != 0;
   const long long far = n * sstride + phys_of((b + nblocks - db) % nblocks, lay) * bl + off;
   const long long self = n * sstride + phys_of(b, lay) * bl + off;
   const long long dst = n * m + b * bl + off;
-  const uint32_t mw =
-      *reinterpret_cast<const uint32_t*>(masks + (n * nblocks + b) * bl + off);
   const T* srcs[2] = {s0, s1};
   T* dsts[2] = {d0, d1};
 #pragma unroll
   for (int p = 0; p < NP; ++p) {
-    Quad<T> q = *reinterpret_cast<const Quad<T>*>(srcs[p] + self);
+    const Vec<T, SL>* fv = reinterpret_cast<const Vec<T, SL>*>(srcs[p] + far);
+    const Vec<T, SL>* sv = reinterpret_cast<const Vec<T, SL>*>(srcs[p] + self);
+    Vec<T, SL> q;
+    if (all) {
+      q = *fv;
+    } else if (mw == 0) {
+      q = *sv;
+    } else {
+      const Vec<T, SL> a = *sv;
+      const Vec<T, SL> c = *fv;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      if ((mw >> (8 * j)) & 0xffu) q.v[j] = srcs[p][far + j];
+      for (int j = 0; j < SL; ++j) q.v[j] = ((mw >> (8 * j)) & 0xffu) ? c.v[j] : a.v[j];
     }
-    *reinterpret_cast<Quad<T>*>(dsts[p] + dst) = q;
+    *reinterpret_cast<Vec<T, SL>*>(dsts[p] + dst) = q;
   }
 }
 
@@ -278,12 +318,6 @@ cudaError_t allow_smem(K kernel, size_t bytes, SmemAllowed* allowed) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
   if (err == cudaSuccess) *seen = bytes;
   return err;
-}
-
-int block_threads(int work) {
-  int t = 1024;
-  while (t > 32 && t > work) t >>= 1;
-  return t;
 }
 
 template <int ES, int NP, int RB, bool REV>
@@ -335,44 +369,61 @@ cudaError_t launch_inner(bool rev, const void* s0, const void* s1,
   return launch_inner_dir<ES, NP, false>(s0, s1, sstride, d0, d1, m, N, bl, lbits, masks, P, sc, lay, stream);
 }
 
-template <typename T, int NP, int LG, bool REV>
-cudaError_t launch_butterfly_g(const void* s0, const void* s1,
-                               long long sstride, void* d0, void* d1,
-                               long long m, int N, int bl, const void* masks,
-                               const BflyMap& map, cudaStream_t stream) {
-  const int threads = block_threads(bl / 4) > 256 ? 256 : block_threads(bl / 4);
-  dim3 grid(static_cast<unsigned>((bl / 4 + threads - 1) / threads),
+template <typename T, int NP, int LG, int SL, bool REV>
+cudaError_t launch_butterfly_sl(const void* s0, const void* s1,
+                                long long sstride, void* d0, void* d1,
+                                long long m, int N, int bl, const void* masks,
+                                const BflyMap& map, int threads,
+                                cudaStream_t stream) {
+  dim3 grid(static_cast<unsigned>(bl / (SL * threads)),
             static_cast<unsigned>((m / bl) >> LG), static_cast<unsigned>(N));
-  hier_butterfly_kernel<T, NP, LG, REV><<<grid, threads, 0, stream>>>(
+  hier_butterfly_kernel<T, NP, LG, SL, REV><<<grid, threads, 0, stream>>>(
       static_cast<const T*>(s0), static_cast<const T*>(s1), sstride,
       static_cast<T*>(d0), static_cast<T*>(d1), m, bl,
       static_cast<const uint8_t*>(masks), map);
   return cudaGetLastError();
 }
 
+template <typename T, int NP, int LG, bool REV>
+cudaError_t launch_butterfly_g(const void* s0, const void* s1,
+                               long long sstride, void* d0, void* d1,
+                               long long m, int N, int bl, const void* masks,
+                               const BflyMap& map, int slots, int threads,
+                               cudaStream_t stream) {
+  if (slots == 1) {
+    return launch_butterfly_sl<T, NP, LG, 1, REV>(s0, s1, sstride, d0, d1, m, N, bl, masks, map, threads, stream);
+  }
+  if (slots == 2) {
+    return launch_butterfly_sl<T, NP, LG, 2, REV>(s0, s1, sstride, d0, d1, m, N, bl, masks, map, threads, stream);
+  }
+  return launch_butterfly_sl<T, NP, LG, 4, REV>(s0, s1, sstride, d0, d1, m, N, bl, masks, map, threads, stream);
+}
+
 template <typename T, int NP, bool REV>
 cudaError_t launch_butterfly_dir(int g, const void* s0, const void* s1,
                                  long long sstride, void* d0, void* d1,
                                  long long m, int N, int bl, const void* masks,
-                                 const BflyMap& map, cudaStream_t stream) {
+                                 const BflyMap& map, int slots, int threads,
+                                 cudaStream_t stream) {
   if (g == 1) {
-    return launch_butterfly_g<T, NP, 1, REV>(s0, s1, sstride, d0, d1, m, N, bl, masks, map, stream);
+    return launch_butterfly_g<T, NP, 1, REV>(s0, s1, sstride, d0, d1, m, N, bl, masks, map, slots, threads, stream);
   }
   if (g == 2) {
-    return launch_butterfly_g<T, NP, 2, REV>(s0, s1, sstride, d0, d1, m, N, bl, masks, map, stream);
+    return launch_butterfly_g<T, NP, 2, REV>(s0, s1, sstride, d0, d1, m, N, bl, masks, map, slots, threads, stream);
   }
-  return launch_butterfly_g<T, NP, 3, REV>(s0, s1, sstride, d0, d1, m, N, bl, masks, map, stream);
+  return launch_butterfly_g<T, NP, 3, REV>(s0, s1, sstride, d0, d1, m, N, bl, masks, map, slots, threads, stream);
 }
 
 template <typename T, int NP>
 cudaError_t launch_butterfly(bool rev, int g, const void* s0, const void* s1,
                              long long sstride, void* d0, void* d1,
                              long long m, int N, int bl, const void* masks,
-                             const BflyMap& map, cudaStream_t stream) {
+                             const BflyMap& map, int slots, int threads,
+                             cudaStream_t stream) {
   if (rev) {
-    return launch_butterfly_dir<T, NP, true>(g, s0, s1, sstride, d0, d1, m, N, bl, masks, map, stream);
+    return launch_butterfly_dir<T, NP, true>(g, s0, s1, sstride, d0, d1, m, N, bl, masks, map, slots, threads, stream);
   }
-  return launch_butterfly_dir<T, NP, false>(g, s0, s1, sstride, d0, d1, m, N, bl, masks, map, stream);
+  return launch_butterfly_dir<T, NP, false>(g, s0, s1, sstride, d0, d1, m, N, bl, masks, map, slots, threads, stream);
 }
 
 // shared memory of a window thread block: the mask bytes of its span and of
@@ -396,19 +447,32 @@ cudaError_t launch_window(const void* s0, const void* s1, long long sstride,
   return cudaGetLastError();
 }
 
-template <typename T, int NP>
-cudaError_t launch_bigshift(const void* s0, const void* s1, long long sstride,
-                            void* d0, void* d1, long long m, int N, int bl,
-                            const void* masks, long long db,
-                            const Layout& lay, cudaStream_t stream) {
-  const int threads = block_threads(bl / 4) > 256 ? 256 : block_threads(bl / 4);
-  dim3 grid(static_cast<unsigned>((bl / 4 + threads - 1) / threads),
-            static_cast<unsigned>(m / bl), static_cast<unsigned>(N));
-  hier_bigshift_kernel<T, NP><<<grid, threads, 0, stream>>>(
+template <typename T, int NP, int SL>
+cudaError_t launch_bigshift_sl(const void* s0, const void* s1, long long sstride,
+                               void* d0, void* d1, long long m, int N, int bl,
+                               const void* masks, long long db, const Layout& lay,
+                               int threads, cudaStream_t stream) {
+  dim3 grid(static_cast<unsigned>(bl / (SL * threads)), static_cast<unsigned>(m / bl),
+            static_cast<unsigned>(N));
+  hier_bigshift_kernel<T, NP, SL><<<grid, threads, 0, stream>>>(
       static_cast<const T*>(s0), static_cast<const T*>(s1), sstride,
       static_cast<T*>(d0), static_cast<T*>(d1), m, bl,
       static_cast<const uint8_t*>(masks), db, lay);
   return cudaGetLastError();
+}
+
+template <typename T, int NP>
+cudaError_t launch_bigshift(const void* s0, const void* s1, long long sstride,
+                            void* d0, void* d1, long long m, int N, int bl,
+                            const void* masks, long long db, const Layout& lay,
+                            int slots, int threads, cudaStream_t stream) {
+  if (slots == 1) {
+    return launch_bigshift_sl<T, NP, 1>(s0, s1, sstride, d0, d1, m, N, bl, masks, db, lay, threads, stream);
+  }
+  if (slots == 2) {
+    return launch_bigshift_sl<T, NP, 2>(s0, s1, sstride, d0, d1, m, N, bl, masks, db, lay, threads, stream);
+  }
+  return launch_bigshift_sl<T, NP, 4>(s0, s1, sstride, d0, d1, m, N, bl, masks, db, lay, threads, stream);
 }
 
 // bl a power of two >= 128, m a power-of-two multiple of bl; blocks, groups
@@ -419,6 +483,22 @@ bool shape_ok(long long m, int N, int bl, int nplanes, int esize) {
   if (bl < 128 || (bl & (bl - 1)) != 0 || m < bl || (m & (m - 1)) != 0) return false;
   if (m / bl > 65535 || N < 1 || N > 65535) return false;
   return (nplanes == 1 || nplanes == 2) && (esize == 4 || esize == 8);
+}
+
+// a K4 / K6 launch shape: 1, 2 or 4 slots a thread, a power of two from 32
+// to 256 threads, no thread without a slot; and every slot vector aligned:
+// the planes at SL words, the net stride a multiple of SL
+bool slots_ok(int slots, int threads, int bl, int esize, const void* s0,
+              const void* s1, const void* d0, const void* d1, long long sstride) {
+  if (slots != 1 && slots != 2 && slots != 4) return false;
+  if (threads < 32 || threads > 256 || (threads & (threads - 1)) != 0) return false;
+  if (static_cast<long long>(slots) * threads > bl || sstride % slots != 0) return false;
+  const uintptr_t align = static_cast<uintptr_t>(slots) * esize;
+  const void* planes[4] = {s0, s1, d0, d1};  // s1, d1 null for one plane
+  for (const void* p : planes) {
+    if (reinterpret_cast<uintptr_t>(p) % align != 0) return false;
+  }
+  return true;
 }
 
 }  // namespace
@@ -537,10 +617,11 @@ namespace {
 int run_butterfly(bool rev, const void* s0, const void* s1, int nplanes,
                   int esize, long long sstride, void* d0, void* d1, long long m,
                   int N, int bl, const void* masks, int g, int nrest,
-                  const unsigned char* gid_pos, const int* mem_phys,
-                  void* stream) {
+                  const unsigned char* gid_pos, const int* mem_phys, int slots,
+                  int threads, void* stream) {
   if (!shape_ok(m, N, bl, nplanes, esize) || g < 1 || g > 3 || nrest < 0 ||
-      nrest > 32 || (m / bl) >> g < 1) {
+      nrest > 32 || (m / bl) >> g < 1 ||
+      !slots_ok(slots, threads, bl, esize, s0, s1, d0, d1, sstride)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   BflyMap map;
@@ -550,21 +631,23 @@ int run_butterfly(bool rev, const void* s0, const void* s1, int nplanes,
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   return static_cast<int>(LILAC_DISPATCH(launch_butterfly, rev, g, s0, s1,
                                          sstride, d0, d1, m, N, bl, masks, map,
-                                         cs));
+                                         slots, threads, cs));
 }
 
 }  // namespace
 
 // gid_pos[nrest]: physical bit position of each group-index bit;
-// mem_phys[2^g]: physical block bits of each member.
+// mem_phys[2^g]: physical block bits of each member; slots a thread and
+// threads a block as kernels/routed.py:butterfly_launch_config gives them.
 extern "C" int lilac_hier_butterfly(const void* s0, const void* s1, int nplanes,
                                     int esize, long long sstride, void* d0,
                                     void* d1, long long m, int N, int bl,
                                     const void* masks, int g, int nrest,
                                     const unsigned char* gid_pos,
-                                    const int* mem_phys, void* stream) {
+                                    const int* mem_phys, int slots, int threads,
+                                    void* stream) {
   return run_butterfly(false, s0, s1, nplanes, esize, sstride, d0, d1, m, N, bl,
-                       masks, g, nrest, gid_pos, mem_phys, stream);
+                       masks, g, nrest, gid_pos, mem_phys, slots, threads, stream);
 }
 
 // K8: the same g exchange stages, last one first.
@@ -573,9 +656,10 @@ extern "C" int lilac_hier_butterfly_t(const void* s0, const void* s1,
                                       void* d0, void* d1, long long m, int N,
                                       int bl, const void* masks, int g,
                                       int nrest, const unsigned char* gid_pos,
-                                      const int* mem_phys, void* stream) {
+                                      const int* mem_phys, int slots, int threads,
+                                      void* stream) {
   return run_butterfly(true, s0, s1, nplanes, esize, sstride, d0, d1, m, N, bl,
-                       masks, g, nrest, gid_pos, mem_phys, stream);
+                       masks, g, nrest, gid_pos, mem_phys, slots, threads, stream);
 }
 
 // span: output slots a thread block, a power of two from 128 to
@@ -606,19 +690,23 @@ extern "C" int lilac_hier_window(const void* s0, const void* s1, int nplanes,
                                          m, N, bl, masks, sh, total, span, lay, cs));
 }
 
+// slots a thread and threads a block as for the butterfly pass.
 extern "C" int lilac_hier_bigshift(const void* s0, const void* s1, int nplanes,
                                    int esize, long long sstride, void* d0,
                                    void* d1, long long m, int N, int bl,
                                    const void* masks, long long db, int nbits,
-                                   const unsigned char* layout, void* stream) {
+                                   const unsigned char* layout, int slots,
+                                   int threads, void* stream) {
   Layout lay;
   if (!shape_ok(m, N, bl, nplanes, esize) || db < 0 || db >= m / bl ||
-      !fill_layout(&lay, nbits, layout)) {
+      !fill_layout(&lay, nbits, layout) ||
+      !slots_ok(slots, threads, bl, esize, s0, s1, d0, d1, sstride)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   return static_cast<int>(LILAC_DISPATCH(launch_bigshift, s0, s1, sstride, d0,
-                                         d1, m, N, bl, masks, db, lay, cs));
+                                         d1, m, N, bl, masks, db, lay, slots,
+                                         threads, cs));
 }
 
 // The current device's opt-in limit of dynamic shared memory per block.

@@ -13,7 +13,16 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from lilac_tpu_torch.formats.sparse import BSR, COO, CSR, ELL, BucketELL, SegBucketELL
+from lilac_tpu_torch.formats.sparse import (
+    BSR,
+    COO,
+    CSR,
+    ELL,
+    BucketELL,
+    SegBucketELL,
+    SegELLScan,
+    SlicedELL,
+)
 
 
 def round_up(x: int, m: int) -> int:
@@ -64,20 +73,87 @@ def coo_to_csr_arrays(
     )
 
 
+def _segment_runs(indptr, indices, n: int, seg_size: int, nseg: int):
+    """Per entry of a (row, column)-sorted CSR: its row, its segment and its
+    slot within its (row, segment) run; and the [n, nseg] run lengths."""
+    counts = np.diff(indptr).astype(np.int64)
+    rows_rep = np.repeat(np.arange(n), counts)
+    seg_of = indices // seg_size
+    run_key = rows_rep * nseg + seg_of
+    run_start = np.zeros(len(indices), dtype=bool)
+    if len(indices):
+        run_start[0] = True
+        run_start[1:] = run_key[1:] != run_key[:-1]
+    run_id = np.cumsum(run_start) - 1
+    first_of_run = np.zeros(run_id[-1] + 1 if len(indices) else 0, dtype=np.int64)
+    first_of_run[run_id[run_start]] = np.nonzero(run_start)[0]
+    slot_in_run = np.arange(len(indices)) - first_of_run[run_id]
+    rs_counts = np.zeros((n, nseg), dtype=np.int64)
+    np.add.at(rs_counts, (rows_rep, seg_of), 1)
+    return rows_rep, seg_of, slot_in_run, rs_counts
+
+
+def _tail_slots(rows_rep, ov, n: int):
+    """Rows of the overflow entries `ov` ((row, column)-sorted) and each
+    one's slot within its row's overflow."""
+    trows = rows_rep[ov]
+    tstart = np.zeros(n + 1, dtype=np.int64)
+    np.add.at(tstart, trows + 1, 1)
+    np.cumsum(tstart, out=tstart)
+    return trows, np.arange(len(ov)) - tstart[trows], tstart
+
+
+def _seg_bucket_multiseg_arrays(indptr, indices, data, shape, seg_size, nseg,
+                                seg_quantile):
+    """Several column segments: a main part a segment at the seg_quantile
+    width of that segment's run lengths (local indices, identity rows),
+    then the entries beyond into one full-height tail part (segment -1,
+    global indices)."""
+    n, _ = shape
+    rows_rep, seg_of, slot_in_run, rs_counts = _segment_runs(
+        indptr, indices, n, seg_size, nseg)
+    datas, idxs, parts = [], [], []
+    overflow_mask = np.zeros(len(indices), dtype=bool)
+    for s in range(nseg):
+        w = max(int(np.percentile(rs_counts[:, s], seg_quantile)), 1)
+        sel = (seg_of == s) & (slot_in_run < w)
+        overflow_mask |= (seg_of == s) & (slot_in_run >= w)
+        bi = np.zeros((n, w), dtype=np.int64)
+        bv = np.zeros((n, w) + data.shape[1:], dtype=data.dtype)
+        bi[rows_rep[sel], slot_in_run[sel]] = indices[sel] - s * seg_size
+        bv[rows_rep[sel], slot_in_run[sel]] = data[sel]
+        datas.append(bv)
+        idxs.append(bi)
+        parts.append((0, n, s, w))
+    ov = np.nonzero(overflow_mask)[0]
+    if len(ov):
+        trows, tslot, tstart = _tail_slots(rows_rep, ov, n)
+        wt = int(np.diff(tstart).max())
+        bi = np.zeros((n, wt), dtype=np.int64)
+        bv = np.zeros((n, wt) + data.shape[1:], dtype=data.dtype)
+        bi[trows, tslot] = indices[ov]
+        bv[trows, tslot] = data[ov]
+        datas.append(bv)
+        idxs.append(bi)
+        parts.append((0, n, -1, wt))
+    return datas, idxs, np.arange(n, dtype=np.int64), tuple(parts), True
+
+
 def seg_bucket_ell_arrays(
-    indptr, indices, data, shape, *, seg_size=None, quantiles=(50, 90)
+    indptr, indices, data, shape, *, seg_size=163840, quantiles=(50, 90),
+    seg_quantile=95.0,
 ):
-    """Host arrays of a single-segment SegBucketELL: returns
-    (datas, idxs, inv_perm, parts, identity), all numpy / Python.
-    seg_size: the column-segment length (default: ncols, one segment)."""
+    """Host arrays of a SegBucketELL: returns (datas, idxs, inv_perm, parts,
+    identity), all numpy / Python, the reference's arrays bit for bit.
+    seg_size >= ncols: one segment, rows bucketed at the `quantiles` of the
+    row lengths. Smaller: several segments, each capped at the
+    `seg_quantile` of its run lengths, and a tail (see SegBucketELL). The
+    entries must be (row, column)-sorted, as coo_to_csr_arrays leaves them."""
     n, ncol = shape
-    seg_size = ncol if seg_size is None else seg_size
     nseg = -(-ncol // seg_size)
     if nseg > 1:
-        raise NotImplementedError(
-            "multi-segment SegBucketELL is not ported: the factored NPB path "
-            "always passes seg_size >= ncols"
-        )
+        return _seg_bucket_multiseg_arrays(
+            indptr, indices, data, shape, seg_size, nseg, seg_quantile)
     counts = np.diff(indptr).astype(np.int64)
     kmax = int(counts.max()) if n else 0
     cand = sorted({max(int(np.percentile(counts, q)), 1) for q in quantiles} | {kmax})
@@ -126,25 +202,81 @@ def seg_bucket_ell_arrays(
 
 
 def csr_to_seg_bucket_ell(
-    indptr, indices, data, shape, *, seg_size=None, quantiles=(50, 90),
-    device="cuda",
+    indptr, indices, data, shape, *, seg_size=163840, quantiles=(50, 90),
+    seg_quantile=95.0, device="cuda",
 ) -> SegBucketELL:
-    """Host build for SegBucketELL (see formats/sparse.py), single column
-    segment: seg_size defaults to ncols and must not be smaller."""
-    seg_size = shape[1] if seg_size is None else seg_size
+    """Host build for SegBucketELL (see formats/sparse.py and
+    seg_bucket_ell_arrays), placed on `device`."""
     datas, idxs, inv_perm, parts, identity = seg_bucket_ell_arrays(
-        indptr, indices, data, shape, seg_size=seg_size, quantiles=quantiles
+        indptr, indices, data, shape, seg_size=seg_size, quantiles=quantiles,
+        seg_quantile=seg_quantile,
     )
     return SegBucketELL(
         data=tuple(torch.as_tensor(v, device=device) for v in datas),
-        indices=tuple(
-            torch.as_tensor(i, dtype=torch.int64, device=device) for i in idxs
-        ),
-        inv_perm=torch.as_tensor(inv_perm, dtype=torch.int64, device=device),
+        indices=tuple(_index(i, device) for i in idxs),
+        inv_perm=_index(inv_perm, device),
         shape=tuple(shape),
         parts=parts,
         seg_size=seg_size,
         identity_perm=identity,
+    )
+
+
+def csr_to_seg_ell_scan(
+    indptr, indices, data, shape, *, seg_size=163840, seg_quantile=97.0,
+    device="cuda",
+) -> SegELLScan:
+    """Host build for SegELLScan (see formats/sparse.py), the reference's
+    arrays bit for bit, placed on `device`. One width for every segment:
+    the largest over segments of the `seg_quantile` percentile of the
+    (row, segment) run lengths; the first `width` entries of each run go
+    into that segment's slab, the rest into the global-index tail. The
+    entries must be (row, column)-sorted."""
+    n, ncol = shape
+    nseg = -(-ncol // seg_size)
+    rows_rep, seg_of, slot_in_run, rs_counts = _segment_runs(
+        indptr, indices, n, seg_size, nseg)
+    w = max(
+        1,
+        int(max(np.percentile(rs_counts[:, s], seg_quantile) for s in range(nseg)))
+        if n
+        else 1,
+    )
+    main = slot_in_run < w
+    # w-major slabs [nseg, w, n]: a segment's slot k of every row is contiguous
+    mi = np.zeros((nseg, w, n), dtype=np.int64)
+    mv = np.zeros((nseg, w, n) + data.shape[1:], dtype=data.dtype)
+    mi[seg_of[main], slot_in_run[main], rows_rep[main]] = (
+        indices[main] - seg_of[main] * seg_size
+    )
+    mv[seg_of[main], slot_in_run[main], rows_rep[main]] = data[main]
+
+    ov = np.nonzero(~main)[0]
+    tv = ti = tp = None
+    if len(ov):
+        trows, tslot, tstart = _tail_slots(rows_rep, ov, n)
+        tail_rows = np.unique(trows)  # sorted
+        m_t = len(tail_rows)
+        pos_of = np.full(n, m_t, dtype=np.int64)
+        pos_of[tail_rows] = np.arange(m_t)
+        wt = int(np.diff(tstart).max())
+        ti_np = np.zeros((wt, m_t), dtype=np.int64)
+        tv_np = np.zeros((wt, m_t) + data.shape[1:], dtype=data.dtype)
+        ti_np[tslot, pos_of[trows]] = indices[ov]
+        tv_np[tslot, pos_of[trows]] = data[ov]
+        ti = _index(ti_np, device)
+        tv = torch.as_tensor(tv_np, device=device)
+        tp = _index(pos_of, device)
+    return SegELLScan(
+        main_data=torch.as_tensor(mv, device=device),
+        main_indices=_index(mi, device),
+        tail_data=tv,
+        tail_indices=ti,
+        tail_pos=tp,
+        shape=tuple(shape),
+        seg_size=seg_size,
+        nseg=nseg,
+        width=w,
     )
 
 
@@ -196,6 +328,47 @@ def ell_device(indptr, indices, data, shape, dtype=None, row_pad=8, slot_pad=1,
     vals, cols = csr_to_ell_arrays(indptr, indices, data, shape, row_pad, slot_pad)
     return ELL(data=_values(vals, None, device), indices=_index(cols, device),
                shape=tuple(shape))
+
+
+def csr_to_sliced_ell_arrays(indptr, indices, data, shape, slice_height=8):
+    """SELL-C packing: rows sorted by descending length (stable), padded per
+    slice of `slice_height` rows, column-major within a slice. Returns
+    (values [total_slots], int32 column ids, int32 slot offsets of the
+    slices, int32 perm), the reference's arrays bit for bit."""
+    n = shape[0]
+    counts = np.diff(indptr).astype(np.int64)
+    npad = round_up(max(n, 1), slice_height)
+    counts_pad = np.zeros(npad, dtype=np.int64)
+    counts_pad[:n] = counts
+    perm = np.argsort(-counts_pad, kind="stable").astype(np.int32)
+    nslices = npad // slice_height
+    slice_k = counts_pad[perm].reshape(nslices, slice_height).max(axis=1)
+    slot_starts = np.zeros(nslices + 1, dtype=np.int64)
+    np.cumsum(slice_k * slice_height, out=slot_starts[1:])
+    total = int(slot_starts[-1])
+    vals = np.zeros((total,) + data.shape[1:], dtype=data.dtype)
+    cols = np.zeros(total, dtype=np.int32)
+    # entry of row r, slot k -> slice base + position in the slice + k * height
+    pos = np.empty(npad, dtype=np.int64)
+    pos[perm] = np.arange(npad)
+    nnz = int(indptr[-1])
+    p = pos[np.repeat(np.arange(n), counts)]
+    slot = np.arange(nnz) - np.repeat(indptr[:-1].astype(np.int64), counts)
+    dst = slot_starts[p // slice_height] + p % slice_height + slot * slice_height
+    vals[dst] = data[:nnz]
+    cols[dst] = indices[:nnz]
+    return vals, cols, slot_starts.astype(np.int32), perm
+
+
+def sliced_ell_device(indptr, indices, data, shape, slice_height=8, dtype=None,
+                      device="cuda") -> SlicedELL:
+    if dtype is not None:
+        data = data.astype(dtype)
+    vals, cols, starts, perm = csr_to_sliced_ell_arrays(
+        indptr, indices, data, shape, slice_height)
+    return SlicedELL(data=_values(vals, None, device), indices=_index(cols, device),
+                     row_starts=_index(starts, device), perm=_index(perm, device),
+                     shape=tuple(shape), slice_height=slice_height)
 
 
 def csr_to_bsr_arrays(indptr, indices, data, shape, block_shape=(8, 128)):

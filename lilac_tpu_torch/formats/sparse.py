@@ -6,9 +6,8 @@ any float dtype, or double-word (df64) pairs stored as a trailing [..., 2]
 (hi, lo) float32 axis (see lilac_tpu_torch.ops.dfloat). `shape` is the
 logical (unpadded) matrix shape.
 
-SlicedELL and SegELLScan are not carried yet; JagELLT is not carried at
-all (its only consumer, the reference's `mixed` factored mode, is not
-ported).
+JagELLT is not carried (its only consumer, the reference's `mixed`
+factored mode, is not ported).
 """
 
 from __future__ import annotations
@@ -92,6 +91,23 @@ class ELL:
 
 
 @dataclasses.dataclass(frozen=True)
+class SlicedELL:
+    """Sliced ELL (SELL-C): rows sorted by descending length in slices of
+    `slice_height`, each slice padded only to its own longest row and
+    stored column-major (slot k of the slice's row r at row_starts[s] + r +
+    k * slice_height). `perm` maps sorted position -> original row id (ids
+    >= nrows are padding rows). No kernel reads it yet, as in the
+    reference."""
+
+    data: torch.Tensor  # [total_slots] float
+    indices: torch.Tensor  # [total_slots] int64
+    row_starts: torch.Tensor  # [num_slices + 1] int64 slot offsets
+    perm: torch.Tensor  # [nrows_pad] int64
+    shape: Tuple[int, int]
+    slice_height: int
+
+
+@dataclasses.dataclass(frozen=True)
 class BSR:
     """Block sparse row: CSR over dense (bh, bw) blocks (zero-filled)."""
 
@@ -122,16 +138,47 @@ class BucketELL:
 
 
 @dataclasses.dataclass(frozen=True)
-class SegBucketELL:
-    """Degree-bucketed ELL (single column segment in the port).
+class SegELLScan:
+    """Column-segmented ELL of one uniform width a segment, the segments
+    stacked so that a product accumulates them one at a time: temporaries
+    are bounded by one segment's slab, whatever the segment count.
 
-    Rows are sorted by ascending length and cut into buckets, each stored
-    as its own [n_b, K] ELL block, so short rows do not pad to the longest.
-    One row permutation serves every bucket and the output needs a single
-    un-permute; near-uniform matrices keep their row order.
+    Segment s holds columns [s * seg_size, (s + 1) * seg_size) as a
+    w-major [width, n] ELL slab with SEGMENT-LOCAL indices (padding slots:
+    index 0, value 0). The entries of a (row, segment) run beyond `width`
+    spill into a compact tail of the rows that overflow, with GLOBAL
+    indices; tail_pos[r] maps row r to its tail column (= m_t for rows
+    without overflow, which read a zero pad). Row order is the identity.
+    """
+
+    main_data: torch.Tensor  # [nseg, width, n] float (or [..., 2] df64)
+    main_indices: torch.Tensor  # [nseg, width, n] int64, segment-local
+    tail_data: Optional[torch.Tensor]  # [wt, m_t] float (or [..., 2] df64)
+    tail_indices: Optional[torch.Tensor]  # [wt, m_t] int64, global
+    tail_pos: Optional[torch.Tensor]  # [n] int64 (row -> tail column)
+    shape: Tuple[int, int]
+    seg_size: int
+    nseg: int
+    width: int
+
+
+@dataclasses.dataclass(frozen=True)
+class SegBucketELL:
+    """Column-segmented, degree-bucketed ELL.
+
+    One segment (seg_size >= ncols): rows are sorted by ascending length
+    and cut into buckets, each stored as its own [n_b, K] ELL block, so
+    short rows do not pad to the longest. One row permutation serves every
+    bucket and the output needs a single un-permute; near-uniform matrices
+    keep their row order.
+
+    Several segments: a MAIN part a segment, every row in identity order at
+    a quantile-capped width with SEGMENT-LOCAL indices, and one TAIL part
+    (segment id -1) holding the entries beyond those widths with GLOBAL
+    indices, also at full row height.
 
     parts: static tuple of (bucket_row_lo, bucket_row_hi, segment, width)
-    aligned with the data/indices tuples (segment is always 0 here).
+    aligned with the data/indices tuples.
     """
 
     data: tuple  # per-part [n_b, K] float (or [.., 2] df)

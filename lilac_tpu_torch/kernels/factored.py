@@ -23,12 +23,16 @@ Two layouts are ported:
 * ``single``: V and V^T as single-segment SegBucketELL through plain torch
   indexing (kernels/gather.py). No hand kernel: the independent operator
   the routed one is held against.
+* ``scan``: V and V^T as SegELLScan, columns cut into segments of SEG_SIZE
+  and accumulated one segment at a time (kernels/gather.py), so that a
+  product's temporaries stay one segment's slab: the reference's
+  memory-bounded gather layout for the large classes. No hand kernel.
 
 ``factored_segmode=auto`` is ``routed`` when the plan's device is CUDA and
-``single`` on the CPU. The reference's ``scan`` and ``mixed`` layouts raise
-NotImplementedError until their gather layouts are ported (``mixed`` with
-``adj`` is ``routed``, as in the reference: adj removes the reason mixed
-exists).
+``single`` on the CPU. The reference's ``mixed`` layout raises
+NotImplementedError: its jagged-diagonal gather layout is not ported
+(``mixed`` with ``adj`` is ``routed``, as in the reference: adj removes the
+reason mixed exists).
 
 Exactly the same matrix: summation order differs from the assembled CSR
 by O(eps), far inside the zeta tolerance of 1e-10. Supports the f32 / f64
@@ -45,10 +49,12 @@ from typing import Tuple, Union
 import numpy as np
 import torch
 
-from lilac_tpu_torch.formats.sparse import SegBucketELL
+from lilac_tpu_torch.formats.sparse import SegBucketELL, SegELLScan
 from lilac_tpu_torch.kernels.gather import (
     seg_bucket_ell_spmv,
     seg_bucket_ell_spmv_df,
+    seg_ell_scan_spmv,
+    seg_ell_scan_spmv_df,
 )
 from lilac_tpu_torch.kernels.routed_spmv import (
     RoutedMat,
@@ -72,6 +78,11 @@ from lilac_tpu_torch.kernels.routed_spmv import (
 from lilac_tpu_torch.ops import dfloat as df
 
 SINGLE_TABLE_MAX = 1 << 18  # largest n the reference serves with one table
+# Columns a segment of the scan layout. A layout constant: it fixes the
+# order of the sums the tests compare with the reference. The value is the
+# reference's, chosen for the TPU's gather (a 1.25 MB table a segment); it
+# has not been tuned on an H100.
+SEG_SIZE = 163840
 
 # what a damaged, truncated or foreign plan file raises while it is read
 _LOAD_ERRORS = (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile)
@@ -83,8 +94,9 @@ class FactoredNPB:
 
     # [n x n] sparse with rows a_i, and its transpose; VT None
     # (factored_vt=adj) = apply V's own routed plan in reverse
-    V: Union[RoutedMat, RoutedMatHier, RoutedMatHierP, SegBucketELL]
-    VT: Union[RoutedMat, RoutedMatHier, RoutedMatHierP, SegBucketELL, None]
+    V: Union[RoutedMat, RoutedMatHier, RoutedMatHierP, SegBucketELL, SegELLScan]
+    VT: Union[RoutedMat, RoutedMatHier, RoutedMatHierP, SegBucketELL, SegELLScan,
+              None]
     s: torch.Tensor  # [n] outer-product weights (f32/f64 or [n, 2] df)
     d0: torch.Tensor  # scalar diagonal shift rcond - shift (or [2] df)
 
@@ -112,13 +124,12 @@ def _resolve_modes(conf, n: int, device) -> Tuple[str, str]:
         raise ValueError(f"unknown factored_vt {vt_mode!r}")
     if mode == "mixed" and vt_mode == "adj":
         mode = "routed"
-    if mode in ("scan", "mixed"):
+    if mode == "mixed":
         raise NotImplementedError(
-            f"factored_segmode={mode!r} is not ported: 'scan' needs the "
-            "SegELLScan gather layout and 'mixed' the jagged-diagonal "
-            "gather layout (JagELLT) beside a hierarchical plan"
+            "factored_segmode='mixed' is not ported: it needs the "
+            "jagged-diagonal gather layout (JagELLT) beside a hierarchical plan"
         )
-    if mode not in ("routed", "single"):
+    if mode not in ("routed", "single", "scan"):
         raise ValueError(f"unknown factored_segmode {mode!r}")
     if mode != "routed":
         vt_mode = "plan"  # a gather layout has no network to run in reverse
@@ -170,6 +181,7 @@ def build_factored(
     from lilac_tpu_torch.formats.convert import (
         coo_to_csr_arrays,
         csr_to_seg_bucket_ell,
+        csr_to_seg_ell_scan,
     )
     from lilac_tpu_torch.generate.npb import CLASSES, _generate_triples
 
@@ -257,6 +269,11 @@ def build_factored(
             else:
                 plans.append(_build_hier_plan(path, ip, ix, vv, n, dtype, device))
         V, VT = plans + [None] * adj
+    elif mode == "scan":
+        V, VT = (csr_to_seg_ell_scan(
+            ip, ix, to_vals(vv, dtype), (n, n), seg_size=SEG_SIZE,
+            seg_quantile=conf.seg_quantile, device=device)
+            for ip, ix, vv in ((v_ip, v_ix, v_v), (t_ip, t_ix, t_v)))
     else:
         V = csr_to_seg_bucket_ell(
             v_ip, v_ix, to_vals(v_v, dtype), (n, n), seg_size=n, device=device
@@ -288,6 +305,8 @@ def _spmv_any(A, x):
         return routed_spmv(A, x)
     if isinstance(A, (RoutedMatHier, RoutedMatHierP)):
         return routed_hier_spmv(A, x)
+    if isinstance(A, SegELLScan):
+        return seg_ell_scan_spmv(A, x)
     return seg_bucket_ell_spmv(A, x)
 
 
@@ -296,6 +315,8 @@ def _spmv_any_df(A, x):
         return routed_spmv_df(A, x)
     if isinstance(A, (RoutedMatHier, RoutedMatHierP)):
         return routed_hier_spmv_df(A, x)
+    if isinstance(A, SegELLScan):
+        return seg_ell_scan_spmv_df(A, x)
     return seg_bucket_ell_spmv_df(A, x)
 
 

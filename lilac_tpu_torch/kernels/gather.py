@@ -5,8 +5,9 @@ XLA's gather, segment-sum and scatter-add is plain torch indexing,
 `index_add_` and `sum` here; no hand kernel is involved, which makes these
 the check on the routed operators. They are registered under the
 reference's names (xla_csr, xla_coo, xla_ell, xla_ell_df, xla_bsr,
-xla_sell, xla_sell_df, xla_segell, xla_segell_df), so a kernel name means
-the same computation on both platforms.
+xla_sell, xla_sell_df, xla_segell, xla_segell_df, xla_segscan,
+xla_segscan_df), so a kernel name means the same computation on both
+platforms.
 
 Each transpose form (`*_t`) is the true Aᵀx by scatter-add.
 """
@@ -15,7 +16,15 @@ from __future__ import annotations
 
 import torch
 
-from lilac_tpu_torch.formats.sparse import BSR, COO, CSR, ELL, BucketELL, SegBucketELL
+from lilac_tpu_torch.formats.sparse import (
+    BSR,
+    COO,
+    CSR,
+    ELL,
+    BucketELL,
+    SegBucketELL,
+    SegELLScan,
+)
 from lilac_tpu_torch.kernels.registry import register_kernel
 from lilac_tpu_torch.ops import dfloat as df
 
@@ -153,13 +162,23 @@ register_kernel("xla_sell", bucket_ell_spmv, BucketELL, transpose=bucket_ell_spm
 register_kernel("xla_sell_df", bucket_ell_spmv_df, BucketELL, dfloat=True)
 
 
-# -- SegBucketELL (single segment) ---------------------------------------------
+# -- SegBucketELL ----------------------------------------------------------------
+
+
+def _seg_table(x: torch.Tensor, A, s: int) -> torch.Tensor:
+    """The values a part of segment s gathers from: x itself for the tail
+    (s = -1, global indices) and for a single segment; segment s's slice of
+    x for local indices. A padding slot's index 0 stays inside the slice,
+    since a segment starts below ncols."""
+    if s < 0:
+        return x
+    return x[s * A.seg_size:(s + 1) * A.seg_size]
 
 
 def seg_bucket_ell_spmv(A: SegBucketELL, x: torch.Tensor) -> torch.Tensor:
     acc = {}
-    for (lo, hi, _s, _w), v, i in zip(A.parts, A.data, A.indices):
-        part = (v * x[i]).sum(dim=1)
+    for (lo, hi, s, _w), v, i in zip(A.parts, A.data, A.indices):
+        part = (v * _seg_table(x, A, s)[i]).sum(dim=1)
         prev = acc.get((lo, hi))
         acc[(lo, hi)] = part if prev is None else prev + part
     y = torch.cat([acc[k] for k in sorted(acc)])
@@ -170,9 +189,10 @@ def seg_bucket_ell_spmv(A: SegBucketELL, x: torch.Tensor) -> torch.Tensor:
 
 def seg_bucket_ell_spmv_df(A: SegBucketELL, x: df.DF) -> df.DF:
     acc = {}
-    for (lo, hi, _s, _w), v, i in zip(A.parts, A.data, A.indices):
+    for (lo, hi, s, _w), v, i in zip(A.parts, A.data, A.indices):
         a = df.DF(v[..., 0], v[..., 1])
-        t = df.sum_df(df.mul(a, df.DF(x.hi[i], x.lo[i])), axis=1)
+        g = df.DF(_seg_table(x.hi, A, s)[i], _seg_table(x.lo, A, s)[i])
+        t = df.sum_df(df.mul(a, g), axis=1)
         prev = acc.get((lo, hi))
         acc[(lo, hi)] = t if prev is None else df.add(prev, t)
     his = torch.cat([acc[k].hi for k in sorted(acc)])
@@ -184,3 +204,44 @@ def seg_bucket_ell_spmv_df(A: SegBucketELL, x: df.DF) -> df.DF:
 
 register_kernel("xla_segell", seg_bucket_ell_spmv, SegBucketELL)
 register_kernel("xla_segell_df", seg_bucket_ell_spmv_df, SegBucketELL, dfloat=True)
+
+
+# -- SegELLScan -----------------------------------------------------------------
+# The reference accumulates the segments with lax.scan; here a Python loop
+# over them, in the same order: y + sum_w v * x_seg[i] a segment, then the
+# tail through tail_pos. Temporaries stay one segment's [width, n] slab.
+
+
+def seg_ell_scan_spmv(A: SegELLScan, x: torch.Tensor) -> torch.Tensor:
+    y = torch.zeros(A.shape[0], dtype=A.main_data.dtype, device=x.device)
+    for s in range(A.nseg):
+        xseg = _seg_table(x, A, s)
+        y = y + (A.main_data[s] * xseg[A.main_indices[s]]).sum(dim=0)
+    if A.tail_data is not None:
+        yt = (A.tail_data * x[A.tail_indices]).sum(dim=0)
+        yt1 = torch.cat([yt, yt.new_zeros(1)])
+        y = y + yt1[A.tail_pos]
+    return y
+
+
+def seg_ell_scan_spmv_df(A: SegELLScan, x: df.DF) -> df.DF:
+    zero = torch.zeros(A.shape[0], dtype=torch.float32, device=x.hi.device)
+    y = df.DF(zero, zero)
+    for s in range(A.nseg):
+        i = A.main_indices[s]
+        v = A.main_data[s]
+        g = df.DF(_seg_table(x.hi, A, s)[i], _seg_table(x.lo, A, s)[i])
+        t = df.sum_df0(df.mul(df.DF(v[..., 0], v[..., 1]), g))
+        y = df.add(y, t)
+    if A.tail_data is not None:
+        i = A.tail_indices
+        a = df.DF(A.tail_data[..., 0], A.tail_data[..., 1])
+        t = df.sum_df0(df.mul(a, df.DF(x.hi[i], x.lo[i])))
+        pad = t.hi.new_zeros(1)
+        gt = df.DF(torch.cat([t.hi, pad])[A.tail_pos], torch.cat([t.lo, pad])[A.tail_pos])
+        y = df.add(y, gt)
+    return y
+
+
+register_kernel("xla_segscan", seg_ell_scan_spmv, SegELLScan)
+register_kernel("xla_segscan_df", seg_ell_scan_spmv_df, SegELLScan, dfloat=True)

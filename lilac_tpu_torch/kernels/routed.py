@@ -1222,10 +1222,10 @@ def _hier_lib():
             fn.argtypes = head + [ci, ci, ub, ci, ub, vp, vp]
         lib.lilac_hier_inner_attrs.argtypes = [ci, ci, ci, ci, ci, ctypes.POINTER(ci)]
         for fn in (lib.lilac_hier_butterfly, lib.lilac_hier_butterfly_t):
-            fn.argtypes = head + [ci, ci, ub, ctypes.POINTER(ci), vp]
+            fn.argtypes = head + [ci, ci, ub, ctypes.POINTER(ci), ci, ci, vp]
         lib.lilac_hier_window.argtypes = head + [
             ci, ctypes.POINTER(ci), ci, ub, ci, vp]
-        lib.lilac_hier_bigshift.argtypes = head + [ll, ci, ub, vp]
+        lib.lilac_hier_bigshift.argtypes = head + [ll, ci, ub, ci, ci, vp]
         lib.lilac_hier_smem_optin.argtypes = [ctypes.POINTER(ci)]
         for fn in (lib.lilac_hier_inner, lib.lilac_hier_butterfly,
                    lib.lilac_hier_window, lib.lilac_hier_bigshift,
@@ -1352,11 +1352,75 @@ def routed_apply_sliced(x_planes, masks, kinds, dists, *, layout=None):
     return outs
 
 
-def _butterfly(x_planes, masks, block_bits, bl, layout, net_axis, reverse=False):
+BFLY_MAX_THREADS = 256
+BFLY_MIN_THREADS = 32
+BFLY_MAX_WORDS = 64  # 32-bit words of values a K4 / K6 thread holds, at most
+
+
+def butterfly_launch_config(N: int, ngroups: int, bl: int, g: int, nplanes: int,
+                            esize: int, sms: int) -> dict:
+    """How a butterfly pass (K4, K4u, K8; g stages over groups of 2^g
+    blocks) or, at g = 0 with ngroups = nblocks, a block-aligned shift (K6,
+    K6u) launches: slots a thread (4, 2 or 1 consecutive slots) and threads
+    a thread block. The first shape, from 4 slots of 256 threads down
+    (threads halved to 32 before slots are), whose grid holds two thread
+    blocks an SM; where none does (a small problem), the one with the most.
+    A thread keeps at most BFLY_MAX_WORDS words of values. At one net of
+    m = 2^19, bl = 2^13, g = 3: 4 slots of 32 threads, 512 thread blocks
+    (4 slots of 256 threads gave 64 for 132 SMs; on an H100, 4 x 32 was the
+    fastest of the seven shapes chip_smoke.py's exchange_diag times, L2
+    flushed and back to back); at class D's N = 16 nets: 4 slots of 256."""
+    target = 2 * sms
+    cfg = None
+    for slots in (4, 2, 1):
+        if (nplanes * slots * esize // 4) << g > BFLY_MAX_WORDS:
+            continue
+        threads = min(BFLY_MAX_THREADS, bl // slots)
+        while True:
+            blocks = bl // (slots * threads) * ngroups * N
+            cfg = {"slots": slots, "threads": threads,
+                   "grid": [bl // (slots * threads), ngroups, N], "blocks": blocks}
+            if blocks >= target:
+                return cfg
+            if threads <= BFLY_MIN_THREADS:
+                break
+            threads //= 2
+    return cfg
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(torch.device(device)).multi_processor_count
+
+
+def _check_launch(launch, bl: int, what: str):
+    """A forced (slots, threads) of a K4 / K6 launch, checked on every
+    device (the CPU's plain version takes none)."""
+    slots, threads = launch
+    if (slots not in (1, 2, 4) or threads & (threads - 1) or not 32 <= threads <= 256
+            or slots * threads > bl):
+        raise ValueError(f"{what}: launch {launch} must be 1, 2 or 4 slots of a "
+                         f"power of two from 32 to 256 threads, at most bl={bl} slots")
+    return slots, threads
+
+
+def _launch_shape(launch, N, ngroups, bl, g, x_planes, device, what: str):
+    """(slots, threads) of a K4 / K6 launch: butterfly_launch_config's, or
+    the caller's `launch` (checks of the other shapes only)."""
+    if launch is not None:
+        return _check_launch(launch, bl, what)
+    cfg = butterfly_launch_config(N, ngroups, bl, g, len(x_planes),
+                                  x_planes[0].element_size(), _sm_count(device))
+    return cfg["slots"], cfg["threads"]
+
+
+def _butterfly(x_planes, masks, block_bits, bl, layout, net_axis, reverse=False,
+               launch=None):
+    what = "butterfly_apply_bt" if reverse else "butterfly_apply"
     if not masks.is_cuda:
+        if launch is not None:
+            _check_launch(launch, bl, what)
         return butterfly_apply_plain(x_planes, masks, block_bits, bl,
                                      layout=layout, reverse=reverse)
-    what = "butterfly_apply_bt" if reverse else "butterfly_apply"
     mk = _net_masks(masks, net_axis, False, what)
     N, ngroups = mk.shape[:2]
     g = len(block_bits)
@@ -1367,30 +1431,32 @@ def _butterfly(x_planes, masks, block_bits, bl, layout, net_axis, reverse=False)
     if mk.shape[2] * 128 != G * bl:
         raise ValueError(f"{what}: masks {tuple(mk.shape)} do not match G={G}, bl={bl}")
     rest, new_layout, gid_pos, mem_phys = _butterfly_maps(nblocks, block_bits, layout)
-    tail = (g, len(rest), _ubytes(gid_pos), (ctypes.c_int * 8)(*mem_phys))
+    shape = _launch_shape(launch, N, ngroups, bl, g, x_planes, mk.device, what)
+    tail = (g, len(rest), _ubytes(gid_pos), (ctypes.c_int * 8)(*mem_phys), *shape)
     outs = _launch_hier(
         "lilac_hier_butterfly_t" if reverse else "lilac_hier_butterfly", what,
         x_planes, mk, N, nblocks, bl, tail)
     return (outs if net_axis else tuple(o[0] for o in outs)), new_layout
 
 
-def butterfly_apply_b(x_planes, masks, block_bits, bl: int, *, layout=None):
+def butterfly_apply_b(x_planes, masks, block_bits, bl: int, *, layout=None, launch=None):
     """Net-batched butterfly pass (kernel K4): g = len(block_bits) <= 3 xor
     stages at distances bl * 2^block_bits[k], k in stage order. masks
     [N, ngroups, G*R, 128]. Writes each group's 2^g member blocks
     contiguously; returns (planes [N, mrows, 128], new_layout) with
-    new_layout = block_bits + the remaining bits. CUDA tensors take the
-    kernel, CPU tensors the plain version."""
-    out = _butterfly(x_planes, masks, block_bits, bl, layout, True)
+    new_layout = block_bits + the remaining bits. launch forces (slots,
+    threads) of butterfly_launch_config, for checks only. CUDA tensors take
+    the kernel, CPU tensors the plain version."""
+    out = _butterfly(x_planes, masks, block_bits, bl, layout, True, launch=launch)
     if masks.is_cuda:
         butterfly_apply_b.launches += 1
     return out
 
 
-def butterfly_apply(x_planes, masks, block_bits, bl: int, *, layout=None):
+def butterfly_apply(x_planes, masks, block_bits, bl: int, *, layout=None, launch=None):
     """Butterfly pass of one net (kernel K4u: K4 at N = 1). masks
     [ngroups, G*R, 128]. Returns (planes [mrows, 128], new_layout)."""
-    out = _butterfly(x_planes, masks, block_bits, bl, layout, False)
+    out = _butterfly(x_planes, masks, block_bits, bl, layout, False, launch=launch)
     if masks.is_cuda:
         butterfly_apply.launches += 1
     return out
@@ -1472,35 +1538,39 @@ def window_shift_apply(x_planes, masks, dists, bl: int, *, layout=None, span=Non
     return outs
 
 
-def _bigshift(x_planes, masks, d, bl, layout, net_axis):
-    if not masks.is_cuda:
-        return bigshift_apply_plain(x_planes, masks, d, bl, layout=layout)
+def _bigshift(x_planes, masks, d, bl, layout, net_axis, launch=None):
     what = "bigshift_apply"
+    if not masks.is_cuda:
+        if launch is not None:
+            _check_launch(launch, bl, what)
+        return bigshift_apply_plain(x_planes, masks, d, bl, layout=layout)
     mk = _net_masks(masks, net_axis, False, what)
     N, nblocks = mk.shape[:2]
     if mk.shape[2] * 128 != bl or d % bl:
         raise ValueError(f"{what}: masks {tuple(mk.shape)} / d={d} do not match bl={bl}")
     lay = _norm_layout(layout, nblocks)
-    tail = ((d // bl) % nblocks, len(lay), _ubytes(lay))
+    shape = _launch_shape(launch, N, nblocks, bl, 0, x_planes, mk.device, what)
+    tail = ((d // bl) % nblocks, len(lay), _ubytes(lay), *shape)
     outs = _launch_hier("lilac_hier_bigshift", what, x_planes, mk, N, nblocks, bl, tail)
     return outs if net_axis else tuple(o[0] for o in outs)
 
 
-def bigshift_apply_b(x_planes, masks, d: int, bl: int, *, layout=None):
+def bigshift_apply_b(x_planes, masks, d: int, bl: int, *, layout=None, launch=None):
     """Net-batched block-aligned shift (kernel K6): d a multiple of bl,
     out = mask ? logical block b - d/bl : logical block b, natural order.
-    masks [N, nblocks, R, 128] 0/1. CUDA tensors take the kernel, CPU
+    masks [N, nblocks, R, 128] 0/1. launch forces (slots, threads) as for
+    the butterfly pass, for checks only. CUDA tensors take the kernel, CPU
     tensors the plain version."""
-    outs = _bigshift(x_planes, masks, d, bl, layout, True)
+    outs = _bigshift(x_planes, masks, d, bl, layout, True, launch)
     if masks.is_cuda:
         bigshift_apply_b.launches += 1
     return outs
 
 
-def bigshift_apply(x_planes, masks, d: int, bl: int, *, layout=None):
+def bigshift_apply(x_planes, masks, d: int, bl: int, *, layout=None, launch=None):
     """Block-aligned shift of one net (kernel K6u: K6 at N = 1). masks
     [nblocks, R, 128]."""
-    outs = _bigshift(x_planes, masks, d, bl, layout, False)
+    outs = _bigshift(x_planes, masks, d, bl, layout, False, launch)
     if masks.is_cuda:
         bigshift_apply.launches += 1
     return outs

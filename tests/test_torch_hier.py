@@ -435,8 +435,9 @@ def test_npb_class_s_through_hier_plans(small_hier_classes, monkeypatch):
 
 def test_hier_modes_that_still_raise(monkeypatch):
     """factored_vt=adj raises for no size; auto resolves as in the reference
-    (adj beyond one table, plan below, plan for a gather layout); scan and
-    mixed still raise, except mixed with adj, which is routed."""
+    (adj beyond one table, plan below, plan for a gather layout); scan is a
+    gather layout (plan); mixed still raises, except with adj, which is
+    routed."""
     from lilac_tpu_torch.config import cfg
 
     monkeypatch.setenv("LILAC_FACTORED_VT", "adj")
@@ -448,8 +449,103 @@ def test_hier_modes_that_still_raise(monkeypatch):
     assert tfac._resolve_modes(cfg(), 1_500_000, "cpu") == ("single", "plan")
     monkeypatch.setenv("LILAC_FACTORED_SEGMODE", "mixed")
     assert tfac._resolve_modes(cfg(), 1_500_000, "cuda") == ("routed", "adj")
+    monkeypatch.setenv("LILAC_FACTORED_SEGMODE", "scan")
+    assert tfac._resolve_modes(cfg(), 1_500_000, "cuda") == ("scan", "plan")
     monkeypatch.setenv("LILAC_FACTORED_VT", "plan")
-    for mode in ("mixed", "scan"):
-        monkeypatch.setenv("LILAC_FACTORED_SEGMODE", mode)
-        with pytest.raises(NotImplementedError, match="JagELLT|SegELLScan"):
-            tfac._resolve_modes(cfg(), 1_500_000, "cuda")
+    assert tfac._resolve_modes(cfg(), 1_500_000, "cuda") == ("scan", "plan")
+    monkeypatch.setenv("LILAC_FACTORED_SEGMODE", "mixed")
+    with pytest.raises(NotImplementedError, match="JagELLT"):
+        tfac._resolve_modes(cfg(), 1_500_000, "cuda")
+
+
+# ---- K4 / K6 launch shapes (butterfly_launch_config) --------------------------
+
+H100_SMS = 132
+
+
+def _all_shapes(bl, g, nplanes, esize):
+    return [(s, t) for s in (4, 2, 1) for t in (256, 128, 64, 32)
+            if s * t <= bl and (nplanes * s * esize // 4) << g <= trd.BFLY_MAX_WORDS]
+
+
+@pytest.mark.parametrize("N,ngroups,bl,g,nplanes,esize,want", [
+    (1, 8, 8192, 3, 2, 4, (4, 32)),      # K4u: the general matrix's one net
+    (16, 32, 8192, 3, 2, 4, (4, 256)),   # K4 / K8 at class D's N = 16
+    (16, 64, 8192, 2, 2, 4, (4, 256)),   # K8's g = 2 at class D
+    (6, 8, 8192, 3, 2, 4, (4, 256)),     # K4, the general matrix packed
+    (1, 64, 8192, 0, 2, 4, (4, 256)),    # K6u
+    (16, 256, 8192, 0, 2, 4, (4, 256)),  # K6 at class D's shapes
+    (1, 8, 8192, 3, 1, 8, (4, 32)),      # one f64 plane
+    (1, 4, 256, 3, 2, 4, (1, 32)),       # too small for 2 an SM: the most blocks
+])
+def test_butterfly_launch_config(N, ngroups, bl, g, nplanes, esize, want):
+    cfg = trd.butterfly_launch_config(N, ngroups, bl, g, nplanes, esize, H100_SMS)
+    slots, threads = cfg["slots"], cfg["threads"]
+    assert (slots, threads) == want
+    assert cfg["grid"] == [bl // (slots * threads), ngroups, N]
+    assert cfg["grid"][0] * threads * slots == bl  # every slot once, no idle thread
+    assert cfg["blocks"] == cfg["grid"][0] * ngroups * N
+    assert (nplanes * slots * esize // 4) << g <= trd.BFLY_MAX_WORDS
+    most = max(bl // (s * t) * ngroups * N for s, t in _all_shapes(bl, g, nplanes, esize))
+    assert cfg["blocks"] >= min(2 * H100_SMS, most)
+    if (N, ngroups) == (1, 8):  # was 4 slots of 256 threads: 64 blocks
+        assert cfg["blocks"] >= 2 * H100_SMS
+
+
+def test_forced_launch_is_checked_on_the_cpu():
+    """launch= forces (slots, threads) for checks; a shape the kernel does not
+    take raises on every device, and the CPU's plain version ignores a valid
+    one."""
+    rng = np.random.default_rng(3)
+    bl, nblocks = 256, 4
+    x = torch.as_tensor(rng.standard_normal(nblocks * bl).astype(np.float32)).view(-1, 128)
+    mk = torch.as_tensor(rng.integers(0, 2, size=(nblocks // 2, 4, 128), dtype=np.int8))
+    want, lay = trd.butterfly_apply((x,), mk, (1,), bl)
+    got, lay2 = trd.butterfly_apply((x,), mk, (1,), bl, launch=(2, 64))
+    assert torch.equal(got[0], want[0]) and lay == lay2
+    smk = torch.as_tensor(rng.integers(0, 2, size=(nblocks, 2, 128), dtype=np.int8))
+    for bad in ((3, 32), (4, 128), (1, 16), (2, 96)):
+        with pytest.raises(ValueError, match="launch"):
+            trd.butterfly_apply((x,), mk, (1,), bl, launch=bad)
+        with pytest.raises(ValueError, match="launch"):
+            trd.bigshift_apply((x,), smk, bl, bl, launch=bad)
+
+
+@pytest.mark.parametrize("slots", [4, 2, 1])
+def test_bigshift_thread_emulation(slots):
+    """K6's thread: the mask bytes of its `slots` slots first, then the far
+    block's words alone (all set), its own alone (none) or both, selected
+    (mixed), emulated in numpy on masks with runs and isolated bytes; equal
+    to the plain version bit for bit, every layout block read through
+    _phys_index."""
+    rng = np.random.default_rng(slots)
+    bl, nblocks, d = 256, 8, 3 * 256
+    x = rng.standard_normal(nblocks * bl).astype(np.float32)
+    bits = rng.random(nblocks * bl) < 0.3
+    runs = np.repeat(rng.random(nblocks * bl // 16) < 0.4, 16)
+    mask = (bits | runs).astype(np.int8) * rng.integers(1, 128, size=nblocks * bl).astype(np.int8)
+    layout = (2, 0, 1)
+    want = trd.bigshift_apply_plain(
+        (torch.as_tensor(x).view(-1, 128),), torch.as_tensor(mask).view(nblocks, 2, 128),
+        d, bl, layout=layout)[0].numpy().reshape(-1)
+    phys = trd._phys_index(nblocks, layout, "cpu").numpy()
+    db = d // bl
+    got = np.empty_like(x)
+    kinds = set()
+    for b in range(nblocks):
+        far0 = phys[(b + nblocks - db) % nblocks] * bl
+        self0 = phys[b] * bl
+        for off in range(0, bl, slots):
+            mw = mask[b * bl + off:b * bl + off + slots] != 0
+            far = x[far0 + off:far0 + off + slots]
+            own = x[self0 + off:self0 + off + slots]
+            if mw.all():
+                q, kind = far, "all"
+            elif not mw.any():
+                q, kind = own, "none"
+            else:
+                q, kind = np.where(mw, far, own), "mixed"
+            kinds.add(kind)
+            got[b * bl + off:b * bl + off + slots] = q
+    assert got.view(np.int32).tolist() == want.view(np.int32).tolist()
+    assert kinds == ({"all", "none"} if slots == 1 else {"all", "none", "mixed"})

@@ -90,9 +90,15 @@ def test_format_converters_bit_identical():
             np.testing.assert_array_equal(np.asarray(a), b.numpy())
         for a, b in zip(J.indices, T.indices):
             np.testing.assert_array_equal(np.asarray(a), b.numpy())
-    with pytest.raises(NotImplementedError):
-        tconv.csr_to_seg_bucket_ell(indptr, indices, data, (n, ncol), seg_size=50,
+    # two column segments (local indices) and a tail (segment -1, global)
+    J = jconv.csr_to_seg_bucket_ell(indptr, indices, data, (n, ncol), seg_size=50)
+    T = tconv.csr_to_seg_bucket_ell(indptr, indices, data, (n, ncol), seg_size=50,
                                     device="cpu")
+    assert tuple(J.parts) == T.parts and {p[2] for p in T.parts} == {0, 1, -1}
+    assert J.identity_perm == T.identity_perm is True
+    np.testing.assert_array_equal(np.asarray(J.inv_perm), T.inv_perm.numpy())
+    for a, b in zip(J.data + J.indices, T.data + T.indices):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
 
 
 def _seg_to_torch(A):
@@ -246,13 +252,19 @@ def test_npb_registry_kernels_match_reference(dtype, kernel, data_dirs):
 
 def test_unported_paths_raise(data_dirs, monkeypatch):
     data_dirs("torch")
-    # a kernel the port's registry lacks raises the registry's error, naming it
-    with pytest.raises(KeyError, match="xla_segscan"):
+    # a registry kernel that SpmvPlan does not wire raises the reference's
+    # error (xla_segscan is reached through the factored scan mode only); a
+    # name the registry lacks raises the registry's
+    with pytest.raises(ValueError, match="not wired into SpmvPlan"):
         trun.run("S", kernel="xla_segscan", device="cpu")
-    for mode in ("scan", "mixed"):
-        monkeypatch.setenv("LILAC_FACTORED_SEGMODE", mode)
-        with pytest.raises(NotImplementedError, match="routed_apply_sliced_b|SegELLScan"):
-            tfac.build_factored("S", device="cpu")
+    with pytest.raises(KeyError, match="xla_nonesuch"):
+        trun.run("S", kernel="xla_nonesuch", device="cpu")
+    monkeypatch.setenv("LILAC_FACTORED_SEGMODE", "scan")
+    A, _ = tfac.build_factored("S", device="cpu")
+    assert A.V.nseg == A.VT.nseg == 1 and A.V.shape == (1400, 1400)
+    monkeypatch.setenv("LILAC_FACTORED_SEGMODE", "mixed")
+    with pytest.raises(NotImplementedError, match="JagELLT"):
+        tfac.build_factored("S", device="cpu")
     monkeypatch.setenv("LILAC_FACTORED_SEGMODE", "routed")
     monkeypatch.setenv("LILAC_FACTORED_VT", "adj")
     # the adjoint product is ported: adj raises for no class, holds V's plan
