@@ -55,7 +55,17 @@ proves on the card that
   read_matrix_market -> SpmvPlan -> 50 chained products, matched against a
   golden output with the gather kernel the selector picks and with the
   single-table routed plan (K1 in f32), and that plan's transpose product
-  (K11 in f32) against the host's f64 A^T u.
+  (K11 in f32) against the host's f64 A^T u,
+* SparseBench: the 20 golden rows of the reference's validation table
+  (sizes 10 and 20, CG and GMRES with ILU-D and block-Jacobi) reproduce,
+  line-ILU matches its loop-level oracle; the timed BiCG protocol
+  (maxit 100, rtol 1e-6, df64) at size 40 (n = 64 000) through one
+  single-table routed plan with A^T p by K11 (adj) and by a second plan,
+  and at size 160 (n = 4 096 000, 27 466 726 entries) through ONE
+  hierarchical routed plan forwards (K3-K6, K2) and in reverse (K7-K10),
+  validated (true residual within 5% of the recurrence's), its first norms
+  held to an f64 host replica of BiCG and to the gather path's run; the
+  kernels on the size-160 plan's own passes bit for bit.
 
 It prints one JSON line per phase, then the line {"kernels": [...]} with
 each kernel's measured time beside its bound, and last
@@ -75,7 +85,9 @@ schedules at m = 2^16 and timed at the main paths' shapes, "window" = K5,
 K5u and K9 at every span, bit for bit, "c" = K1, K2, K11 on the class C plan,
 "d" = the class D plan, its kernels and its runs, "gemm" = K12 and sgemm,
 "parboil" = Parboil spmv, "cg" = cg_solve on class C, "scan" = the scan
-layout (class D against 3 steps of adj); opt-in, never in the whole run:
+layout (class D against 3 steps of adj), "sparsebench" = the SparseBench
+phase; opt-in, never in the whole run: "sb_profile" = torch.profiler over
+A p, A^T p and 3 BiCG iterations at size 160, routed and gather,
 "inner_diag", "window_diag" = K5 and K5u timed at every span,
 "window_bt_diag" = K9 timed at every span, "exchange_diag" = K4u and K6u
 at every launch shape, L2 flushed and back to back, beside copy_ (also
@@ -2947,8 +2959,390 @@ def build_plan_c():
     return plan_c
 
 
+# ---------------------------------------------------------------------------
+# SparseBench: the golden protocol, and the timed BiCG benchmark through the
+# single-table (size 40) and hierarchical (size 160) routed plans
+# ---------------------------------------------------------------------------
+
+SB_REF_LOG_160 = {"its": -100, "residual": 1.770e4, "true_residual_rel_gap": 4.11e-15}
+SB_HIST_TOL = 1e-6  # hist is f32 in both packages
+# BiCG on big_gen's nonsymmetric matrices does not converge: two runs that
+# are equal in exact arithmetic agree to f32 rounding over the first 30 or
+# so norms, then a near-breakdown amplifies the rounding (size 40: up to a
+# factor 8 around iteration 60, back to 1e-7 by iteration 80). Histories
+# are held to each other over their first SB_HIST_FIRST norms.
+SB_HIST_FIRST = 10
+
+
+def _sb_golden() -> dict:
+    """run_case on all 20 GOLDEN rows (sizes 10 and 20, f64 on the card):
+    iterations exact, residual within 5% (Scripts/validate.pl). Then the
+    line-ILU cases (precond 4, structure 1, size 10): the preconditioner on
+    one vector against reference_line_ilusolve to 1e-12 relative, and the
+    solve itself finite."""
+    from lilac_tpu_torch.generate import sparsebench_gen as gen
+    from lilac_tpu_torch.solvers.line_ilu import LineILU, reference_line_ilusolve
+    from lilac_tpu_torch.workloads import sparsebench as sb
+
+    t0 = time.time()
+    worst, failed = 0.0, []
+    for key in sorted(sb.GOLDEN):
+        r = sb.run_case(*key, device=DEVICE)
+        worst = max(worst, r.residual_rel_err)
+        if not r.validated:
+            failed.append((key, r.iterations, r.residual))
+    if failed:
+        raise AssertionError(f"golden rows off the reference: {failed}")
+    rng = np.random.default_rng(31)
+    line_ilu = {}
+    for sym in ("s", "u"):
+        bands = gen.regular_system(10, sym=sym == "s")["bands"]
+        x = rng.standard_normal(1000)
+        got = LineILU.build(bands, device=DEVICE).apply(
+            torch.as_tensor(x, device=DEVICE)).cpu().numpy()
+        want = reference_line_ilusolve(bands, x)
+        rel = float(np.abs(got - want).max() / np.abs(want).max())
+        r = sb.run_case(sym, 10, 1, 4, device=DEVICE)
+        line_ilu[sym] = {"apply_rel_err": rel, "iterations": r.iterations,
+                         "residual": r.residual}
+        if not rel <= 1e-12 or not np.isfinite(r.residual) or r.iterations != 10:
+            raise AssertionError(f"line-ILU {sym}: {line_ilu[sym]}")
+    return {"golden_rows": len(sb.GOLDEN), "validated": len(sb.GOLDEN),
+            "max_residual_rel_err": worst, "line_ilu_size10": line_ilu,
+            "wall_s": round(time.time() - t0, 1)}
+
+
+def _sb_run(size: int, kernel: str, env: dict | None = None):
+    """sparsebench.benchmark(size) in df64 through `kernel`, launch counts
+    set to 0 just before and read just after; returns (result, counts)."""
+    from lilac_tpu_torch.kernels import dfmulred as dfk
+    from lilac_tpu_torch.kernels import routed as rd
+    from lilac_tpu_torch.workloads import sparsebench as sb
+
+    _reset_hier_counts(rd, dfk)
+    res = _with_env(env or {}, lambda: sb.benchmark(
+        size, kernel=kernel, dtype="df64", device=DEVICE))
+    counts = {**_hier_counts(rd), "routed_apply": rd.routed_apply.launches,
+              "routed_apply_t": rd.routed_apply_t.launches,
+              "dfmulred": dfk.dfmulred.launches}
+    if not np.isfinite(res.hist).all() or not res.validated:
+        raise AssertionError(f"sparsebench {size} {kernel}: not validated: {res}")
+    return res, counts
+
+
+def _sb_line(res, counts, **extra) -> dict:
+    return {"size": res.size, "n": res.n, "nnz": res.nnz, "kernel": res.kernel,
+            "iterations": res.iterations, "time_s": res.time_s,
+            "mflop_rate": res.mflop_rate, "residual": res.residual,
+            "true_residual_rel_gap": res.true_residual_rel_gap,
+            "validated": res.validated, "build_s": round(res.build_s, 2),
+            "hist_first": [float(h) for h in res.hist[:10]],
+            "launches": {k: v for k, v in counts.items() if v}, **extra}
+
+
+def _hist_rel(a, b, k: int) -> float:
+    a, b = np.asarray(a[:k], np.float64), np.asarray(b[:k], np.float64)
+    return float(np.max(np.abs(a - b) / np.abs(b)))
+
+
+def _sb_single_table_checks(plan, rng) -> dict:
+    """K1, K11 and K2 on the size-40 plan's own masks and values, bit for
+    bit against their plain versions: a df64 pair forwards and in reverse,
+    and the whole product's K2 sums."""
+    from lilac_tpu_torch.kernels import dfmulred as dfk
+    from lilac_tpu_torch.kernels import routed as rd
+    from lilac_tpu_torch.kernels import routed_spmv as rs
+
+    A = plan.A
+    B, _, R, _ = A.masks.shape
+    xh = torch.as_tensor(rng.standard_normal(R * 128).astype(np.float32),
+                         device=DEVICE).view(R, 128)
+    xs = [xh, (xh * 2.0 ** -25).contiguous()]
+    got = rd.routed_apply(xs, A.masks, A.kinds, A.dists)
+    if not all(_bits_equal(g, w) for g, w in zip(
+            got, rd.routed_apply_plain(xs, A.masks, A.kinds, A.dists))):
+        raise AssertionError("routed_apply != plain on the size-40 plan")
+    us = _adj_planes(rng, (B, R, 128), np.float32, 2, True)
+    got_t = rd.routed_apply_t(us, A.masks, A.kinds, A.dists, dfpair=True)
+    if not all(_bits_equal(g, w) for g, w in zip(
+            got_t, rd.routed_apply_t_plain(us, A.masks, A.kinds, A.dists, dfpair=True))):
+        raise AssertionError("routed_apply_t != plain on the size-40 plan")
+    table = rs._single_table_k2(A.chunks, A.m)
+    vflat = A.vals.reshape(-1, 2)
+    ph = torch.as_tensor(rng.standard_normal(vflat.shape[0]).astype(np.float32),
+                         device=DEVICE)
+    args = (vflat[:, 0], vflat[:, 1], ph, (ph * 2.0 ** -26).contiguous(), table)
+    if not all(_bits_equal(g, w) for g, w in zip(
+            dfk.dfmulred_chunks(*args), dfk.dfmulred_chunks_plain(*args))):
+        raise AssertionError("dfmulred_chunks != plain on the size-40 product")
+    return {"m": A.m, "nets": B, "stages": len(A.kinds), "k2_chunks": len(A.chunks)}
+
+
+def _sb_hier_checks(plan, rng, kernels: dict) -> dict:
+    """K3-K6 and K7-K10 on the size-160 plan's largest packed group, every
+    pass of its schedule bit for bit against the plain version (forwards
+    on a df64 pair, in reverse on a df64 pair a net), the first pass of
+    each kind timed; K2 on that group's whole product bit for bit."""
+    from lilac_tpu_torch.kernels import dfmulred as dfk
+    from lilac_tpu_torch.kernels import routed as rd
+    from lilac_tpu_torch.kernels import routed_spmv as rs
+
+    P = plan.A
+    grp = max(P.groups, key=lambda g: len(g.net_ids))
+    N = len(grp.net_ids)
+    xh = torch.as_tensor(rng.standard_normal(P.shape[1]).astype(np.float32),
+                         device=DEVICE)
+    planes = (_plane(xh, P.m), _plane((xh * 2.0 ** -25).contiguous(), P.m))
+    timed: dict = {}
+    _walk_schedule(rd, planes, grp.pass_meta, grp.pass_masks, P.bl, True,
+                   f"sparsebench 160 plan, group of {N} nets", timed, 5)
+    us = _adj_planes(rng, (N, P.m // 128, 128), np.float32, 2, True)
+    _walk_schedule_t(rd, us, grp.pass_meta, grp.pass_masks, P.bl, True,
+                     f"sparsebench 160 plan, group of {N} nets, reversed", timed, 5)
+    del planes, us
+    gi = next(i for i, g in enumerate(P.groups) if g is grp)
+    table = rs._hier_k2(P.chunks, tuple(g.net_ids for g in P.groups), P.m)[gi]
+    ph = torch.as_tensor(rng.standard_normal(N * P.m).astype(np.float32), device=DEVICE)
+    args = (grp.vals[0].reshape(-1), grp.vals[1].reshape(-1), ph,
+            (ph * 2.0 ** -26).contiguous(), table)
+    if not all(_bits_equal(g, w) for g, w in zip(
+            dfk.dfmulred_chunks(*args), dfk.dfmulred_chunks_plain(*args))):
+        raise AssertionError("dfmulred_chunks != plain on the size-160 group product")
+    k2 = _k2_product(dfk, args, "sparsebench 160 group")
+    del ph, args
+    for name, row in timed.items():
+        kernels.setdefault(name, {"name": name})["sb160"] = {
+            k: row[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "shape")}
+    kernels.setdefault("dfmulred", {"name": "dfmulred"})["sb160"] = {
+        k: k2[k] for k in ("ms", "plain_ms", "bound_ms", "chunks", "rows")}
+    return {"group_nets": N, "groups": [len(g.net_ids) for g in P.groups],
+            "m": P.m, "bl": P.bl, "passes_checked": len(grp.pass_meta),
+            "passes_per_direction": _pass_census(P), "unperm": P.unperm is not None,
+            "timed_ms": {k: v["ms"] for k, v in timed.items()}, "k2_group_ms": k2["ms"]}
+
+
+def _host_bicg_hist(ip, ix, dv, n: int, nit: int) -> np.ndarray:
+    """An independent f64 replica of BiCG on the host (scipy CSR, Aᵀ from
+    scipy), in the reference's update order (iter.f:18-104: r = A x - b,
+    rl = r, p = z + beta p, alpha = rr / (pl, A p)), b = 1, x0 = 0, no
+    preconditioner: the first `nit` residual norms."""
+    import scipy.sparse as sp
+
+    A = sp.csr_matrix((dv, ix, ip), shape=(n, n))
+    At = A.T.tocsr()
+    x = np.zeros(n)
+    r = A @ x - np.ones(n)
+    rl = r.copy()
+    p = pl = None
+    rr = 1.0
+    hist = []
+    for it in range(nit):
+        hist.append(np.linalg.norm(r))
+        rr_new = float(r @ rl)
+        if it == 0:
+            p, pl = r.copy(), rl.copy()
+        else:
+            beta = rr_new / rr
+            p, pl = beta * p + r, beta * pl + rl
+        ap, apl = A @ p, At @ pl
+        alpha = rr_new / float(pl @ ap)
+        x -= alpha * p
+        r = r - alpha * ap
+        rl = rl - alpha * apl
+        rr = rr_new
+    return np.asarray(hist)
+
+
+def _sb_cli() -> dict:
+    """`python -m lilac_tpu_torch.bench run --bench sparsebench --size 40
+    --impl routed --runs 1`, its CSV row appended to a temporary file."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "sb.csv")
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "lilac_tpu_torch.bench", "run", "--bench",
+             "sparsebench", "--size", "40", "--impl", "routed", "--runs", "1",
+             "--out", out], cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"bench run sparsebench failed: {proc.stderr[-2000:]}")
+        with open(out) as f:
+            rows = [ln.strip().split(",") for ln in f if ln.strip()]
+    if len(rows) != 1 or rows[0][:4] != ["gpu", "sparsebench", "routed", "40"] \
+            or not float(rows[0][4]) > 0:
+        raise AssertionError(f"bench run sparsebench wrote {rows}")
+    return {"csv_row": rows[0], "wall_s": round(time.time() - t0, 1)}
+
+
+def phase_sparsebench(kernels: dict) -> dict:
+    """SparseBench on the card: the golden protocol; the timed BiCG
+    benchmark at size 40 (n = 64 000, one single-table routed plan; adj =
+    K1, K2, K11, then plan = K1, K2 on two plans); at size 160 (n =
+    4 096 000, 27 466 726 entries, df64, maxit 100, rtol 1e-6) through ONE
+    hierarchical routed plan run forwards (K3-K6, K2) and in reverse
+    (K7-K10) as `auto` resolves it, held to an f64 host replica of BiCG over
+    its first 10 norms; the same size through the gather path the selector
+    picks; and the bench CLI at size 40."""
+    from lilac_tpu_torch.formats.convert import length_relabel_csr
+    from lilac_tpu_torch.generate.random_crs import random_crs
+    from lilac_tpu_torch.kernels import routed_spmv as rs
+
+    t_phase = time.time()
+    line: dict = {"phase": "sparsebench", "golden": _sb_golden()}
+    emit({"phase": "sparsebench_golden", **line["golden"]})
+    rng = np.random.default_rng(37)
+
+    # --- size 40: one single-table plan, A^T p by K11 (adj) or a second plan
+    r40 = {}
+    for mode in ("adj", "plan"):
+        res, counts = _sb_run(40, "routed", {"LILAC_SB_TRANSPOSE": mode})
+        r40[mode] = (res, counts)
+        emit({"phase": "sparsebench_run", "sb_transpose": mode, **_sb_line(res, counts)})
+        if res.kernel != "routed_df" or (res.plans[1] is None) != (mode == "adj"):
+            raise AssertionError(f"size 40 {mode}: {res.kernel}, plan_t {res.plans[1]}")
+        k11 = counts["routed_apply_t"]
+        if not (counts["routed_apply"] > 0 and counts["dfmulred"] > 0) \
+                or (k11 > 0) != (mode == "adj"):
+            raise AssertionError(f"size 40 {mode}: launches {counts}")
+    (ra, ca), (rp, cp) = r40["adj"], r40["plan"]
+    if ra.iterations != rp.iterations:
+        raise AssertionError(f"size 40: its {ra.iterations} (adj) != {rp.iterations} (plan)")
+    hist40 = _hist_rel(ra.hist, rp.hist, SB_HIST_FIRST)
+    if not hist40 <= SB_HIST_TOL:
+        raise AssertionError(f"size 40: adj and plan histories differ by {hist40:.3e}")
+    line["size40"] = {"iterations": ra.iterations, "hist_max_rel_diff": hist40,
+                      "hist_max_rel_diff_all": _hist_rel(ra.hist, rp.hist, abs(ra.iterations)),
+                      "time_s": {"adj": ra.time_s, "plan": rp.time_s},
+                      "kernels_checked": _sb_single_table_checks(ra.plans[0], rng)}
+    for name in ("routed_apply", "routed_apply_t", "dfmulred"):
+        kernels.setdefault(name, {"name": name})["launches_sb40_adj"] = ca[name]
+    del r40, ra, rp
+    torch.cuda.empty_cache()
+
+    # --- size 160: the slice's path at full width, one hierarchical plan
+    res, counts = _sb_run(160, "routed")
+    plan = res.plans[0]
+    if res.kernel != "routed_hier_df" or res.plans[1] is not None \
+            or not isinstance(plan.A, rs.RoutedMatHierP):
+        raise AssertionError(f"size 160: {res.kernel} / plan_t {res.plans[1]}")
+    if res.n != 160 ** 3 or res.iterations != SB_REF_LOG_160["its"]:
+        raise AssertionError(f"size 160: n {res.n}, its {res.iterations}")
+    for name in FWD_D + ADJ_D + ("dfmulred",):
+        if counts[name] <= 0:
+            raise AssertionError(f"size 160: {name} not launched: {counts}")
+    if counts["routed_apply"] or counts["routed_apply_t"]:
+        raise AssertionError(f"size 160 went through a single-table kernel: {counts}")
+    for name in FWD_D + ADJ_D + ("bigshift_apply_b", "bigshift_apply_bt", "dfmulred"):
+        kernels.setdefault(name, {"name": name})["launches_sb160"] = counts[name]
+    t0 = time.time()
+    ip, ix, dv, shp = random_crs(160, seed=0)
+    ip, ix, dv, _, _ = length_relabel_csr(ip, ix, dv, shp)
+    host = _host_bicg_hist(ip, ix, dv, shp[0], SB_HIST_FIRST)
+    replica_s = time.time() - t0
+    del ip, ix, dv
+    rel160 = _hist_rel(res.hist, host, SB_HIST_FIRST)
+    routed = _sb_line(
+        res, counts, plan_bytes_on_card=rs.plan_bytes(plan.A),
+        device_bytes_allocated=torch.cuda.memory_allocated(),
+        reference_log=SB_REF_LOG_160, host_replica_hist=[float(h) for h in host],
+        host_replica_max_rel_diff=rel160, host_replica_s=round(replica_s, 1),
+        kernels_checked=_sb_hier_checks(plan, rng, kernels))
+    emit({"phase": "sparsebench_run", "sb_transpose": "auto", **routed})
+    if not rel160 <= SB_HIST_TOL:
+        raise AssertionError(f"size 160: first norms off the host replica by {rel160:.3e}")
+    line["size160_routed"] = {k: routed[k] for k in (
+        "iterations", "time_s", "mflop_rate", "residual", "true_residual_rel_gap",
+        "build_s", "plan_bytes_on_card", "host_replica_max_rel_diff")}
+    hist_routed = res.hist
+    del res, plan
+    torch.cuda.empty_cache()
+
+    # --- size 160 through the gather path the selector picks (A^T: its own plan)
+    res_g, counts_g = _sb_run(160, "auto")
+    rel_g = _hist_rel(res_g.hist, hist_routed, SB_HIST_FIRST)
+    gather = _sb_line(res_g, counts_g, hist_max_rel_diff_vs_routed=rel_g,
+                      hist_max_rel_diff_all=_hist_rel(res_g.hist, hist_routed, 100),
+                      transposed_kernel=res_g.plans[1].kernel)
+    emit({"phase": "sparsebench_run", "sb_transpose": "auto", **gather})
+    if res_g.kernel != "xla_sell_df" or res_g.iterations != line["size160_routed"]["iterations"]:
+        raise AssertionError(f"size 160 gather: {res_g.kernel}, its {res_g.iterations}")
+    if not rel_g <= SB_HIST_TOL:
+        raise AssertionError(f"size 160: gather and routed histories differ by {rel_g:.3e}")
+    line["size160_gather"] = {k: gather[k] for k in (
+        "kernel", "iterations", "time_s", "mflop_rate", "true_residual_rel_gap",
+        "build_s", "transposed_kernel")}
+    del res_g
+    torch.cuda.empty_cache()
+
+    line["cli"] = _sb_cli()
+    line["wall_s"] = round(time.time() - t_phase, 1)
+    emit(line)
+    return line
+
+
+# the port's own CUDA kernels, by the names of their __global__ functions;
+# every other kernel in a trace is PyTorch's (the plain-torch glue)
+PORT_KERNELS = ("hier_", "adj_", "dfmulred", "inner::", "tile_pass", "routed_stage")
+
+
+def phase_sb_profile(size: int = 160) -> dict:
+    """Opt-in: where the size-160 BiCG spends its time. For the routed plan
+    (adj) and the gather path, torch.profiler traces one A p, one A^T p and
+    3 BiCG iterations (paused and resumed through bicg_solve's state after
+    2 warm-up iterations), beside the untraced wall of those 3 iterations;
+    each trace's device time is split between the port's kernels and
+    PyTorch's (the df64 glue and vector ops)."""
+    from lilac_tpu_torch.profile_npb import _summary, _trace
+    from lilac_tpu_torch.solvers.algebra import get_algebra
+    from lilac_tpu_torch.solvers.bicg import bicg_solve
+    from lilac_tpu_torch.workloads import sparsebench as sb
+
+    out = {"phase": "sb_profile", "size": size}
+    for kernel in ("routed", "auto"):
+        plan, plan_t, n, _ = sb.build_bench_plans(size, kernel=kernel, dtype="df64",
+                                                  device=DEVICE)
+        alg = get_algebra("df64", device=DEVICE)
+        As = (plan.A,) if plan_t is None else (plan.A, plan_t.A)
+        mv_t = ((lambda A_, v: plan.matvec_t_with(A_[0], v)) if plan_t is None
+                else (lambda A_, v: plan_t.matvec_with(A_[1], v)))
+        args = (lambda A_, v: plan.matvec_with(A_[0], v), mv_t, alg, As,
+                plan.vec_in(np.ones(n)), plan.vec_in(np.zeros(n)))
+        *_, state = bicg_solve(*args, maxit=100, stop_at=2)
+        p = state[3]
+
+        def iterations():
+            bicg_solve(*args, maxit=100, state=state, stop_at=5)
+
+        iterations()  # warm-up of the traced window
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        iterations()
+        torch.cuda.synchronize()
+        untraced = time.perf_counter() - t0
+        row = {"kernel": plan.kernel, "transpose": "adj" if plan_t is None else plan_t.kernel,
+               "three_iterations_untraced_ms": untraced * 1e3}
+        for what, fn in (("A_p", lambda: args[0](As, p)), ("At_p", lambda: mv_t(As, p)),
+                         ("three_iterations", iterations)):
+            fn()
+            wall, ks = _trace(fn)
+            s = _summary(wall, ks, top=12)
+            port_us = sum(us for name, (_, us) in ks.items()
+                          if any(k in name for k in PORT_KERNELS))
+            s["port_kernels_ms"] = port_us / 1e3
+            s["torch_kernels_ms"] = s["device_busy_ms"] - port_us / 1e3
+            row[what] = s
+        out[kernel] = row
+        del plan, plan_t, state, p, args, As
+        torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
 PARTS = {"hier", "inner", "inner_diag", "window", "window_diag", "window_bt_diag", "k11",
-         "tiles", "c", "d", "gemm", "gemm_diag", "parboil", "exchange_diag", "cg", "scan"}
+         "tiles", "c", "d", "gemm", "gemm_diag", "parboil", "exchange_diag", "cg", "scan",
+         "sparsebench", "sb_profile"}
 
 
 def main(argv) -> int:
@@ -2981,6 +3375,10 @@ def main(argv) -> int:
         phase_exchange_diag()
     if "cg" in only:
         phase_cg_solve()
+    if "sparsebench" in only:
+        phase_sparsebench(kernels)
+    if "sb_profile" in only:
+        phase_sb_profile()
     if "scan" in only:
         from lilac_tpu_torch.kernels import routed_spmv as rs
         from lilac_tpu_torch.workloads import npb_cg
@@ -3048,6 +3446,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     phase_plan_mode_d(kernels, res_d)
     phase_npb_scan(res_d, line_d["plan_bytes_on_card"], d_build_s)
+    phase_sparsebench(kernels)
 
     names = ["routed_apply", "dfmulred"] + [
         PASS_FNS[k][i] for i in (0, 1) for k in PASS_FNS] + ADJ_NAMES + [

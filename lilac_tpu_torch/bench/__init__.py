@@ -10,6 +10,7 @@ H100 run and of a TPU run sit in one file and `analyze` compares them.
 workload's own kernel option.
 
 CLI:  python -m lilac_tpu_torch.bench run --bench sgemm --size 4096
+      python -m lilac_tpu_torch.bench run --bench sparsebench --size 160 --impl routed
       python -m lilac_tpu_torch.bench analyze all.csv --baseline xla_ell
 """
 
@@ -53,6 +54,14 @@ def _run_npb(size: str, impl: str) -> float:
     return r.time_s
 
 
+def _run_sparsebench(size: str, impl: str) -> float:
+    from lilac_tpu_torch.workloads import sparsebench
+
+    if int(size) >= 40:  # timed benchmark protocol (run_all sizes 40-160)
+        return sparsebench.benchmark(int(size), kernel=impl).time_s
+    return sparsebench.run_case("s", int(size), 2, 0).time_s
+
+
 def _run_parboil_spmv(size: str, impl: str) -> float:
     import os
 
@@ -92,9 +101,9 @@ def _not_ported(bench: str, item: str) -> Callable[[str, str], float]:
 
 BENCHES: Dict[str, Callable[[str, str], float]] = {
     "npb": _run_npb,
-    "sparsebench": _not_ported("sparsebench", "10"),
-    "pagerank": _not_ported("pagerank", "11"),
-    "pathsample": _not_ported("pathsample", "13"),
+    "sparsebench": _run_sparsebench,
+    "pagerank": _not_ported("pagerank", "3"),
+    "pathsample": _not_ported("pathsample", "4"),
     "parboil-spmv": _run_parboil_spmv,
     "sgemm": _run_sgemm,
 }

@@ -2,7 +2,7 @@
 
 The reference's other subcommands (devices, config, marshall,
 spmv-roofline, graph-scale, ingest, autotune-*) come with ROADMAP.md
-Queue 1 item 15."""
+Queue 1 item 7."""
 
 from __future__ import annotations
 

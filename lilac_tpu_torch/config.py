@@ -85,6 +85,12 @@ KNOBS = (
          "own network in reverse with add-merges (one plan, half the plan "
          "bytes). 'auto' = adj for the hierarchical classes (n > 2^18), "
          "plan for the single-table ones."),
+    Knob("sb_transpose", "LILAC_SB_TRANSPOSE", str, "auto",
+         "SparseBench BiCG Aᵀp operator: 'plan' = stage Aᵀ as its own "
+         "forward plan (two plans resident), 'adj' = run the forward "
+         "plan's network in reverse with add-merges (zero extra plan "
+         "bytes, half the plan build/upload), 'auto' = adj for routed "
+         "kernels."),
     Knob("seg_quantile", "LILAC_SEG_QUANTILE", float, 97.0,
          "Percentile of the (row, segment) run lengths that sets the one "
          "slab width of the scan layout (SegELLScan); longer runs spill "
@@ -112,6 +118,7 @@ class Config:
     steps_per_dispatch: Optional[int]
     factored_segmode: str
     factored_vt: str
+    sb_transpose: str
     seg_quantile: float
     bench_budget_s: float
     bench_dtype: str

@@ -21,6 +21,9 @@ from lilac_tpu_torch.kernels.routed_spmv import (
     pack_hier,
 )
 from lilac_tpu_torch.ops.dfloat import DF
+from lilac_tpu_torch.solvers.line_ilu import LineILU
+from lilac_tpu_torch.solvers.precond import ILU0
+from lilac_tpu_torch.solvers.tri import LevelSweep
 
 
 def _t(a, device, dtype=None):
@@ -142,3 +145,45 @@ def bucket_ell_from_arrays(data, indices, inv_perm, shape, widths,
 def factored_from_arrays(V, VT, s, d0, device="cuda") -> FactoredNPB:
     """V, VT: containers already converted by the functions above."""
     return FactoredNPB(V=V, VT=VT, s=_t(s, device), d0=_t(d0, device))
+
+
+def level_sweep_from_arrays(n, rows, cols, vals, device="cuda") -> LevelSweep:
+    """A triangular level schedule (solvers/tri.py) from the JAX package's
+    LevelSweep fields; its int32 indices become int64."""
+    return LevelSweep(n=int(n), rows=_t(rows, device, torch.int64),
+                      cols=_t(cols, device, torch.int64),
+                      vals=_t(vals, device, torch.float64))
+
+
+LINE_ILU_PLANES = ("dinv", "am1", "ap1", "am2", "ap2", "am3", "ap3")
+LINE_ILU_SCHEDULE = ("lines", "prev2", "prev3", "next2", "next3")
+
+
+def line_ilu_from_arrays(n1, n2, n3, device="cuda", **fields) -> LineILU:
+    """A line-ILU preconditioner (solvers/line_ilu.py) from the JAX
+    package's LineILU fields, passed by name: the coefficient planes
+    LINE_ILU_PLANES and the wavefront schedule LINE_ILU_SCHEDULE."""
+    planes = {k: _t(fields[k], device, torch.float64) for k in LINE_ILU_PLANES}
+    sched = {k: _t(fields[k], device, torch.int64) for k in LINE_ILU_SCHEDULE}
+    return LineILU(n1=int(n1), n2=int(n2), n3=int(n3), **planes, **sched)
+
+
+def ilu0_from_arrays(data, indices, row_ids, diag, lower_level, upper_level,
+                     lower_level_t, upper_level_t, shape, device="cuda") -> ILU0:
+    """An ILU(0) preconditioner (solvers/precond.py) from the JAX package's
+    ILU0 fields; the level counts follow from the level arrays."""
+    lv = {k: np.asarray(a, dtype=np.int64) for k, a in (
+        ("lower_level", lower_level), ("upper_level", upper_level),
+        ("lower_level_t", lower_level_t), ("upper_level_t", upper_level_t))}
+    return ILU0(
+        data=_t(data, device, torch.float64),
+        indices=_t(indices, device, torch.int64),
+        row_ids=_t(row_ids, device, torch.int64),
+        diag=_t(diag, device, torch.float64),
+        **{k: _t(a, device) for k, a in lv.items()},
+        n_lower_levels=int(lv["lower_level"].max()) + 1,
+        n_upper_levels=int(lv["upper_level"].max()) + 1,
+        n_lower_levels_t=int(lv["lower_level_t"].max()) + 1,
+        n_upper_levels_t=int(lv["upper_level_t"].max()) + 1,
+        shape=tuple(int(s) for s in shape),
+    )

@@ -73,6 +73,39 @@ def coo_to_csr_arrays(
     )
 
 
+
+def length_relabel_csr(
+    indptr: np.ndarray,
+    indices: np.ndarray,
+    data: np.ndarray,
+    shape: Tuple[int, int],
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Similarity relabel A' = P A Pᵀ with P ordering rows by descending
+    row length (square matrices).
+
+    A routed plan built from A' has its rows already length-sorted, so the
+    per-matvec un-permute network vanishes (kernels/routed_spmv.py builds
+    it only when rows are out of sorted order). Iterations of the form
+    x' ← f(A'x') are the exact relabeling of x ← f(Ax) for any elementwise
+    f plus permutation-invariant scalars (dots, norms, means), so solver
+    histories are unchanged; callers map vectors in with `v[order]` and
+    back out with `out[order] = v'`.
+
+    Returns (indptr', indices', data', order, rank) with
+    order[i'] = original row at new position i', rank = inverse.
+    """
+    n, ncols = shape
+    assert n == ncols, "length_relabel_csr is a similarity: square only"
+    counts = np.diff(indptr)
+    order = np.argsort(-counts, kind="stable")
+    rank = np.empty(n, dtype=np.int64)
+    rank[order] = np.arange(n)
+    rows_old = np.repeat(np.arange(n, dtype=np.int64), counts)
+    ip, ix, dv = coo_to_csr_arrays(
+        rank[rows_old], rank[indices], data, shape, sum_duplicates=False
+    )
+    return ip, ix, dv, order, rank
+
 def _segment_runs(indptr, indices, n: int, seg_size: int, nseg: int):
     """Per entry of a (row, column)-sorted CSR: its row, its segment and its
     slot within its (row, segment) run; and the [n, nseg] run lengths."""

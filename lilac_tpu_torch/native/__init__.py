@@ -1,12 +1,14 @@
 """Native (C) host runtime of the port: the NPB makea random stream, the
-Benes cycle-walk colouring and the MatrixMarket body parser, compiled with
+SparseBench gen_crs fill loop, the Benes cycle-walk colouring and the
+MatrixMarket body parser, compiled with
 the system C compiler at first use and loaded through ctypes.
 
 Counterpart of lilac_tpu/native/__init__.py, with its own copy of the C
 source (src/lilac_native.c). The library is built on the first call, not
 when the module is imported, into native/build/ (git-ignored). The NPB
-generator and the network construction guard with ``available()`` and use their
-pure-numpy constructors when no C compiler is at hand; the MatrixMarket
+and SparseBench generators and the network construction guard with
+``available()`` and use their pure-numpy constructors when no C compiler is
+at hand; the MatrixMarket
 reader has no second parser, so a failure there raises.
 """
 
@@ -69,6 +71,20 @@ def _load():
         np.ctypeslib.ndpointer(np.int64, flags="C"),
         np.ctypeslib.ndpointer(np.float64, flags="C"),
     ]
+    lib.sb_fill_matrix.restype = ctypes.c_long
+    lib.sb_fill_matrix.argtypes = [
+        np.ctypeslib.ndpointer(np.int64, flags="C"),
+        ctypes.c_long,
+        ctypes.c_long,
+        ctypes.c_int,
+        ctypes.c_uint64,
+        ctypes.POINTER(ctypes.c_uint64),
+        ctypes.c_long,
+        np.ctypeslib.ndpointer(np.int64, flags="C"),
+        np.ctypeslib.ndpointer(np.int64, flags="C"),
+        np.ctypeslib.ndpointer(np.float64, flags="C"),
+        np.ctypeslib.ndpointer(np.float64, flags="C"),
+    ]
     lib.benes_route_c.restype = ctypes.c_int
     lib.benes_route_c.argtypes = [
         ctypes.c_int64,
@@ -96,6 +112,33 @@ def npb_triples(na: int, nonzer: int):
     val = np.empty(na * (nonzer + 1), dtype=np.float64)
     w = lib.npb_triples(na, nonzer, nzv, pos, val)
     return nzv, pos[:w], val[:w]
+
+
+def sb_fill_matrix(splits: np.ndarray, n: int, sym: bool, state: int):
+    """C fast path for SparseBench gen_crs fill (exact DLARAN stream).
+
+    Returns (rows, cols, vals, diag, new_state); rows/cols 1-based like the
+    Python loop, diagonal values returned separately (entries 1..n first).
+    The C loop never writes past its buffers: on overflow it returns -1
+    and the call retries with four times the room."""
+    lib = _load()
+    splits = np.ascontiguousarray(splits, dtype=np.int64)
+    cap = 40 * n + 16 * len(splits)  # generous: the reference caps at 15n total
+    for _ in range(4):
+        rows = np.empty(cap, dtype=np.int64)
+        cols = np.empty(cap, dtype=np.int64)
+        vals = np.empty(cap, dtype=np.float64)
+        diag = np.zeros(n, dtype=np.float64)
+        out_state = ctypes.c_uint64(0)
+        top = lib.sb_fill_matrix(
+            splits, len(splits), n, int(sym), state, ctypes.byref(out_state),
+            cap, rows, cols, vals, diag,
+        )
+        if top >= 0:
+            return rows[:top], cols[:top], vals[:top], diag, int(out_state.value)
+        last_cap = cap
+        cap *= 4
+    raise MemoryError(f"sb_fill_matrix overflow: n={n} needs > {last_cap} entries")
 
 
 def mm_parse_body(path: str, skip_lines: int, nnz: int, pattern: bool):

@@ -444,5 +444,5 @@ def test_bench_tidy_and_geomean_match_reference(tmp_path):
         np.sqrt((0.4 / 0.2) * (3.5 / 1.0)))
     assert set(got) == {("gpu", "parboil-spmv", "xla_sell"),
                         ("tpu", "parboil-spmv", "routed")}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tbench.run_bench("sparsebench", "40", runs=1)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
+        tbench.run_bench("pagerank", "40", runs=1)
