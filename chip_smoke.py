@@ -65,7 +65,19 @@ proves on the card that
   hierarchical routed plan forwards (K3-K6, K2) and in reverse (K7-K10),
   validated (true residual within 5% of the recurrence's), its first norms
   held to an f64 host replica of BiCG and to the gather path's run; the
-  kernels on the size-160 plan's own passes bit for bit.
+  kernels on the size-160 plan's own passes bit for bit,
+* the graph workloads in f32 on power-law graphs (generate/graphs.py):
+  PageRank (128 iterations) within 1e-3 (L1, relative) of an f64 scipy
+  replica and BFS from 16 sources equal to bfs_oracle, at n = 200 000
+  through one routing table (K1) and at graph-scale's n = 1 000 000
+  through ONE f32 hierarchical plan (K3-K6 on one plane of 4-byte words,
+  every pass of a group bit for bit and timed) and through the gather
+  path; at n = 300 000 the unrelabeled plan's un-permute network (K3u-K6u)
+  gives the relabeled run's x; the bench's pagerank row,
+* PATHSAMPLE: pfold and tfold (10 000 sweeps at T = 0.05, f64 gather) on a
+  landscape of 100 000 minima equal to f64 host replicas of their sweeps to
+  1e-12, NGT's detailed balance, pfold against the dense committor, and the
+  bench's pathsample row.
 
 It prints one JSON line per phase, then the line {"kernels": [...]} with
 each kernel's measured time beside its bound, and last
@@ -86,7 +98,9 @@ K5u and K9 at every span, bit for bit, "c" = K1, K2, K11 on the class C plan,
 "d" = the class D plan, its kernels and its runs, "gemm" = K12 and sgemm,
 "parboil" = Parboil spmv, "cg" = cg_solve on class C, "scan" = the scan
 layout (class D against 3 steps of adj), "sparsebench" = the SparseBench
-phase; opt-in, never in the whole run: "sb_profile" = torch.profiler over
+phase, "graphs" = PageRank and BFS, "pathsample" = PATHSAMPLE; opt-in,
+never in the whole run: "graph_profile" = torch.profiler over 1 and 10
+PageRank iterations at n = 1 000 000, routed and gather, "sb_profile" = torch.profiler over
 A p, A^T p and 3 BiCG iterations at size 160, routed and gather,
 "inner_diag", "window_diag" = K5 and K5u timed at every span,
 "window_bt_diag" = K9 timed at every span, "exchange_diag" = K4u and K6u
@@ -3153,26 +3167,26 @@ def _host_bicg_hist(ip, ix, dv, n: int, nit: int) -> np.ndarray:
     return np.asarray(hist)
 
 
-def _sb_cli() -> dict:
-    """`python -m lilac_tpu_torch.bench run --bench sparsebench --size 40
-    --impl routed --runs 1`, its CSV row appended to a temporary file."""
+def _bench_cli(bench: str, size: str, *impl: str) -> dict:
+    """`python -m lilac_tpu_torch.bench run --bench <bench> --size <size>
+    [--impl <impl>] --runs 1`, its CSV row appended to a temporary file."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "sb.csv")
+        out = os.path.join(tmp, "bench.csv")
         t0 = time.time()
         proc = subprocess.run(
-            [sys.executable, "-m", "lilac_tpu_torch.bench", "run", "--bench",
-             "sparsebench", "--size", "40", "--impl", "routed", "--runs", "1",
+            [sys.executable, "-m", "lilac_tpu_torch.bench", "run", "--bench", bench,
+             "--size", size, *(("--impl",) + impl if impl else ()), "--runs", "1",
              "--out", out], cwd=os.path.dirname(os.path.abspath(__file__)),
             capture_output=True, text=True, timeout=600)
         if proc.returncode != 0:
-            raise AssertionError(f"bench run sparsebench failed: {proc.stderr[-2000:]}")
+            raise AssertionError(f"bench run {bench} failed: {proc.stderr[-2000:]}")
         with open(out) as f:
             rows = [ln.strip().split(",") for ln in f if ln.strip()]
-    if len(rows) != 1 or rows[0][:4] != ["gpu", "sparsebench", "routed", "40"] \
+    if len(rows) != 1 or rows[0][:4] != ["gpu", bench, impl[0] if impl else "auto", size] \
             or not float(rows[0][4]) > 0:
-        raise AssertionError(f"bench run sparsebench wrote {rows}")
+        raise AssertionError(f"bench run {bench} wrote {rows}")
     return {"csv_row": rows[0], "wall_s": round(time.time() - t0, 1)}
 
 
@@ -3276,7 +3290,7 @@ def phase_sparsebench(kernels: dict) -> dict:
     del res_g
     torch.cuda.empty_cache()
 
-    line["cli"] = _sb_cli()
+    line["cli"] = _bench_cli("sparsebench", "40", "routed")
     line["wall_s"] = round(time.time() - t_phase, 1)
     emit(line)
     return line
@@ -3340,9 +3354,551 @@ def phase_sb_profile(size: int = 160) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The graph workloads: PageRank and BFS on power-law graphs in f32, through
+# one routing table (n = 200 000) and the hierarchical plans (graph-scale's
+# n = 1 000 000, K3-K6 on one plane of 4-byte words; n = 300 000 unrelabeled,
+# whose un-permute network runs K3u-K6u)
+# ---------------------------------------------------------------------------
+
+GRAPH_N = 1_000_000  # graph-scale's defaults (lilac_tpu/bench/__main__.py:38-40)
+GRAPH_DEG = 16.0
+PR_ITERS = 128
+PR_RUNS = 2
+BFS_SOURCES = 16
+GRAPH_SMALL_N = 200_000  # under 2^18 columns: one routing table
+GRAPH_UNPERM_N = 300_000
+PR_X_L1 = 1e-3  # f32 x against the f64 replica, L1 relative
+PR_ERR_REL = 1e-2  # the last step norm against the replica's, relative
+PR_RELABEL_TOL = dict(rtol=2e-4, atol=1e-7)  # tests/test_graph.py:76, 91
+# the reference's own run at n = 1e6 (tools/out5/capture_graphs.log), an
+# accuracy record only
+PR_REF_LOG = {"n": 1_000_000, "nnz": 13_308_062, "error": 1.240e-05}
+FWD_HIER = ("routed_apply_sliced_b", "butterfly_apply_b", "window_shift_apply_b")
+
+
+def _pagerank_replica(g, iters: int, d: float = 0.85, seed: int = 0) -> tuple:
+    """An f64 scipy replica of `iters` PageRank iterations in the
+    reference's order (main.cpp:101-155) from the benchmark's x0: (x, the
+    last step norm). Its column scaling is scipy's own, not the port's."""
+    import scipy.sparse as sp
+
+    ip, ix, data, shape = g
+    A = sp.csr_matrix((np.asarray(data, np.float64), ix, ip), shape=shape)
+    colsum = np.asarray(A.sum(axis=0)).ravel()
+    scale = np.ones_like(colsum)
+    np.divide(1.0, colsum, out=scale, where=colsum != 0.0)  # empty columns stay
+    A = sp.csr_matrix(A @ sp.diags(scale * d))
+    n = shape[0]
+    x = np.random.default_rng(seed).random(n)
+    x /= x.sum()
+    err = 0.0
+    for _ in range(iters):
+        y = A @ x + (1.0 - d) * (x.sum() / n)
+        err = float(np.sqrt(((y - x) ** 2).sum()))
+        x = y
+    return x, err
+
+
+def _graph_counts(rd) -> dict:
+    return {**_hier_counts(rd), "routed_apply": rd.routed_apply.launches}
+
+
+def _plan_info(plan) -> dict:
+    """What a graph plan holds on the card: its kernel and, for a routed
+    plan, its table width, nets, row chunks and bytes."""
+    from lilac_tpu_torch.kernels import routed_spmv as rs
+
+    A = plan.A
+    info = {"kernel": plan.kernel}
+    if isinstance(A, rs.RoutedMatHierP):
+        info.update(m=A.m, bl=A.bl, nets=len(A.chunks),
+                    chunks=sum(len(c) for c in A.chunks),
+                    groups=[len(g.net_ids) for g in A.groups],
+                    passes_a_product=_pass_census(A), unperm=A.unperm is not None,
+                    unperm_passes=len(A.unperm.pass_meta) if A.unperm else 0,
+                    plan_bytes_on_card=rs.plan_bytes(A))
+    elif isinstance(A, rs.RoutedMat):
+        info.update(m=A.m, nets=len(A.chunks), stages=len(A.kinds),
+                    inv_perm=A.inv_perm is not None,
+                    plan_bytes_on_card=A.masks.numel() * A.masks.element_size()
+                    + A.vals.numel() * A.vals.element_size())
+    return info
+
+
+def _pagerank_on_card(g, kernel: str, replica, iters: int = PR_ITERS,
+                      runs: int = PR_RUNS, **kw) -> tuple:
+    """pagerank.run on the card, launch counts set to 0 just before and
+    read just after; x and the last step norm held to the f64 replica.
+    Returns (result, line, counts)."""
+    from lilac_tpu_torch.kernels import dfmulred as dfk
+    from lilac_tpu_torch.kernels import routed as rd
+    from lilac_tpu_torch.workloads import pagerank
+
+    _reset_hier_counts(rd, dfk)
+    r = pagerank.run(*g, iters=iters, runs=runs, kernel=kernel, device=DEVICE, **kw)
+    counts = _graph_counts(rd)
+    x_ref, err_ref = replica
+    n, nnz = g[3][0], len(g[1])
+    l1 = float(np.abs(r.x - x_ref).sum() / np.abs(x_ref).sum())
+    err_rel = abs(r.error - err_ref) / err_ref
+    products = (runs + 1) * iters  # the untimed run and the timed ones
+    line = {"workload": "pagerank", "n": n, "nnz": nnz, "kernel_arg": kernel, **kw,
+            **_plan_info(r.plan), "build_s": round(r.build_s, 2), "iters": iters,
+            "times_s": r.times_s, "gnnz_s": iters * nnz / min(r.times_s) / 1e9,
+            "error": r.error, "replica_error": err_ref, "error_rel_diff": err_rel,
+            "x_l1_rel_diff": l1, "x_sum": float(r.x.sum()),
+            "launches": {k: v for k, v in counts.items() if v},
+            "launches_a_product": {k: v / products for k, v in counts.items() if v}}
+    emit({"phase": "graphs_run", **line})
+    if r.x.shape != (n,) or not np.isfinite(r.x).all() or not l1 <= PR_X_L1 \
+            or not err_rel <= PR_ERR_REL:
+        raise AssertionError(f"pagerank n={n} {kernel}: x {l1:.3e}, error {err_rel:.3e} "
+                             "off the f64 replica")
+    return r, line, counts
+
+
+def _bfs_on_card(g, kernel: str, oracle: dict) -> tuple:
+    """run_benchmark(runs=16) on the card, counts as above; every source's
+    distances equal to bfs_oracle (filled into `oracle` on first use)."""
+    from lilac_tpu_torch.kernels import dfmulred as dfk
+    from lilac_tpu_torch.kernels import routed as rd
+    from lilac_tpu_torch.workloads import bfs
+
+    _reset_hier_counts(rd, dfk)
+    r = bfs.run_benchmark(*g, runs=BFS_SOURCES, kernel=kernel, device=DEVICE)
+    counts = _graph_counts(rd)
+    t0 = time.time()
+    bad = []
+    for s, d in zip(r.sources, r.distances):
+        if int(s) not in oracle:
+            oracle[int(s)] = bfs.bfs_oracle(*g, int(s))
+        if not np.array_equal(d, oracle[int(s)]):
+            bad.append(int(s))
+    n, nnz = g[3][0], len(g[1])
+    line = {"workload": "bfs", "n": n, "nnz": nnz, "kernel_arg": kernel,
+            **_plan_info(r.plan), "build_s": round(r.build_s, 2), "time_s": r.time_s,
+            "sources": [int(s) for s in r.sources],
+            "levels": [int(d.max()) for d in r.distances],
+            "reached": [int((d > 0).sum()) for d in r.distances],
+            "oracle_s": round(time.time() - t0, 1), "distances_equal_oracle": not bad,
+            "launches": {k: v for k, v in counts.items() if v}}
+    emit({"phase": "graphs_run", **line})
+    if bad:
+        raise AssertionError(f"bfs n={n} {kernel}: sources {bad} differ from bfs_oracle")
+    return r, line, counts
+
+
+def _f32_plane(rng, n: int, m: int) -> torch.Tensor:
+    """A random f32 vector of n entries (distinct values, so that a misrouted
+    word shows) zero-padded to one [m // 128, 128] plane."""
+    x = torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=DEVICE)
+    return _plane(x, m)
+
+
+def _record_timed(kernels: dict, timed: dict, key: str) -> dict:
+    """Each timed pass row into its kernel's entry under `key`; the summary."""
+    for name, row in timed.items():
+        kernels.setdefault(name, {"name": name})[key] = {
+            k: row[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms", "shape",
+                                "bytes") + (("launch",) if "launch" in row else ())}
+    return {k: {"ms": v["ms"], "bound_ms": v["bound_ms"],
+                "share_of_bound": v["bound_ms"] / v["ms"],
+                "library_ms": v["library_ms"]} for k, v in timed.items()}
+
+
+def _graph_pass_checks(plan, kernels: dict | None, what: str) -> dict:
+    """Every pass of every packed group of a 1M graph plan, on one random
+    f32 plane, bit for bit against its plain version. With `kernels`, the
+    first pass of each kind is also timed beside its byte bound and its
+    composed gather."""
+    from lilac_tpu_torch.kernels import routed as rd
+
+    P = plan.A
+    x = _f32_plane(np.random.default_rng(41), P.shape[1], P.m)
+    timed: dict | None = {} if kernels is not None else None
+    for grp in P.groups:
+        _walk_schedule(rd, (x,), grp.pass_meta, grp.pass_masks, P.bl, True,
+                       f"{what}, group of {len(grp.net_ids)} nets, f32", timed, 10)
+    out = {"groups_walked": [len(g.net_ids) for g in P.groups],
+           "passes_checked": sum(len(g.pass_meta) for g in P.groups)}
+    if kernels is not None:
+        out["timed"] = _record_timed(kernels, timed, "graph_f32")
+    return out
+
+
+def _unperm_pass_checks(plan, kernels: dict) -> dict:
+    """Every pass of an unrelabeled plan's un-permute network (one net,
+    K3u-K6u) on one random f32 plane, bit for bit against its plain
+    version; the first pass of each kind timed beside its byte bound."""
+    from lilac_tpu_torch.kernels import routed as rd
+
+    P = plan.A
+    U = P.unperm
+    x = _f32_plane(np.random.default_rng(43), P.m_out, P.m_out)
+    timed: dict = {}
+    _walk_schedule(rd, (x,), U.pass_meta, U.pass_masks, P.bl, False,
+                   "pagerank 300k un-permute network, f32", timed, 10)
+    return {"m_out": P.m_out, "passes_checked": len(U.pass_meta),
+            "kinds": [mt[0] for mt in U.pass_meta],
+            "timed": _record_timed(kernels, timed, "unperm_f32")}
+
+
+def _k1_plan_check(plan, rng, what: str) -> dict:
+    """K1 on a single-table graph plan's own routing tables, one random f32
+    plane, bit for bit against its plain version."""
+    from lilac_tpu_torch.kernels import routed as rd
+
+    A = plan.A
+    x = _f32_plane(rng, A.m, A.m)
+    got = rd.routed_apply([x], A.masks, A.kinds, A.dists)
+    torch.cuda.synchronize()
+    want = rd.routed_apply_plain([x], A.masks, A.kinds, A.dists)
+    if not _bits_equal(got[0], want[0]):
+        raise AssertionError(f"{what}: routed_apply != routed_apply_plain in f32 "
+                             f"{_bits_diff(got, want)}")
+    return {"m": A.m, "nets": A.masks.shape[0], "stages": len(A.kinds),
+            "bit_identical_to_plain": True}
+
+
+def _add_launches(kernels: dict, key: str, counts_list) -> None:
+    for counts in counts_list:
+        for name, v in counts.items():
+            row = kernels.setdefault(name, {"name": name})
+            row[key] = row.get(key, 0) + v
+
+
+def _hier_nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v and k != "routed_apply"}
+
+
+def phase_graphs(kernels: dict) -> dict:
+    """PageRank and BFS (generate/graphs.py, workloads/pagerank.py,
+    workloads/bfs.py) on the card in f32:
+
+    * n = 200 000 (one routing table): PageRank 128 iterations through
+      `routed` (relabeled, K1), `auto` (routed too: a plan declared for many
+      products on the card; unrelabeled) and `xla_sell` (gather), each held
+      to an f64 scipy replica of the same iterations; BFS from 16 sources,
+      routed and auto, every distance vector equal to bfs_oracle; the bench
+      CLI's pagerank row at size 40;
+    * n = 1 000 000, graph-scale's default: the same through ONE f32
+      hierarchical routed plan (K3-K5, K6 where the plan has block-aligned
+      shifts) and through the gather path `auto` picks, every pass of the
+      PageRank plan's first group bit for bit and timed on one f32 plane;
+    * n = 300 000 (hierarchical), PageRank unrelabeled (its un-permute
+      network runs K3u-K6u) against the relabeled run."""
+    from lilac_tpu_torch.generate.graphs import powerlaw_graph
+
+    t_phase = time.time()
+    out: dict = {"phase": "graphs"}
+
+    # --- one routing table
+    t0 = time.time()
+    g = powerlaw_graph(GRAPH_SMALL_N, GRAPH_DEG, seed=0)
+    gs = powerlaw_graph(GRAPH_SMALL_N, GRAPH_DEG, seed=0, symmetric=True)
+    replica = _pagerank_replica(g, PR_ITERS)
+    small = {"gen_and_replica_s": round(time.time() - t0, 1)}
+    k1 = []
+    rng = np.random.default_rng(47)
+    for kernel, want in (("routed", "routed"), ("auto", "routed"), ("xla_sell", "xla_sell")):
+        r, line, counts = _pagerank_on_card(g, kernel, replica)
+        if r.plan.kernel != want or (want == "routed") != (counts["routed_apply"] > 0):
+            raise AssertionError(f"pagerank 200k {kernel}: {r.plan.kernel}, {counts}")
+        small[f"pagerank_{kernel}"] = {k: line[k] for k in (
+            "kernel", "build_s", "times_s", "error", "x_l1_rel_diff")}
+        if want == "routed":
+            small[f"pagerank_{kernel}"]["k1_check"] = _k1_plan_check(
+                r.plan, rng, f"pagerank 200k {kernel} plan")
+        k1.append({"routed_apply": counts["routed_apply"]})
+        del r
+    oracle: dict = {}
+    for kernel in ("routed", "auto"):
+        r, line, counts = _bfs_on_card(gs, kernel, oracle)
+        if r.plan.kernel != "routed" or counts["routed_apply"] <= 0:
+            raise AssertionError(f"bfs 200k {kernel}: {r.plan.kernel}, {counts}")
+        small[f"bfs_{kernel}"] = {k: line[k] for k in ("build_s", "time_s", "levels")}
+        small[f"bfs_{kernel}"]["k1_check"] = _k1_plan_check(
+            r.plan, rng, f"bfs 200k {kernel} plan")
+        k1.append({"routed_apply": counts["routed_apply"]})
+        del r
+    _add_launches(kernels, "launches_graphs_200k", k1)
+    # random_crs(40): n = 64 000, 1024 iterations
+    small["cli"] = _bench_cli("pagerank", "40")
+    out["n200k"] = small
+    emit({"phase": "graphs_200k", **small})
+    del g, gs, oracle
+    torch.cuda.empty_cache()
+
+    # --- graph-scale's n = 1 000 000: the f32 hierarchical plans
+    t0 = time.time()
+    g = powerlaw_graph(GRAPH_N, GRAPH_DEG, seed=0)
+    gen_s = time.time() - t0
+    t0 = time.time()
+    replica = _pagerank_replica(g, PR_ITERS)
+    big = {"gen_s": round(gen_s, 1), "replica_s": round(time.time() - t0, 1),
+           "replica_error": replica[1], "reference_log": PR_REF_LOG}
+    r, line, counts = _pagerank_on_card(g, "routed", replica)
+    if r.plan.kernel != "routed_hier" or r.plan.A.unperm is not None \
+            or any(counts[k] <= 0 for k in FWD_HIER) or counts["routed_apply"]:
+        raise AssertionError(f"pagerank 1M routed: {r.plan.kernel}, {counts}")
+    big["pagerank_routed"] = line
+    big["passes"] = _graph_pass_checks(r.plan, kernels, "pagerank 1M plan")
+    _add_launches(kernels, "launches_pagerank_1m", [_hier_nonzero(counts)])
+    del r
+    torch.cuda.empty_cache()
+    r, line, counts = _pagerank_on_card(g, "auto", replica)
+    if not r.plan.kernel.startswith("xla_") or any(counts.values()):
+        raise AssertionError(f"pagerank 1M auto: {r.plan.kernel}, {counts}")
+    big["pagerank_auto"] = line
+    del r, g, replica
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    gs = powerlaw_graph(GRAPH_N, GRAPH_DEG, seed=0, symmetric=True)
+    big["gen_symmetric_s"] = round(time.time() - t0, 1)
+    oracle = {}
+    for kernel in ("routed", "auto"):
+        r, line, counts = _bfs_on_card(gs, kernel, oracle)
+        routed = kernel == "routed"
+        if routed and (r.plan.kernel != "routed_hier" or any(counts[k] <= 0 for k in FWD_HIER)):
+            raise AssertionError(f"bfs 1M routed: {r.plan.kernel}, {counts}")
+        if not routed and (not r.plan.kernel.startswith("xla_") or any(counts.values())):
+            raise AssertionError(f"bfs 1M auto: {r.plan.kernel}, {counts}")
+        if routed:
+            _add_launches(kernels, "launches_bfs_1m", [_hier_nonzero(counts)])
+            big["passes_bfs"] = _graph_pass_checks(r.plan, None, "bfs 1M plan")
+        big[f"bfs_{kernel}"] = line
+        del r
+        torch.cuda.empty_cache()
+    summary = ("kernel", "build_s", "times_s", "time_s", "plan_bytes_on_card", "error",
+               "x_l1_rel_diff")
+    out["n1M"] = {k: ({kk: v[kk] for kk in summary if kk in v} if k.startswith(
+        ("pagerank_", "bfs_")) else v) for k, v in big.items()}
+    del gs, oracle
+
+    # --- the un-permute network in f32 (n = 300 000, hierarchical)
+    g = powerlaw_graph(GRAPH_UNPERM_N, GRAPH_DEG, seed=0)
+    replica = _pagerank_replica(g, 25)
+    runs = {}
+    for relabel in (False, True):
+        r, line, counts = _pagerank_on_card(g, "routed", replica, iters=25, runs=1,
+                                            relabel=relabel)
+        single = [PASS_FNS[k][1] for k in PASS_FNS]
+        if r.plan.kernel != "routed_hier" or (r.plan.A.unperm is None) == (not relabel) \
+                or (not relabel and any(counts[k] <= 0 for k in single)):
+            raise AssertionError(f"pagerank 300k relabel={relabel}: {counts}")
+        if not relabel:
+            _add_launches(kernels, "launches_unperm_300k",
+                          [{k: counts[k] for k in single}])
+            unperm_passes = _unperm_pass_checks(r.plan, kernels)
+        runs[relabel] = (r.x, line)
+        del r
+    diff = np.abs(runs[False][0] - runs[True][0])
+    ok = bool((diff <= PR_RELABEL_TOL["atol"]
+               + PR_RELABEL_TOL["rtol"] * np.abs(runs[True][0])).all())
+    out["n300k_unperm"] = {"x_max_abs_diff": float(diff.max()), "within_tol": ok,
+                           "launches_unrelabeled": runs[False][1]["launches"],
+                           "passes": unperm_passes}
+    emit({"phase": "graphs_unperm", **out["n300k_unperm"]})
+    if not ok:
+        raise AssertionError("pagerank 300k: relabeled and unrelabeled x differ")
+    del runs, g
+    torch.cuda.empty_cache()
+    out["wall_s"] = round(time.time() - t_phase, 1)
+    emit(out)
+    return out
+
+
+def phase_graph_profile() -> dict:
+    """Opt-in: where a PageRank iteration at n = 1 000 000 spends its time.
+    For the routed plan and the gather path, torch.profiler traces 1 and 10
+    iterations (after a warm-up), beside the untraced wall of 10; each
+    trace's device time is split between the port's kernels and PyTorch's."""
+    from lilac_tpu_torch.generate.graphs import powerlaw_graph
+    from lilac_tpu_torch.profile_npb import _summary, _trace
+    from lilac_tpu_torch.workloads import pagerank
+
+    g = powerlaw_graph(GRAPH_N, GRAPH_DEG, seed=0)
+    n = g[3][0]
+    out = {"phase": "graph_profile", "n": n, "nnz": len(g[1])}
+    for kernel in ("routed", "auto"):
+        plan = pagerank.run(*g, iters=1, runs=1, kernel=kernel, device=DEVICE).plan
+        x = plan.vec_in(np.full(n, 1.0 / n))
+
+        def iterations(k):
+            return pagerank._iterate(plan, plan.A, x, n, 0.85, k)
+
+        iterations(10)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        iterations(10)
+        torch.cuda.synchronize()
+        row = {"kernel": plan.kernel, "ten_iterations_untraced_ms":
+               (time.perf_counter() - t0) * 1e3}
+        for what, k in (("one_iteration", 1), ("ten_iterations", 10)):
+            wall, ks = _trace(lambda: iterations(k))
+            s = _summary(wall, ks, top=12)
+            port_us = sum(us for name, (_, us) in ks.items()
+                          if any(p in name for p in PORT_KERNELS))
+            s["port_kernels_ms"] = port_us / 1e3
+            s["torch_kernels_ms"] = s["device_busy_ms"] - port_us / 1e3
+            s["launches_an_iteration"] = s["launches"] / k
+            row[what] = s
+        out[kernel] = row
+        del plan, x
+        torch.cuda.empty_cache()
+    emit(out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# PATHSAMPLE: pfold and tfold sweeps through the f64 gather plan, NGT
+# ---------------------------------------------------------------------------
+
+# a stand-in at a database's scale: the LJ38 min.data / ts.data files are
+# not in the reference's checkout (lilac_tpu/workloads/pathsample.py:26-28)
+PS_NMIN, PS_NTS = 100_000, 400_000
+PS_T, PS_SWEEPS = 0.05, 10_000  # the bench's settings
+PS_TOL = dict(rtol=1e-12, atol=1e-13)  # tests/test_pathsample.py:58
+# NGT's graph transformation is host Python on dicts and quadratic in its
+# fill-in: 2 000 minima on a spanning tree with 200 more transition states
+# (11 s on a host core; 4 TS a minimum take 600 s)
+NGT_NMIN, NGT_NTS = 2000, 2200
+
+
+def _pfold_replica(ip, ix, dv, has_row, q0, sweeps: int) -> np.ndarray:
+    """The sweep q <- where(has_row, D q, q) on the host in f64 (scipy)."""
+    import scipy.sparse as sp
+
+    n = len(has_row)
+    D = sp.csr_matrix((dv, ix, ip), shape=(n, n))
+    q = q0.copy()
+    for _ in range(sweeps):
+        q = np.where(has_row, D @ q, q)
+    return q
+
+
+def _tfold_replica(db, temperature: float, sweeps: int) -> np.ndarray:
+    """tfold's Jacobi sweep t <- where(free, tau + D t, pinned) on the host
+    in f64 (scipy), from tfold's own host inputs."""
+    import scipy.sparse as sp
+
+    from lilac_tpu_torch.workloads import pathsample as ps
+
+    ip, ix, dv, has_row, sink = ps.branching_matrix(
+        db, temperature=temperature, block_opposite=False)
+    n = db.nmin
+    kplus, kminus = ps.log_rates(db, temperature)
+    lnconn, _ = ps.connectivity_census(db, 0)
+    live = (db.plus != db.minus) & (lnconn[db.plus] > 0) & (lnconn[db.minus] > 0)
+    lksum = np.zeros(n)
+    np.add.at(lksum, db.plus[live], np.exp(kplus[live]))
+    np.add.at(lksum, db.minus[live], np.exp(kminus[live]))
+    with np.errstate(divide="ignore"):
+        tau = np.where(lksum > 0, 1.0 / lksum, 0.0)
+    tau = np.where(sink, 0.0, tau)
+    D = sp.csr_matrix((dv, ix, ip), shape=(n, n))
+    free = has_row & ~sink
+    pinned = np.where(sink, 0.0, tau)
+    t = tau.copy()
+    for _ in range(sweeps):
+        t = np.where(free, tau + D @ t, pinned)
+    return t
+
+
+def _close(got, want, what: str) -> float:
+    """Largest |got - want| / (atol + rtol |want|); fails above 1."""
+    ratio = float((np.abs(got - want) / (PS_TOL["atol"] + PS_TOL["rtol"] * np.abs(want))).max())
+    if not np.isfinite(got).all() or not ratio <= 1.0:
+        raise AssertionError(f"{what}: off its host replica ({ratio:.3g} x the tolerance)")
+    return ratio
+
+
+def phase_pathsample() -> dict:
+    """PATHSAMPLE (workloads/pathsample.py) on the card: pfold and tfold at
+    the bench's T = 0.05 and 10 000 sweeps on a landscape of 100 000 minima
+    and 400 000 transition states, each held to an f64 host replica of its
+    sweeps; pfold's launches a sweep (torch.profiler over 10 sweeps); NGT
+    with its seeded pfold; pfold against the dense committor at a mixing
+    temperature; and the bench CLI's pathsample row."""
+    from lilac_tpu_torch.plan import SpmvPlan
+    from lilac_tpu_torch.profile_npb import _trace
+    from lilac_tpu_torch.workloads import pathsample as ps
+
+    t_phase = time.time()
+    t0 = time.time()
+    db = ps.synthetic_landscape(nmin=PS_NMIN, nts=PS_NTS, seed=0)
+    land_s = time.time() - t0
+    t0 = time.time()
+    ip, ix, dv, has_row, sink = ps.branching_matrix(db, temperature=PS_T)
+    out = {"phase": "pathsample", "nmin": PS_NMIN, "nts": PS_NTS, "nnz": len(ix),
+           "landscape_s": round(land_s, 2), "branching_s": round(time.time() - t0, 2),
+           "temperature": PS_T, "sweeps": PS_SWEEPS, "tol": PS_TOL}
+
+    t0 = time.time()
+    r = ps.pfold(db, temperature=PS_T, npfold=PS_SWEEPS, device=DEVICE)
+    pfold_wall = time.time() - t0
+    q0 = np.where(sink, 1.0, 0.0)
+    t0 = time.time()
+    want = _pfold_replica(ip, ix, dv, has_row, q0, PS_SWEEPS)
+    out["pfold"] = {"time_s": r.time_s, "wall_s": round(pfold_wall, 2),
+                    "residual": r.residual, "replica_s": round(time.time() - t0, 1),
+                    "max_abs_diff": float(np.abs(r.committor - want).max()),
+                    "tol_ratio": _close(r.committor, want, "pfold")}
+    plan = SpmvPlan(ip, ix, dv, (PS_NMIN, PS_NMIN), dtype="f64", device=DEVICE)
+    q, mask = plan.vec_in(q0), torch.as_tensor(has_row, device=DEVICE)
+
+    def sweeps():
+        p = q
+        for _ in range(10):
+            p = torch.where(mask, plan.matvec_with(plan.A, p), p)
+
+    sweeps()
+    _, ks = _trace(sweeps)
+    out["pfold"].update(kernel=plan.kernel, launches_a_sweep=sum(
+        c for c, _ in ks.values()) / 10, kernels_a_sweep={
+        name[:60]: c / 10 for name, (c, _) in ks.items()})
+    del plan, q, mask, r
+
+    r = ps.tfold(db, temperature=PS_T, ntfold=PS_SWEEPS, device=DEVICE)
+    t0 = time.time()
+    want = _tfold_replica(db, PS_T, PS_SWEEPS)
+    out["tfold"] = {"time_s": r.time_s, "kAB": r.kAB, "replica_s": round(time.time() - t0, 1),
+                    "max_rel_diff": float((np.abs(r.mfpt - want)
+                                           / np.maximum(np.abs(want), 1e-300)).max()),
+                    "tol_ratio": _close(r.mfpt, want, "tfold")}
+    del db, r, want
+
+    ndb = ps.synthetic_landscape(nmin=NGT_NMIN, nts=NGT_NTS, seed=0)
+    t0 = time.time()
+    r = ps.ngt(ndb, temperature=0.8, npfold=200, device=DEVICE)
+    out["ngt"] = {"nmin": NGT_NMIN, "nts": NGT_NTS, "wall_s": round(time.time() - t0, 1),
+                  "detailed_balance": r.detailed_balance, "kAB": r.kAB, "kBA": r.kBA}
+    if not abs(r.detailed_balance - 1.0) <= 1e-10 or r.committor is None \
+            or not (0.0 <= r.committor.min() and r.committor.max() <= 1.0 + 1e-9):
+        raise AssertionError(f"ngt: {out['ngt']}")
+
+    # the committor oracle's own landscape (tests/test_pathsample.py): at a
+    # mixing temperature 4000 sweeps come within 1e-3 of the fixed point
+    tdb = ps.synthetic_landscape(nmin=300, nts=1200, seed=3)
+    dense = {}
+    for direction in ("AB", "BA"):
+        ref = ps.dense_committor(tdb, temperature=1.0, direction=direction)
+        r = ps.pfold(tdb, temperature=1.0, direction=direction, npfold=4000, device=DEVICE)
+        dense[direction] = float(np.abs(r.committor - ref).max())
+    out["pfold_vs_dense"] = dense
+    if not max(dense.values()) < 1e-3:
+        raise AssertionError(f"pfold against the dense committor: {dense}")
+    out["cli"] = _bench_cli("pathsample", "1000")
+    out["wall_s"] = round(time.time() - t_phase, 1)
+    emit(out)
+    return out
+
+
 PARTS = {"hier", "inner", "inner_diag", "window", "window_diag", "window_bt_diag", "k11",
          "tiles", "c", "d", "gemm", "gemm_diag", "parboil", "exchange_diag", "cg", "scan",
-         "sparsebench", "sb_profile"}
+         "sparsebench", "sb_profile", "graphs", "graph_profile", "pathsample"}
 
 
 def main(argv) -> int:
@@ -3379,6 +3935,12 @@ def main(argv) -> int:
         phase_sparsebench(kernels)
     if "sb_profile" in only:
         phase_sb_profile()
+    if "graphs" in only:
+        phase_graphs(kernels)
+    if "graph_profile" in only:
+        phase_graph_profile()
+    if "pathsample" in only:
+        phase_pathsample()
     if "scan" in only:
         from lilac_tpu_torch.kernels import routed_spmv as rs
         from lilac_tpu_torch.workloads import npb_cg
@@ -3412,7 +3974,7 @@ def main(argv) -> int:
         phase_plan_mode_d(kernels, res_d)
     if only:
         emit({"phase": "total", "seconds": round(time.time() - t_start, 1)})
-        emit({"kernels": [k for k in kernels.values() if "ms" in k]})
+        emit({"kernels": [k for k in kernels.values() if len(k) > 1]})
         return 2  # a partial run proves nothing: never the contract's last line
 
     phase_eft()
@@ -3447,6 +4009,8 @@ def main(argv) -> int:
     phase_plan_mode_d(kernels, res_d)
     phase_npb_scan(res_d, line_d["plan_bytes_on_card"], d_build_s)
     phase_sparsebench(kernels)
+    phase_graphs(kernels)
+    phase_pathsample()
 
     names = ["routed_apply", "dfmulred"] + [
         PASS_FNS[k][i] for i in (0, 1) for k in PASS_FNS] + ADJ_NAMES + [

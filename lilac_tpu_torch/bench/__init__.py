@@ -7,7 +7,8 @@ geomeans them (results/ics/tidy.py:6-17, analysis.py:7-27). This module
 keeps that CSV schema and the numpy tidy / geomean analysis, so rows of an
 H100 run and of a TPU run sit in one file and `analyze` compares them.
 `impl` values are the kernel registry's names (kernels/registry.py) or a
-workload's own kernel option.
+workload's own kernel option; pagerank and pathsample take the kernel
+their plan selects, as in the JAX package, whatever `impl` says.
 
 CLI:  python -m lilac_tpu_torch.bench run --bench sgemm --size 4096
       python -m lilac_tpu_torch.bench run --bench sparsebench --size 160 --impl routed
@@ -62,6 +63,22 @@ def _run_sparsebench(size: str, impl: str) -> float:
     return sparsebench.run_case("s", int(size), 2, 0).time_s
 
 
+def _run_pagerank(size: str, impl: str) -> float:
+    from lilac_tpu_torch.generate.random_crs import random_crs
+    from lilac_tpu_torch.workloads import pagerank
+
+    indptr, indices, data, shape = random_crs(int(size), seed=1)
+    r = pagerank.run(indptr, indices, data, shape, runs=1)
+    return float(np.median(r.times_s))
+
+
+def _run_pathsample(size: str, impl: str) -> float:
+    from lilac_tpu_torch.workloads import pathsample as ps
+
+    db = ps.synthetic_landscape(nmin=int(size), nts=4 * int(size), seed=0)
+    return ps.pfold(db, temperature=0.05, npfold=10000).time_s
+
+
 def _run_parboil_spmv(size: str, impl: str) -> float:
     import os
 
@@ -92,18 +109,11 @@ def _run_sgemm(size: str, impl: str) -> float:
     return res.time_s
 
 
-def _not_ported(bench: str, item: str) -> Callable[[str, str], float]:
-    def run(size: str, impl: str) -> float:
-        raise NotImplementedError(
-            f"bench {bench!r} is not ported yet (ROADMAP.md Queue 1 item {item})")
-    return run
-
-
 BENCHES: Dict[str, Callable[[str, str], float]] = {
     "npb": _run_npb,
     "sparsebench": _run_sparsebench,
-    "pagerank": _not_ported("pagerank", "3"),
-    "pathsample": _not_ported("pathsample", "4"),
+    "pagerank": _run_pagerank,
+    "pathsample": _run_pathsample,
     "parboil-spmv": _run_parboil_spmv,
     "sgemm": _run_sgemm,
 }

@@ -8,6 +8,8 @@ the arrays here. This module imports neither package's JAX side.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -24,6 +26,7 @@ from lilac_tpu_torch.ops.dfloat import DF
 from lilac_tpu_torch.solvers.line_ilu import LineILU
 from lilac_tpu_torch.solvers.precond import ILU0
 from lilac_tpu_torch.solvers.tri import LevelSweep
+from lilac_tpu_torch.workloads.pathsample import MinDatabase
 
 
 def _t(a, device, dtype=None):
@@ -187,3 +190,13 @@ def ilu0_from_arrays(data, indices, row_ids, diag, lower_level, upper_level,
         n_upper_levels_t=int(lv["upper_level_t"].max()) + 1,
         shape=tuple(int(s) for s in shape),
     )
+
+
+def min_database_from_arrays(**fields) -> MinDatabase:
+    """A PATHSAMPLE database (workloads/pathsample.py) from the JAX
+    package's MinDatabase fields, passed by name; the arrays are copied, so
+    the two packages' databases share no buffer."""
+    names = [f.name for f in dataclasses.fields(MinDatabase)]
+    if sorted(fields) != sorted(names):
+        raise ValueError(f"MinDatabase fields {sorted(fields)} != {sorted(names)}")
+    return MinDatabase(**{k: np.array(fields[k]) for k in names})

@@ -9,8 +9,10 @@ off-diagonal entries of a symmetric (skew-symmetric: negated) file
 mirrored (parboil convert_dataset.c:82-112), normalised to 0-based
 canonical CSR with duplicates summed. The body is parsed by the port's C
 parser (native/); where that fails the reader raises, it does not fall
-back to a slower parser. The BFS edge-list reader comes with its
-workload.
+back to a slower parser. The BFS edge-list format (bfs/library.cc:169-184)
+is a header `rows cols nnz`, then `nnz` pairs `x y`, 1-based unless asked
+otherwise, every value 1.0; the reference's 2-based column quirk is not
+reproduced (SURVEY.md section 3.5).
 """
 
 from __future__ import annotations
@@ -112,3 +114,26 @@ def write_sparsebench_crs(path: str, indptr, indices, data, shape):
             f.write(f"{int(p) + 1:12d}\n")
         for i, v in zip(indices, data):
             f.write(f"{int(i) + 1:12d} {v:20.17f}\n")
+
+
+def read_edgelist(path_or_file, zero_based: bool = False):
+    """BFS edge list (a path or an open text file) -> (indptr, indices,
+    data, shape), 0-based canonical CSR with unit values, duplicates summed.
+    The body is one token pass; a malformed token or a body shorter or
+    longer than the header promises raises ValueError."""
+    close = isinstance(path_or_file, str)
+    f = open(path_or_file) if close else path_or_file
+    try:
+        rows, cols, nnz = map(int, f.readline().split())
+        toks = f.read().split()
+        if len(toks) != 2 * nnz:
+            raise ValueError(f"edge list: {len(toks)} tokens, header promises {2 * nnz}")
+        data = np.asarray(toks, dtype=np.int64).reshape(-1, 2)
+    finally:
+        if close:
+            f.close()
+    base = 0 if zero_based else 1
+    r = data[:, 0] - base
+    c = data[:, 1] - base
+    v = np.ones(len(r), dtype=np.float64)
+    return coo_to_csr_arrays(r, c, v, (rows, cols)) + ((rows, cols),)

@@ -481,6 +481,19 @@ def test_bench_dispatch(monkeypatch):
     assert tbench.BENCHES["sparsebench"]("160", "routed") == 1.5
     assert tbench.BENCHES["sparsebench"]("10", "auto") == 1.5
     assert calls == [(160, {"kernel": "routed"}), ("s", 10, 2, 0)]
-    for bench, item in (("pagerank", "3"), ("pathsample", "4")):
-        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}\\)"):
-            tbench.run_bench(bench, "10", runs=1)
+    # bench pathsample: pfold on synthetic_landscape(size, 4 size, seed 0)
+    # at the benchmark's T = 0.05 and 10 000 sweeps, as in the JAX package
+    from lilac_tpu_torch.workloads import pathsample as tps
+
+    class P:
+        time_s = 2.5
+
+    seen = []
+    monkeypatch.setattr(tps, "pfold", lambda db, **kw: seen.append((db, kw)) or P)
+    assert tbench.BENCHES["pathsample"]("100", "auto") == 2.5
+    (db, kw), = seen
+    assert kw == {"temperature": 0.05, "npfold": 10000}
+    from lilac_tpu.workloads import pathsample as jps
+
+    want = jps.synthetic_landscape(nmin=100, nts=400, seed=0)
+    assert db.nmin == 100 and np.array_equal(db.plus, want.plus)

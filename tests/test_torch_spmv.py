@@ -17,6 +17,7 @@ import torch
 from lilac_tpu import bench as jbench
 from lilac_tpu import plan as jplan
 from lilac_tpu.formats import convert as jconv
+from lilac_tpu.generate import random_crs as jrc
 from lilac_tpu.ops import dfloat as jdf
 from lilac_tpu.ops.spmv import spmm as jspmm, spmv as jspmv, spmv_t as jspmv_t
 from lilac_tpu_torch import bench as tbench
@@ -421,7 +422,7 @@ def test_routed_plan_matches_gather(dtype, tmp_path, monkeypatch):
 # -- bench CSV analysis ----------------------------------------------------------
 
 
-def test_bench_tidy_and_geomean_match_reference(tmp_path):
+def test_bench_tidy_and_geomean_match_reference(tmp_path, monkeypatch):
     path = tmp_path / "all.csv"
     rows = [
         tbench.BenchRow("gpu", "parboil-spmv", "xla_ell", "small", [0.5, 0.4, 0.6]),
@@ -444,5 +445,19 @@ def test_bench_tidy_and_geomean_match_reference(tmp_path):
         np.sqrt((0.4 / 0.2) * (3.5 / 1.0)))
     assert set(got) == {("gpu", "parboil-spmv", "xla_sell"),
                         ("tpu", "parboil-spmv", "routed")}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        tbench.run_bench("pagerank", "40", runs=1)
+    # bench pagerank: random_crs(size, seed=1) through pagerank.run, one run
+    # a row entry, as in the JAX package
+    from lilac_tpu_torch.workloads import pagerank as tpr
+
+    calls = []
+
+    class R:
+        times_s = [0.25]
+
+    monkeypatch.setattr(tpr, "run", lambda *a, **kw: calls.append((a, kw)) or R)
+    row = tbench.run_bench("pagerank", "4", runs=2)
+    assert row.times == [0.25, 0.25] and len(calls) == 2
+    (ip, ix, dv, shape), kw = calls[0]
+    assert kw == {"runs": 1} and shape == (64, 64)
+    want = jrc.random_crs(4, seed=1)
+    assert all(np.array_equal(a, b) for a, b in zip((ip, ix, dv), want[:3]))
