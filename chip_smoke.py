@@ -77,7 +77,17 @@ proves on the card that
 * PATHSAMPLE: pfold and tfold (10 000 sweeps at T = 0.05, f64 gather) on a
   landscape of 100 000 minima equal to f64 host replicas of their sweeps to
   1e-12, NGT's detailed balance, pfold against the dense committor, and the
-  bench's pathsample row.
+  bench's pathsample row,
+* the tooling (phase tools): ESC SpGEMM at the bench's sizes and at
+  n = 262 144 with expand_csr's structure bit for bit, its values within
+  the f32 bound of the f64 products and the same bits on two runs, and
+  masked_dense; spmv-roofline's rows (K1, and K3-K5 on a hierarchical
+  plan at n = 343 000) with no HBM share and no replayed stage floor above
+  1.05 of its matvec; marshall, devices and config; ingest at n = 1 000 000
+  read back bit for bit with PageRank's x equal to the in-memory run's; a
+  budgeted autotune collection whose rows name the card, its model and the
+  selection it makes; a class A df64 solve restarted from its checkpoint
+  bit for bit (K1, K2); bench_npb's fingerprint.
 
 It prints one JSON line per phase, then the line {"kernels": [...]} with
 each kernel's measured time beside its bound, and last
@@ -98,7 +108,8 @@ K5u and K9 at every span, bit for bit, "c" = K1, K2, K11 on the class C plan,
 "d" = the class D plan, its kernels and its runs, "gemm" = K12 and sgemm,
 "parboil" = Parboil spmv, "cg" = cg_solve on class C, "scan" = the scan
 layout (class D against 3 steps of adj), "sparsebench" = the SparseBench
-phase, "graphs" = PageRank and BFS, "pathsample" = PATHSAMPLE; opt-in,
+phase, "graphs" = PageRank and BFS, "pathsample" = PATHSAMPLE, "tools" =
+the tooling phase; opt-in,
 never in the whole run: "graph_profile" = torch.profiler over 1 and 10
 PageRank iterations at n = 1 000 000, routed and gather, "sb_profile" = torch.profiler over
 A p, A^T p and 3 BiCG iterations at size 160, routed and gather,
@@ -111,7 +122,6 @@ cores round K12's f32 sums); such a run exits 2 without the last line.
 
 from __future__ import annotations
 
-import dataclasses
 import functools
 import json
 import os
@@ -122,12 +132,24 @@ import time
 import numpy as np
 import torch
 
-# published peaks of one H100 SXM (NVIDIA data sheet): the bounds below are
-# stated against them, with the card's power limit printed beside
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
+# the card's published peaks (bytes/s, f32 and dense bf16 FLOP/s), set by
+# _set_peaks from lilac_tpu_torch.utils.profiling.chip_spec(): the bounds
+# below are stated against them, with the card's power limit printed beside
+PEAK_BYTES_S = PEAK_F32_FLOPS = PEAK_BF16_FLOPS = None
 
 DEVICE = "cuda"  # every tensor of this script lives on the card
+
+
+def _set_peaks() -> None:
+    """The card's peaks from the package's one table (an unknown card
+    raises there)."""
+    from lilac_tpu_torch.utils.profiling import chip_spec
+
+    global PEAK_BYTES_S, PEAK_F32_FLOPS, PEAK_BF16_FLOPS
+    spec = chip_spec(DEVICE)
+    PEAK_BYTES_S = spec["hbm_gbps"] * 1e9
+    PEAK_F32_FLOPS = spec["f32_tflops"] * 1e12
+    PEAK_BF16_FLOPS = spec["bf16_tflops"] * 1e12
 
 
 def emit(obj) -> None:
@@ -2062,7 +2084,6 @@ GEMM_WIDE = ((4096, 4096, 4096), (4000, 3000, 1500))
 # bf16 pieces are non-zero; standard normal with one column of A and one of
 # Bt between bf16's largest finite value and f32's (see _gemm_operands)
 GEMM_KINDS = ("normal", "positive", "wide", "dense_bits", "huge")
-PEAK_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak (data sheet)
 
 
 def _gemm_operand(rng, rows: int, k: int, kind: str) -> np.ndarray:
@@ -2636,17 +2657,6 @@ def phase_main_path_c(kernels: dict) -> dict:
     return line
 
 
-def _tensor_bytes(obj) -> int:
-    """Bytes of the tensors a container holds (dataclass fields, tuples)."""
-    if isinstance(obj, torch.Tensor):
-        return obj.numel() * obj.element_size()
-    if dataclasses.is_dataclass(obj):
-        return sum(_tensor_bytes(getattr(obj, f.name)) for f in dataclasses.fields(obj))
-    if isinstance(obj, (tuple, list)):
-        return sum(_tensor_bytes(v) for v in obj)
-    return 0
-
-
 def phase_cg_solve() -> dict:
     """cg_solve (CG to a residual tolerance, one host read of its stopping
     test an iteration) on NPB class C's matrix, b = ones, rtol = 1e-10,
@@ -2728,6 +2738,7 @@ def _general_layouts() -> dict:
     from lilac_tpu_torch.formats import convert as tconv
     from lilac_tpu_torch.kernels import gather
     from lilac_tpu_torch.ops import dfloat as df
+    from lilac_tpu_torch.utils.profiling import tensor_bytes
 
     n = 400_000
     rng = np.random.default_rng(23)
@@ -2758,7 +2769,7 @@ def _general_layouts() -> dict:
             tail = (M.tail_data is not None if layout == "SegELLScan"
                     else any(p[2] < 0 for p in M.parts))
             out[f"{layout} {dtype}"] = {
-                "segments": segs, "tail": tail, "bytes_on_card": _tensor_bytes(M),
+                "segments": segs, "tail": tail, "bytes_on_card": tensor_bytes(M),
                 "max_err_over_sum_abs": err, "tol": tol,
                 "ms": time_ms(lambda: spmv(M, xin), 5)}
             if got.shape != (n,) or not np.isfinite(got).all() or err > tol or segs != 3:
@@ -2778,6 +2789,7 @@ def phase_npb_scan(adj_res, adj_bytes: int, adj_build_s: float) -> dict:
     multi-segment layouts (_general_layouts)."""
     from lilac_tpu_torch.formats.sparse import SegELLScan
     from lilac_tpu_torch.plan import FactoredNPBPlan
+    from lilac_tpu_torch.utils.profiling import tensor_bytes
     from lilac_tpu_torch.workloads import npb_cg
 
     scan = {"LILAC_FACTORED_SEGMODE": "scan"}
@@ -2802,7 +2814,7 @@ def phase_npb_scan(adj_res, adj_bytes: int, adj_build_s: float) -> dict:
         "tail_rows": [0 if M.tail_data is None else int(M.tail_data.shape[1])
                       for M in (V, VT)],
         "zeta_history_max_rel_diff_vs_adj": float(rel.max()), "tol": 1e-12,
-        "bytes_on_card": {"scan": _tensor_bytes(plan.A), "adj": adj_bytes},
+        "bytes_on_card": {"scan": tensor_bytes(plan.A), "adj": adj_bytes},
         "host_build_s": {"scan": round(build_s, 2), "adj": round(adj_build_s, 2)},
         "untraced_step_wall_s": {"scan": res.time_s / res.niter,
                                  "adj": adj_res.time_s / adj_res.niter}}
@@ -3896,9 +3908,336 @@ def phase_pathsample() -> dict:
     return out
 
 
+# phase tools: the CLI's spgemm sizes and size 64 (n = 262 144, about 2.4 M
+# entries in A and 21.8 M in C); spmv-roofline's sizes and 70 (n = 343 000 >
+# 2^18: the routed plan is hierarchical); ingest at the CLI's n
+TOOLS_SPGEMM_SIZES = (16, 24, 32, 64)
+TOOLS_ROOFLINE_SIZES = (20, 40, 60, 70)
+TOOLS_INGEST_N = 1_000_000
+TOOLS_AUTOTUNE_BUDGET_S = 40.0
+TOOLS_AUTOTUNE_KERNELS = ("xla_ell", "xla_sell", "xla_csr", "routed")
+TOOLS_SHARE_MAX = 1.05  # an HBM share or a stage floor over its matvec
+
+
+def _tool_counts(rd, dfk) -> dict:
+    """The launch counts of K1, K2 and the hierarchical wrappers, nonzero."""
+    counts = {"routed_apply": rd.routed_apply.launches,
+              "dfmulred": dfk.dfmulred.launches, **_hier_counts(rd)}
+    return {k: v for k, v in counts.items() if v}
+
+
+def _spgemm_bound(a, b, ref, got, what: str) -> float:
+    """Every value of got (ESC or masked-dense, f32 sums) within
+    (k + 2) 2^-24 sum_k |a_ik b_kj| of ref (expand_csr, f64), k the number
+    of products summed into the entry: the products' and the inputs' f32
+    roundings and an f32 sum of k terms in any order. The partial products
+    are expanded once on the host and placed on C's entries by their
+    (row, col) key. Returns the largest error over its bound."""
+    (ap, ai, av), (bp, bi, bv) = a[:3], b[:3]
+    n, m = a[3][0], b[3][1]
+    ai, bi = ai.astype(np.int64), bi.astype(np.int64)
+    lens = np.diff(bp)[ai]
+    ends = np.cumsum(lens)
+    pos = np.repeat(bp[ai].astype(np.int64), lens) + (
+        np.arange(int(ends[-1]) if len(ends) else 0, dtype=np.int64)
+        - np.repeat(ends - lens, lens))
+    rows = np.repeat(np.repeat(np.arange(n, dtype=np.int64), np.diff(ap)), lens)
+    ckey = np.repeat(np.arange(n, dtype=np.int64), np.diff(ref[0])) * m + ref[1]
+    slot = np.searchsorted(ckey, rows * m + bi[pos])
+    absum = np.bincount(slot, weights=np.abs(np.repeat(av, lens) * bv[pos]),
+                        minlength=len(ckey))
+    k = np.bincount(slot, minlength=len(ckey))
+    err = np.abs(got[2] - ref[2])
+    bound = (k + 2) * 2.0**-24 * absum
+    if not (err <= bound).all():
+        i = int(np.argmax(err - bound))
+        raise AssertionError(f"spgemm {what}: entry {i} off by {err[i]:.3e}, "
+                             f"bound {bound[i]:.3e} (k = {k[i]})")
+    return float((err / np.where(bound > 0, bound, 1.0)).max())
+
+
+def _esc_card_ms(sg, a, b) -> float:
+    """Milliseconds of ESC's work on the card for the whole product as one
+    group (expand, compact, sort, segment sum; its one read of the unique
+    count included), the operands already there in ELL: what esc_spgemm
+    spends outside host numpy."""
+    from lilac_tpu_torch.formats.convert import csr_to_ell_arrays
+
+    (va, ca), (vb, cb) = (csr_to_ell_arrays(x[0], x[1], x[2].astype(np.float32), x[3])
+                          for x in (a, b))
+    cnt_b = np.pad(np.diff(b[0]).astype(np.int32), (0, vb.shape[0] - b[3][0]))
+    args = [torch.as_tensor(v, device=DEVICE) for v in (
+        va[: a[3][0]], ca[: a[3][0]].astype(np.int64), np.diff(a[0]).astype(np.int32),
+        vb, cb, cnt_b)]
+    return time_ms(lambda: sg._esc_group(*args, b[3][1]), 3)
+
+
+def _tools_spgemm(mean_nnz: float = 8.0) -> dict:
+    """ESC on the card at each size: structure equal to expand_csr's, values
+    within the f32 bound, two runs the same bits; masked_dense at the first
+    size within the same bound; the CLI's lines at its own sizes."""
+    from lilac_tpu_torch.bench import __main__ as bm
+    from lilac_tpu_torch.generate.random_crs import random_crs
+    from lilac_tpu_torch.ops import spgemm as sg
+
+    cli = bm.spgemm([16, 24, 32], mean_nnz, DEVICE)
+    if not all(r["struct_match"] for r in cli):
+        raise AssertionError(f"bench spgemm: {cli}")
+    out = {}
+    for size in TOOLS_SPGEMM_SIZES:
+        a = random_crs(size, seed=3, mean_nnz=mean_nnz, std_nnz=mean_nnz / 2)
+        b = random_crs(size, seed=4, mean_nnz=mean_nnz, std_nnz=mean_nnz / 2)
+        t0 = time.perf_counter()
+        ref = sg.expand_csr(a[:3], b[:3], a[3], b[3])
+        line = {"n": a[3][0], "nnz_a": len(a[1]), "nnz_c": len(ref[1]),
+                "host_s": time.perf_counter() - t0}
+        runs = []
+        for _ in range(2):
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            runs.append(sg.esc_spgemm(a[:3], b[:3], a[3], b[3], device=DEVICE))
+            line.setdefault("esc_s", []).append(time.perf_counter() - t0)
+            line.setdefault("esc_peak_bytes", []).append(
+                torch.cuda.max_memory_allocated() - base)
+        got = runs[0]
+        for i in (0, 1):
+            if got[i].dtype != ref[i].dtype or not np.array_equal(got[i], ref[i]):
+                raise AssertionError(f"spgemm {size}: ESC structure differs from expand_csr")
+        if not np.array_equal(got[2].view(np.uint64), runs[1][2].view(np.uint64)):
+            raise AssertionError(f"spgemm {size}: two ESC runs differ in their bits")
+        line["esc_err_over_bound"] = _spgemm_bound(a, b, ref, got, f"esc {size}")
+        line["esc_card_ms"] = _esc_card_ms(sg, a, b)
+        line["group_rows"] = sg.esc_group_rows(
+            a[3][0], int(np.diff(a[0]).max()), int(np.diff(b[0]).max()),
+            sg.esc_budget_bytes(DEVICE))
+        if size == TOOLS_SPGEMM_SIZES[0]:
+            t0 = time.perf_counter()
+            md = sg.masked_dense(a[:3], b[:3], a[3], b[3], device=DEVICE)
+            line["masked_dense_s"] = time.perf_counter() - t0
+            if not (np.array_equal(md[0], ref[0]) and np.array_equal(md[1], ref[1])):
+                raise AssertionError(f"spgemm {size}: masked_dense structure differs")
+            line["masked_dense_err_over_bound"] = _spgemm_bound(
+                a, b, ref, md, f"masked_dense {size}")
+        out[size] = line
+        emit({"phase": "tools_spgemm", "size": size, **line})
+    return out
+
+
+def _tools_roofline(kernels: dict, rd, dfk) -> list:
+    """spmv-roofline at its sizes and 70: at least one row beyond L2, every
+    HBM share and every replayed stage floor within TOOLS_SHARE_MAX of its
+    matvec; K1 on the single tables and the stage probes, K3-K5 on the
+    size-70 hierarchical plan."""
+    from lilac_tpu_torch.bench import __main__ as bm
+
+    _reset_hier_counts(rd, dfk)
+    rows = bm.spmv_roofline(TOOLS_ROOFLINE_SIZES, ["auto", "routed"], DEVICE)
+    counts = _tool_counts(rd, dfk)
+    _add_launches(kernels, "launches_tools_roofline", [counts])
+    if all(r["l2_resident"] for r in rows):
+        raise AssertionError("spmv-roofline: every row fits in L2")
+    for r in rows:
+        if (r["frac_hbm"] is not None and r["frac_hbm"] > TOOLS_SHARE_MAX) or (
+                r["stage_share"] is not None and r["stage_share"] > TOOLS_SHARE_MAX):
+            raise AssertionError(f"spmv-roofline: {r}")
+    hier = [r for r in rows if r["kernel"] == "routed_hier"]
+    if not hier or any(counts.get(k, 0) <= 0 for k in FWD_HIER + ("routed_apply",)):
+        raise AssertionError(f"spmv-roofline: kernels {[r['kernel'] for r in rows]}, {counts}")
+    return rows
+
+
+def _tools_ingest(ddir: str) -> dict:
+    """bench ingest at n = 1 000 000 (mtx) in a directory of its own: the
+    arrays read back are the generated graph's bit for bit, and PageRank's x
+    is, bit for bit, that of the same plan kernel on the graph in memory."""
+    from lilac_tpu_torch.bench import __main__ as bm
+    from lilac_tpu_torch.generate.graphs import powerlaw_graph
+    from lilac_tpu_torch.plan import SpmvPlan
+    from lilac_tpu_torch.workloads import pagerank
+
+    res = _with_env({"LILAC_DATA_DIR": ddir}, lambda: bm.ingest(
+        TOOLS_INGEST_N, 13.0, "mtx", "auto", 64, DEVICE))
+    os.remove(res["path"])
+    g = powerlaw_graph(TOOLS_INGEST_N, avg_deg=13.0, seed=7)
+    for got, want in zip(res["arrays"][:3], g[:3]):
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            raise AssertionError("ingest: the arrays read differ from the graph written")
+    if tuple(res["arrays"][3]) != tuple(g[3]):
+        raise AssertionError("ingest: shape differs")
+    scaled = pagerank.normalise_columns(*g[:3], g[3]) * 0.85
+    plan = SpmvPlan(g[0], g[1], scaled, g[3], dtype="f32", kernel=res["kernel"],
+                    reuse="many", device=DEVICE)
+    r = pagerank.run(*g, iters=64, runs=1, plan=plan)
+    if not np.array_equal(r.x.view(np.uint64), res["x"].view(np.uint64)):
+        raise AssertionError("ingest: PageRank's x differs from the in-memory run's")
+    return {k: res[k] for k in ("write_s", "read_s", "plan_s", "solve_s", "kernel",
+                                "error")} | {"nnz": len(g[1]), "x_bit_identical": True}
+
+
+def _family(name: str) -> str:
+    return name.split("_")[0].rstrip("0123456789")
+
+
+def _tools_autotune(kernels: dict, rd, dfk, ddir: str) -> dict:
+    """collect_rows on corpus_v2(max_n=65536) for about 40 s into a file of
+    its own: every row names the card and times routed; build_model_v2
+    writes every meta field; with LILAC_AUTOTUNE_MODEL set to that model,
+    an f32 SpmvPlan (reuse="once") takes predict's label where the model
+    passes its ship gate, the heuristic's where it does not."""
+    from lilac_tpu_torch import autotune
+    from lilac_tpu_torch.generate.random_crs import random_crs
+    from lilac_tpu_torch.plan import SpmvPlan
+
+    rows_path = os.path.join(ddir, "rows_tools.jsonl")
+    model_path = os.path.join(ddir, "model_tools.json")
+    for p in (rows_path, model_path):
+        if os.path.exists(p):
+            os.remove(p)
+    _reset_hier_counts(rd, dfk)
+    t0 = time.time()
+    n_new = autotune.collect_rows(rows_path, TOOLS_AUTOTUNE_KERNELS, max_n=65536,
+                                  budget_s=TOOLS_AUTOTUNE_BUDGET_S, device=DEVICE)
+    collect_s = time.time() - t0
+    counts = _tool_counts(rd, dfk)
+    _add_launches(kernels, "launches_tools_autotune", [counts])
+    with open(rows_path) as f:
+        rows = [json.loads(ln) for ln in f]
+    card = torch.cuda.get_device_name(0)
+    if n_new < 2 or len(rows) != n_new or counts.get("routed_apply", 0) <= 0 or any(
+            r["device"] != card or "routed" not in r["times"] for r in rows):
+        raise AssertionError(f"autotune rows: {n_new}, {counts}, {rows[:2]}")
+    winners: dict = {}
+    for r in rows:
+        fam = winners.setdefault(_family(r["name"]), {})
+        best = min(r["times"], key=r["times"].get)
+        fam[best] = fam.get(best, 0) + 1
+    autotune.build_model_v2(rows_path, model_path)
+    with open(model_path) as f:
+        meta = json.load(f)["meta"]
+    want = {"corpus_rows", "holdout_frac", "holdout_splits", "train_accuracy",
+            "test_accuracy", "majority_accuracy", "heuristic_accuracy", "gated_ok",
+            "label_counts", "source", "device"}
+    if not want <= set(meta) or meta["device"] != card or meta["corpus_rows"] != len(rows):
+        raise AssertionError(f"autotune model meta: {meta}")
+    ip, ix, dv, sh = random_crs(20, seed=5)
+    cnt = np.diff(ip)
+
+    def select():
+        autotune._cached_model = autotune._cached_path = None
+        try:
+            plan = SpmvPlan(ip, ix, dv, sh, dtype="f32", reuse="once", device=DEVICE)
+            return (plan.kernel, autotune.installed_model() is not None,
+                    autotune.predict(sh[0], len(ix), float(cnt.mean()), float(cnt.std())))
+        finally:
+            autotune._cached_model = autotune._cached_path = None
+
+    got, installed, label = _with_env({"LILAC_AUTOTUNE_MODEL": model_path}, select)
+    spread = cnt.max() > 1.5 * max(cnt.mean(), 1.0) + 4
+    heuristic = "xla_sell" if spread else "xla_ell"
+    if installed != meta["gated_ok"] or got != (label if installed else heuristic):
+        raise AssertionError(f"autotune selection: {got}, installed {installed}, "
+                             f"label {label}, gated_ok {meta['gated_ok']}")
+    return {"rows": len(rows), "collect_s": round(collect_s, 1),
+            "winners_by_family": winners, "selected": got, "gated_ok": meta["gated_ok"],
+            **{k: meta[k] for k in ("test_accuracy", "majority_accuracy",
+                                    "heuristic_accuracy", "label_counts")}}
+
+
+def _tools_checkpoint(kernels: dict, rd, dfk, ddir: str) -> dict:
+    """checkpointed_power_method on class A in df64 through the factored
+    plan (K1, K2): 8 outer steps, then a restart from the file to all 15;
+    the zeta history and x bit for bit those of one uninterrupted run, and
+    verified."""
+    from lilac_tpu_torch.generate.npb import CLASSES
+    from lilac_tpu_torch.plan import FactoredNPBPlan
+    from lilac_tpu_torch.utils import checkpoint as ck
+
+    cls = CLASSES["A"]
+    plan = FactoredNPBPlan("A", dtype="df64", device=DEVICE)
+    x0 = plan.vec_in(np.ones(cls.na))
+    paths = [os.path.join(ddir, f"ckpt_{i}.npz") for i in (0, 1)]
+    for p in paths:
+        if os.path.exists(p):
+            os.remove(p)
+    _reset_hier_counts(rd, dfk)
+    z8, _, s8 = ck.checkpointed_power_method(plan, x0, cls.shift, 8, path=paths[0], every=4)
+    z, x, start = ck.checkpointed_power_method(plan, x0, cls.shift, cls.niter,
+                                               path=paths[0], every=4)
+    counts = _tool_counts(rd, dfk)
+    _add_launches(kernels, "launches_tools_checkpoint", [counts])
+    zu, xu, _ = ck.checkpointed_power_method(plan, x0, cls.shift, cls.niter,
+                                             path=paths[1], every=cls.niter)
+    for p in paths:
+        os.remove(p)
+    rel = abs(z[-1] - cls.zeta_verify) / cls.zeta_verify
+    if (s8, start, len(z8), len(z)) != (0, 8, 8, cls.niter) \
+            or not np.array_equal(z.view(np.uint64), zu.view(np.uint64)) \
+            or not all(_bits_equal(a, b) for a, b in zip(x, xu)) or rel > 1e-10 \
+            or any(counts.get(k, 0) <= 0 for k in ("routed_apply", "dfmulred")):
+        raise AssertionError(f"checkpoint: start {start}, rel {rel:.3e}, {counts}, "
+                             f"{z.tolist()} vs {zu.tolist()}")
+    return {"kernel": plan.kernel, "steps": cls.niter, "resumed_at": start,
+            "zeta": float(z[-1]), "zeta_rel_err": rel, "bit_identical": True}
+
+
+def phase_tools(kernels: dict) -> dict:
+    """The tooling on the card: spgemm (ESC against the host, bit for bit in
+    structure, its values within the f32 bound), spmv-roofline, marshall,
+    devices / config, ingest, the autotune corpus and model, the checkpoint
+    restart, and bench_npb's fingerprint."""
+    from lilac_tpu_torch import bench_npb
+    from lilac_tpu_torch.bench import __main__ as bm
+    from lilac_tpu_torch.config import cfg
+    from lilac_tpu_torch.kernels import dfmulred as dfk
+    from lilac_tpu_torch.kernels import routed as rd
+    from lilac_tpu_torch.utils.profiling import CHIP_SPECS, chip_spec
+
+    t_phase = time.time()
+    ddir = os.path.join(cfg().resolved_data_dir(), "tools_smoke")
+    os.makedirs(ddir, exist_ok=True)
+    out: dict = {"phase": "tools"}
+    walls = {}
+    t0 = time.time()
+    out["spgemm"] = _tools_spgemm()
+    walls["spgemm"] = time.time() - t0
+    t0 = time.time()
+    out["spmv_roofline"] = _tools_roofline(kernels, rd, dfk)
+    walls["spmv_roofline"] = time.time() - t0
+    t0 = time.time()
+    out["marshall"] = bm.marshall(30, DEVICE)
+    bm.main(["devices"])
+    bm.main(["config"])
+    if chip_spec(DEVICE) != CHIP_SPECS["H100"] or "H100" not in torch.cuda.get_device_name(0) \
+            or "LILAC_AUTOTUNE_MODEL" not in cfg().describe():
+        raise AssertionError("devices / config: the card's spec or the knob is missing")
+    walls["marshall_devices_config"] = time.time() - t0
+    t0 = time.time()
+    out["ingest"] = _tools_ingest(ddir)
+    walls["ingest"] = time.time() - t0
+    emit({"phase": "tools_ingest", **out["ingest"]})
+    t0 = time.time()
+    out["autotune"] = _tools_autotune(kernels, rd, dfk, ddir)
+    walls["autotune"] = time.time() - t0
+    emit({"phase": "tools_autotune", **out["autotune"]})
+    t0 = time.time()
+    out["checkpoint"] = _tools_checkpoint(kernels, rd, dfk, ddir)
+    walls["checkpoint"] = time.time() - t0
+    _reset_hier_counts(rd, dfk)
+    fp = bench_npb.fingerprint(quick=False)
+    _add_launches(kernels, "launches_tools_fingerprint", [_tool_counts(rd, dfk)])
+    if "error" in fp or not fp["hbm_copy_gbps"] > 0:
+        raise AssertionError(f"bench_npb fingerprint: {fp}")
+    out["fingerprint"] = fp
+    out["walls_s"] = {k: round(v, 1) for k, v in walls.items()}
+    out["wall_s"] = round(time.time() - t_phase, 1)
+    emit({k: v for k, v in out.items() if k not in ("spgemm", "ingest", "autotune")})
+    return out
+
+
 PARTS = {"hier", "inner", "inner_diag", "window", "window_diag", "window_bt_diag", "k11",
          "tiles", "c", "d", "gemm", "gemm_diag", "parboil", "exchange_diag", "cg", "scan",
-         "sparsebench", "sb_profile", "graphs", "graph_profile", "pathsample"}
+         "sparsebench", "sb_profile", "graphs", "graph_profile", "pathsample", "tools"}
 
 
 def main(argv) -> int:
@@ -3912,6 +4251,7 @@ def main(argv) -> int:
         raise SystemExit(f"unknown phase {sorted(only - PARTS)}: " + " | ".join(sorted(PARTS)))
     phase_device()
     phase_build()
+    _set_peaks()
     kernels: dict = {}
     if "k11" in only:
         phase_k11_small()
@@ -3941,6 +4281,8 @@ def main(argv) -> int:
         phase_graph_profile()
     if "pathsample" in only:
         phase_pathsample()
+    if "tools" in only:
+        phase_tools(kernels)
     if "scan" in only:
         from lilac_tpu_torch.kernels import routed_spmv as rs
         from lilac_tpu_torch.workloads import npb_cg
@@ -4011,6 +4353,7 @@ def main(argv) -> int:
     phase_sparsebench(kernels)
     phase_graphs(kernels)
     phase_pathsample()
+    phase_tools(kernels)
 
     names = ["routed_apply", "dfmulred"] + [
         PASS_FNS[k][i] for i in (0, 1) for k in PASS_FNS] + ADJ_NAMES + [

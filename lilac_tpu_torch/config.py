@@ -95,6 +95,11 @@ KNOBS = (
          "Percentile of the (row, segment) run lengths that sets the one "
          "slab width of the scan layout (SegELLScan); longer runs spill "
          "into its tail."),
+    Knob("autotune_model", "LILAC_AUTOTUNE_MODEL", str, None,
+         "Path of a trained kernel-selection model JSON (default: "
+         "lilac_tpu_torch/autotune/model.json, resolved from the package; "
+         "none ships, so the heuristic serves until one is trained on the "
+         "card and passes the ship gate)."),
     Knob("bench_budget_s", "LILAC_BENCH_BUDGET_S", float, 480.0,
          "bench_npb wall budget in seconds; the class ladder stops before "
          "exceeding it."),
@@ -120,6 +125,7 @@ class Config:
     factored_vt: str
     sb_transpose: str
     seg_quantile: float
+    autotune_model: Optional[str]
     bench_budget_s: float
     bench_dtype: str
     bench_kernel: str

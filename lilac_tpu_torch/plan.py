@@ -145,14 +145,23 @@ class SpmvPlan:
         return _rs.maybe_pack_hier(A, self.device)
 
     def _select_kernel(self) -> str:
-        """Kernel and format gate: a plan declared reuse="many" on a CUDA
-        device with a single-table width routes; otherwise the heuristic
-        (ELL for near-uniform rows, bucketed ELL where row lengths spread).
+        """Kernel and format gate, in the reference's order
+        (lilac_tpu/plan.py:175-212):
 
-        The reference asks its trained autotune model first; that model was
-        measured on a TPU and does not transfer, so the port's selector is
-        the heuristic alone until the autotune module is ported with H100
-        rows of its own."""
+        1. a plan declared reuse="many" on a CUDA device with a single-table
+           width routes: the network's host build amortises over its many
+           matvecs;
+        2. df64 takes the heuristic's df64 gather layout;
+        3. the trained model's choice (autotune.predict), where one is
+           installed and passes its ship gate; a routed label is ignored on
+           the CPU (the plain versions are no measure of the card) and for
+           bf16 (the routed kernels move 4- and 8-byte words);
+        4. the heuristic: ELL for near-uniform rows, bucketed ELL where row
+           lengths spread.
+
+        No model ships yet (the JAX package's was measured on a TPU), so
+        step 3 passes until one is trained on the card."""
+        from lilac_tpu_torch import autotune
         from lilac_tpu_torch.kernels.factored import SINGLE_TABLE_MAX
 
         s = self.row_stats
@@ -164,6 +173,10 @@ class SpmvPlan:
         spread = s["max_row"] > 1.5 * max(s["mean_row"], 1.0) + 4
         if self.dtype == "df64":
             return "xla_sell_df" if spread else "xla_ell_df"
+        choice = autotune.predict(s["nrows"], s["nnz"], s["mean_row"], s["std_row"])
+        if choice is not None and not (choice.startswith("routed") and (
+                self.device.type != "cuda" or self.dtype == "bf16")):
+            return choice
         return "xla_sell" if spread else "xla_ell"
 
     # -- value conversion --------------------------------------------------
