@@ -32,9 +32,10 @@ proves on the card that
 * NPB class S verifies in f32 / f64 / df64 through both operators, class C
   verifies (zeta rel. err <= 1e-10) in df64 through the single-table routed
   operator and class D through the hierarchical one, with every kernel of
-  each path launched on that run; each class also runs a few outer steps
-  in the other factored_vt mode (class C: adj, which launches K11; class D:
-  plan, two forward plans) and the two zeta histories agree to 1e-12,
+  each path launched on that run; class C also runs a few outer steps in
+  the other factored_vt mode (adj, which launches K11) and the two zeta
+  histories agree to 1e-12 (class D's other mode, plan with two forward
+  plans, runs in the partial run "d"),
 * cg_solve (CG to rtol = 1e-10) on class C's matrix, through the factored
   routed plan in df64 (K1, K2) and through SpmvPlan's xla_ell in f64,
   stops before maxit with ||b - A x|| / ||b|| <= 10 rtol (scipy, f64),
@@ -87,7 +88,16 @@ proves on the card that
   read back bit for bit with PageRank's x equal to the in-memory run's; a
   budgeted autotune collection whose rows name the card, its model and the
   selection it makes; a class A df64 solve restarted from its checkpoint
-  bit for bit (K1, K2); bench_npb's fingerprint.
+  bit for bit (K1, K2); bench_npb's fingerprint,
+* distribution (phase dist, lilac_tpu_torch.parallel): dryrun_multichip on
+  1 rank under NCCL and on 4 ranks sharing the card through the host
+  transport (Gloo); NPB class B df64 through DistSpmvPlan verified on 4
+  ranks and on 1; on 4 ranks the stencil's halo plans (HaloSpmvPlan f64,
+  HaloRoutedPlan df64 with K1) and random_crs(64)'s routed plans
+  (DistRoutedPlan f32 with K1, DistRoutedHierPlan df64 with K3u-K6u) held
+  to the single-card gather plan in matvecs, CG and BiCG, every rank's
+  kernels bit for bit against their plain versions on its first matvec;
+  bench weak-scaling at 1, 2 and 4 ranks.
 
 It prints one JSON line per phase, then the line {"kernels": [...]} with
 each kernel's measured time beside its bound, and last
@@ -109,7 +119,7 @@ K5u and K9 at every span, bit for bit, "c" = K1, K2, K11 on the class C plan,
 "parboil" = Parboil spmv, "cg" = cg_solve on class C, "scan" = the scan
 layout (class D against 3 steps of adj), "sparsebench" = the SparseBench
 phase, "graphs" = PageRank and BFS, "pathsample" = PATHSAMPLE, "tools" =
-the tooling phase; opt-in,
+the tooling phase, "dist" = the distribution phase; opt-in,
 never in the whole run: "graph_profile" = torch.profiler over 1 and 10
 PageRank iterations at n = 1 000 000, routed and gather, "sb_profile" = torch.profiler over
 A p, A^T p and 3 BiCG iterations at size 160, routed and gather,
@@ -128,6 +138,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -3211,11 +3222,29 @@ def phase_sparsebench(kernels: dict) -> dict:
     (K7-K10) as `auto` resolves it, held to an f64 host replica of BiCG over
     its first 10 norms; the same size through the gather path the selector
     picks; and the bench CLI at size 40."""
+    t_phase = time.time()
+    with ThreadPoolExecutor(1) as pool:
+        # the f64 host replica of size 160 (generation, relabel, 10 BiCG
+        # iterations in scipy: about 27 s) runs beside the card's work
+        replica = pool.submit(_sb160_replica)
+        return _sparsebench(kernels, t_phase, replica)
+
+
+def _sb160_replica() -> tuple:
+    """The size-160 matrix as the routed run relabels it, and its f64 host
+    replica's first SB_HIST_FIRST residual norms, with the seconds taken."""
     from lilac_tpu_torch.formats.convert import length_relabel_csr
     from lilac_tpu_torch.generate.random_crs import random_crs
+
+    t0 = time.time()
+    ip, ix, dv, shp = random_crs(160, seed=0)
+    ip, ix, dv, _, _ = length_relabel_csr(ip, ix, dv, shp)
+    return _host_bicg_hist(ip, ix, dv, shp[0], SB_HIST_FIRST), time.time() - t0
+
+
+def _sparsebench(kernels: dict, t_phase: float, replica) -> dict:
     from lilac_tpu_torch.kernels import routed_spmv as rs
 
-    t_phase = time.time()
     line: dict = {"phase": "sparsebench", "golden": _sb_golden()}
     emit({"phase": "sparsebench_golden", **line["golden"]})
     rng = np.random.default_rng(37)
@@ -3263,17 +3292,15 @@ def phase_sparsebench(kernels: dict) -> dict:
     for name in FWD_D + ADJ_D + ("bigshift_apply_b", "bigshift_apply_bt", "dfmulred"):
         kernels.setdefault(name, {"name": name})["launches_sb160"] = counts[name]
     t0 = time.time()
-    ip, ix, dv, shp = random_crs(160, seed=0)
-    ip, ix, dv, _, _ = length_relabel_csr(ip, ix, dv, shp)
-    host = _host_bicg_hist(ip, ix, dv, shp[0], SB_HIST_FIRST)
-    replica_s = time.time() - t0
-    del ip, ix, dv
+    host, replica_s = replica.result()
+    replica_wait_s = time.time() - t0
     rel160 = _hist_rel(res.hist, host, SB_HIST_FIRST)
     routed = _sb_line(
         res, counts, plan_bytes_on_card=rs.plan_bytes(plan.A),
         device_bytes_allocated=torch.cuda.memory_allocated(),
         reference_log=SB_REF_LOG_160, host_replica_hist=[float(h) for h in host],
         host_replica_max_rel_diff=rel160, host_replica_s=round(replica_s, 1),
+        host_replica_wait_s=round(replica_wait_s, 1),
         kernels_checked=_sb_hier_checks(plan, rng, kernels))
     emit({"phase": "sparsebench_run", "sb_transpose": "auto", **routed})
     if not rel160 <= SB_HIST_TOL:
@@ -3773,6 +3800,10 @@ def phase_graph_profile() -> dict:
 PS_NMIN, PS_NTS = 100_000, 400_000
 PS_T, PS_SWEEPS = 0.05, 10_000  # the bench's settings
 PS_TOL = dict(rtol=1e-12, atol=1e-13)  # tests/test_pathsample.py:58
+# the f64 host replicas (scipy, 20 to 23 s each at 10 000 sweeps) check a
+# second, untimed run of this many sweeps: a depth cut that keeps the whole
+# run inside its time limit
+PS_REPLICA_SWEEPS = 2_000
 # NGT's graph transformation is host Python on dicts and quadratic in its
 # fill-in: 2 000 minima on a spanning tree with 200 more transition states
 # (11 s on a host core; 4 TS a minimum take 600 s)
@@ -3830,8 +3861,8 @@ def _close(got, want, what: str) -> float:
 def phase_pathsample() -> dict:
     """PATHSAMPLE (workloads/pathsample.py) on the card: pfold and tfold at
     the bench's T = 0.05 and 10 000 sweeps on a landscape of 100 000 minima
-    and 400 000 transition states, each held to an f64 host replica of its
-    sweeps; pfold's launches a sweep (torch.profiler over 10 sweeps); NGT
+    and 400 000 transition states (timed, finite), and a second run of
+    PS_REPLICA_SWEEPS sweeps each held to an f64 host replica of its sweeps; pfold's launches a sweep (torch.profiler over 10 sweeps); NGT
     with its seeded pfold; pfold against the dense committor at a mixing
     temperature; and the bench CLI's pathsample row."""
     from lilac_tpu_torch.plan import SpmvPlan
@@ -3851,13 +3882,18 @@ def phase_pathsample() -> dict:
     t0 = time.time()
     r = ps.pfold(db, temperature=PS_T, npfold=PS_SWEEPS, device=DEVICE)
     pfold_wall = time.time() - t0
+    if not (np.isfinite(r.committor).all() and np.isfinite(r.residual)):
+        raise AssertionError(f"pfold: not finite, residual {r.residual}")
+    rc = ps.pfold(db, temperature=PS_T, npfold=PS_REPLICA_SWEEPS, device=DEVICE)
     q0 = np.where(sink, 1.0, 0.0)
     t0 = time.time()
-    want = _pfold_replica(ip, ix, dv, has_row, q0, PS_SWEEPS)
+    want = _pfold_replica(ip, ix, dv, has_row, q0, PS_REPLICA_SWEEPS)
     out["pfold"] = {"time_s": r.time_s, "wall_s": round(pfold_wall, 2),
-                    "residual": r.residual, "replica_s": round(time.time() - t0, 1),
-                    "max_abs_diff": float(np.abs(r.committor - want).max()),
-                    "tol_ratio": _close(r.committor, want, "pfold")}
+                    "residual": r.residual, "replica_sweeps": PS_REPLICA_SWEEPS,
+                    "replica_s": round(time.time() - t0, 1),
+                    "max_abs_diff": float(np.abs(rc.committor - want).max()),
+                    "tol_ratio": _close(rc.committor, want, "pfold")}
+    del rc
     plan = SpmvPlan(ip, ix, dv, (PS_NMIN, PS_NMIN), dtype="f64", device=DEVICE)
     q, mask = plan.vec_in(q0), torch.as_tensor(has_row, device=DEVICE)
 
@@ -3874,13 +3910,17 @@ def phase_pathsample() -> dict:
     del plan, q, mask, r
 
     r = ps.tfold(db, temperature=PS_T, ntfold=PS_SWEEPS, device=DEVICE)
+    if not (np.isfinite(r.mfpt).all() and np.isfinite(r.kAB)):
+        raise AssertionError(f"tfold: not finite, kAB {r.kAB}")
+    rc = ps.tfold(db, temperature=PS_T, ntfold=PS_REPLICA_SWEEPS, device=DEVICE)
     t0 = time.time()
-    want = _tfold_replica(db, PS_T, PS_SWEEPS)
-    out["tfold"] = {"time_s": r.time_s, "kAB": r.kAB, "replica_s": round(time.time() - t0, 1),
-                    "max_rel_diff": float((np.abs(r.mfpt - want)
+    want = _tfold_replica(db, PS_T, PS_REPLICA_SWEEPS)
+    out["tfold"] = {"time_s": r.time_s, "kAB": r.kAB, "replica_sweeps": PS_REPLICA_SWEEPS,
+                    "replica_s": round(time.time() - t0, 1),
+                    "max_rel_diff": float((np.abs(rc.mfpt - want)
                                            / np.maximum(np.abs(want), 1e-300)).max()),
-                    "tol_ratio": _close(r.mfpt, want, "tfold")}
-    del db, r, want
+                    "tol_ratio": _close(rc.mfpt, want, "tfold")}
+    del db, r, rc, want
 
     ndb = ps.synthetic_landscape(nmin=NGT_NMIN, nts=NGT_NTS, seed=0)
     t0 = time.time()
@@ -3908,10 +3948,12 @@ def phase_pathsample() -> dict:
     return out
 
 
-# phase tools: the CLI's spgemm sizes and size 64 (n = 262 144, about 2.4 M
-# entries in A and 21.8 M in C); spmv-roofline's sizes and 70 (n = 343 000 >
+# phase tools: the CLI's spgemm sizes and size 48 (n = 110 592, about 1.0 M
+# entries in A; size 64, n = 262 144 with 21.8 M entries in C, took 39 s of
+# host numpy and was cut to keep the whole run inside its time limit);
+# spmv-roofline's sizes and 70 (n = 343 000 >
 # 2^18: the routed plan is hierarchical); ingest at the CLI's n
-TOOLS_SPGEMM_SIZES = (16, 24, 32, 64)
+TOOLS_SPGEMM_SIZES = (16, 24, 32, 48)
 TOOLS_ROOFLINE_SIZES = (20, 40, 60, 70)
 TOOLS_INGEST_N = 1_000_000
 TOOLS_AUTOTUNE_BUDGET_S = 40.0
@@ -4235,9 +4277,381 @@ def phase_tools(kernels: dict) -> dict:
     return out
 
 
+# phase dist: lilac_tpu_torch.parallel on the card. Four ranks share the one
+# card through the host transport (Gloo); one rank a card takes NCCL.
+DIST_RANKS = 4
+DIST_NPB_CLASS = "B"  # the JAX package's distributed verification target
+DIST_STENCIL = 64  # seven_point_csr(64, 64, 64): n = 262 144
+DIST_RCRS = 64  # random_crs(64): weak-scaling's matrix at per_dev_n = 65 536 x 4
+DIST_CG_MAXIT = 50
+DIST_BICG_MAXIT = 100
+# a matvec against the single-card gather plan, max |y - y_ref| / max |y_ref|:
+# the JAX package's distributed test tolerances (tests/test_dist.py:52)
+DIST_MATVEC_TOL = {"f32": 3e-5, "f64": 1e-12, "df64": 5e-13}
+# 50 CG steps against the single-card cg_solve, the same measure: the sums
+# are taken in other orders and CG carries their rounding from step to step
+DIST_CG_TOL = {"f64": 1e-9, "df64": 1e-9}
+DIST_ZETA_HIST_TOL = 1e-12  # class B's zeta history, 4 ranks against 1
+DIST_KERNELS = ("routed_apply", "routed_apply_sliced", "butterfly_apply",
+                "window_shift_apply", "bigshift_apply")
+
+
+def _dist_counts(rd) -> dict:
+    return {"routed_apply": rd.routed_apply.launches,
+            **{w.__name__: w.launches for w in (rd.routed_apply_sliced, rd.butterfly_apply,
+                                                rd.window_shift_apply, rd.bigshift_apply)}}
+
+
+def _dist_reset(rd, mesh) -> None:
+    for w in (rd.routed_apply, rd.routed_apply_sliced, rd.butterfly_apply,
+              rd.window_shift_apply, rd.bigshift_apply):
+        w.launches = 0
+    torch.cuda.synchronize()
+    mesh.reset_stats()
+
+
+def _dist_rel(got: np.ndarray, want: np.ndarray) -> float:
+    return float(np.max(np.abs(got - want)) / max(np.max(np.abs(want)), 1e-300))
+
+
+def _dist_matvec_ms(plan, x, reps: int = 5) -> dict:
+    """Host-clock ms of one matvec (synchronised before and after) and of
+    the collectives inside it: the transport's share."""
+    mesh = plan.mesh
+    plan.local_matvec(plan.a_arrays, x)
+    torch.cuda.synchronize()
+    mesh.reset_stats()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        plan.local_matvec(plan.a_arrays, x)
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    return {"matvec_ms": ms, "collective_ms": mesh.seconds / reps * 1e3,
+            "collective_share": mesh.seconds / reps * 1e3 / ms,
+            "collective_bytes": mesh.bytes // reps}
+
+
+def _dist_npb_rank(mesh, csr, class_name: str) -> dict:
+    """NPB (class_name) df64 through DistSpmvPlan: the timed power method
+    (histories read once, synchronised), then one matvec's transport share."""
+    from lilac_tpu_torch.ops import dfloat as df
+    from lilac_tpu_torch.generate.npb import CLASSES
+    from lilac_tpu_torch.parallel.dist import DistSpmvPlan, dist_npb_power_method
+
+    cls = CLASSES[class_name]
+    plan = DistSpmvPlan.build(*csr, (cls.na, cls.na), mesh, dtype="df64")
+    x0 = plan.vec_in(np.ones(cls.na))
+    torch.cuda.synchronize()
+    mesh.reset_stats()
+    t0 = time.perf_counter()
+    zetas, rnorms, _ = dist_npb_power_method(plan, x0, cls.shift, cls.niter)
+    zetas = (zetas.hi.cpu().numpy(), zetas.lo.cpu().numpy())
+    time_s = time.perf_counter() - t0
+    out = {"time_s": time_s, "build_s": plan.build_s, "collectives": mesh.calls,
+           "collective_s": mesh.seconds, "zetas": zetas,
+           "rnorm_last": float(df.to_f64(rnorms)[-1]), "transport": mesh.transport,
+           "plan_bytes": plan.data.numel() * plan.data.element_size()
+           + plan.indices.numel() * plan.indices.element_size(),
+           **_dist_matvec_ms(plan, x0)}
+    return out
+
+
+def _dist_k1_check(rd, planes, masks, kinds, dists, what: str) -> None:
+    got = rd.routed_apply(planes, masks, kinds, dists)
+    torch.cuda.synchronize()
+    want = rd.routed_apply_plain(planes, masks, kinds, dists)
+    if not all(_bits_equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"{what}: routed_apply != routed_apply_plain "
+                             f"{_bits_diff(got, want)}")
+
+
+def _dist_solve_rank(mesh, npb, stencil, rcrs, xs, xr) -> dict:
+    """Phase dist's plans on this rank: NPB (npb = (csr, class name)) through
+    _dist_npb_rank, then the stencil and random_crs plans: every matvec and
+    solve gathered whole, the launches of the path, then the first matvec's
+    planes through each kernel against its plain version."""
+    from lilac_tpu_torch.ops import dfloat as df
+    from lilac_tpu_torch.kernels import routed as rd
+    from lilac_tpu_torch.parallel.dist import (
+        DistSpmvPlan,
+        dist_bicg_solve,
+        dist_cg_solve,
+        dist_transposed_plan,
+    )
+    from lilac_tpu_torch.parallel.dist_routed import (
+        DistRoutedHierPlan,
+        DistRoutedPlan,
+        HaloRoutedPlan,
+        _route_planes,
+    )
+    from lilac_tpu_torch.parallel.halo import HaloSpmvPlan, ghost_concat
+
+    out: dict = {"rank": mesh.rank, "transport": mesh.transport,
+                 "npb": _dist_npb_rank(mesh, *npb)}
+    torch.cuda.empty_cache()
+    counts = dict.fromkeys(DIST_KERNELS, 0)
+
+    def drive(name, plan, x, cg=None):
+        """A matvec (and a CG of DIST_CG_MAXIT steps) with the kernels counted."""
+        _dist_reset(rd, mesh)
+        t0 = time.perf_counter()
+        y = plan.vec_out(plan.local_matvec(plan.a_arrays, plan.vec_in(x)))
+        row = {"y": y, "build_s": plan.build_s, "first_matvec_s": time.perf_counter() - t0}
+        if cg:
+            t0 = time.perf_counter()
+            xc, it, _ = dist_cg_solve(plan, plan.vec_in(np.ones(plan.shape[0])),
+                                      maxit=DIST_CG_MAXIT, rtol=1e-14)
+            row.update(cg_x=plan.vec_out(xc), cg_it=it, cg_s=time.perf_counter() - t0)
+        for k, v in _dist_counts(rd).items():
+            counts[k] += v
+        row["launches"] = _dist_counts(rd)
+        row.update(_dist_matvec_ms(plan, plan.vec_in(x)))
+        out[name] = row
+
+    hp = HaloSpmvPlan.build(*stencil, mesh, dtype="f64")
+    out["halo_dist_ks"], out["halo_halos"] = hp.dist_ks, hp.halos
+    drive("halo_f64", hp, xs, cg=True)
+    del hp
+    hr = HaloRoutedPlan.build(*stencil, mesh, dtype="df64")
+    drive("halo_routed_df64", hr, xs, cg=True)
+    out["halo_routed_table"] = {"m": hr.m, "nets": len(hr.chunks), "stages": len(hr.kinds)}
+    x = hr.vec_in(xs)
+    x_ext = ghost_concat(mesh, hr.dist_ks, torch.stack([x.hi, x.lo]), hr.send_tbls)
+    _dist_k1_check(rd, _route_planes((x_ext[0], x_ext[1]), hr.m), hr.masks, hr.kinds,
+                   hr.dists, f"rank {mesh.rank}: HaloRoutedPlan df64")
+    del hr, x, x_ext
+
+    rp = DistRoutedPlan.build(*rcrs, mesh, dtype="f32")
+    drive("routed_f32", rp, xr)
+    out["routed_table"] = {"m": rp.m, "nets": len(rp.chunks), "stages": len(rp.kinds)}
+    _dist_k1_check(rd, _route_planes(rp._gathered_planes(rp.vec_in(xr)), rp.m), rp.masks,
+                   rp.kinds, rp.dists, f"rank {mesh.rank}: DistRoutedPlan f32")
+    del rp
+    hier = DistRoutedHierPlan.build(*rcrs, mesh, dtype="df64")
+    drive("hier_df64", hier, xr)
+    census: dict = {}
+    for meta_b in hier.net_meta:
+        for meta in meta_b:
+            census[meta[0]] = census.get(meta[0], 0) + 1
+    out["hier_plan"] = {"m": hier.m, "bl": hier.bl, "nets": len(hier.nets),
+                        "pass_census": census}
+    pads = tuple(_route_planes(hier._gathered_planes(hier.vec_in(xr)), hier.m))
+    for b, passes in enumerate(hier.nets):
+        _walk_schedule(rd, pads, [p[:-1] for p in passes], [p[-1] for p in passes],
+                       hier.bl, False, f"rank {mesh.rank}: DistRoutedHierPlan df64 net {b}")
+    del hier, pads
+
+    plan = DistSpmvPlan.build(*rcrs, mesh, dtype="df64")
+    plan_t = dist_transposed_plan(*rcrs, mesh, dtype="df64")
+    t0 = time.perf_counter()
+    xb, its, hist, rn = dist_bicg_solve(plan, plan_t, plan.vec_in(np.ones(rcrs[3][0])),
+                                        maxit=DIST_BICG_MAXIT, rtol=1e-6)
+    out["bicg"] = {"x": plan.vec_out(xb), "its": its, "hist": hist,
+                   "rnorm": float(df.to_f64(rn)), "s": time.perf_counter() - t0}
+    out["launches"] = counts
+    return out
+
+
+def _dist_single_card(stencil, rcrs, xs, xr) -> dict:
+    """The single-card references of phase dist on the gather path: SpmvPlan
+    (xla_ell in f32 / f64, xla_ell_df in df64), cg_solve and BiCG with the
+    exact transpose staged as a second plan."""
+    from lilac_tpu_torch.ops import dfloat as df
+    from lilac_tpu_torch.plan import SpmvPlan, transposed_plan
+    from lilac_tpu_torch.solvers.algebra import get_algebra
+    from lilac_tpu_torch.solvers.bicg import bicg_solve
+    from lilac_tpu_torch.solvers.cg import cg_solve
+
+    def gather_plan(csr, dtype):
+        return SpmvPlan(*csr, dtype=dtype, kernel="xla_ell_df" if dtype == "df64"
+                        else "xla_ell", device=DEVICE)
+
+    ref: dict = {}
+    for name, csr, x, dtype, cg in (("halo_f64", stencil, xs, "f64", True),
+                                    ("halo_routed_df64", stencil, xs, "df64", True),
+                                    ("routed_f32", rcrs, xr, "f32", False),
+                                    ("hier_df64", rcrs, xr, "df64", False)):
+        p = gather_plan(csr, dtype)
+        ref[name] = {"y": p.vec_out(p.matvec(p.vec_in(x)))}
+        if cg:
+            xc, it, _ = cg_solve(p.matvec_with, get_algebra(dtype, DEVICE), p.A,
+                                 p.vec_in(np.ones(csr[3][0])), maxit=DIST_CG_MAXIT, rtol=1e-14)
+            ref[name].update(cg_x=p.vec_out(xc), cg_it=it)
+    p = gather_plan(rcrs, "df64")
+    pt = transposed_plan(*rcrs, dtype="df64", kernel="xla_ell_df", device=DEVICE)
+    alg = get_algebra("df64", DEVICE)
+    b = p.vec_in(np.ones(rcrs[3][0]))
+    xb, its, hist, rn, _ = bicg_solve(lambda A, v: p.matvec(v), lambda A, v: pt.matvec(v), alg,
+                                      None, b, alg.zeros_like(b), maxit=DIST_BICG_MAXIT,
+                                      rtol=1e-6)
+    ref["bicg"] = {"x": p.vec_out(xb), "its": its, "hist": hist.cpu().numpy(),
+                   "rnorm": float(df.to_f64(rn))}
+    return ref
+
+
+def phase_dist(kernels: dict) -> dict:
+    """lilac_tpu_torch.parallel on the card, through run_spmd's ranks:
+
+    * dryrun_multichip(1) under NCCL (transport "device") and (4) under Gloo
+      (transport "host", four ranks sharing the card), every plan family
+      one step, the two runs' vectors equal to f32 rounding;
+    * NPB class B df64 through DistSpmvPlan, uncut: zeta verified to 1e-10
+      on 4 ranks (host transport) and on 1 rank under NCCL, the two zeta
+      histories equal to 1e-12, the times and one matvec's transport share
+      side by side;
+    * on 4 ranks, seven_point_csr(64, 64, 64) through HaloSpmvPlan (f64; its
+      kept ring distances 1 and 3) and HaloRoutedPlan (df64, K1), and
+      random_crs(64) through DistRoutedPlan (f32, K1) and DistRoutedHierPlan
+      (df64 at the card's bl, K3u-K6u): each matvec held to the single-card
+      gather plan, 50 CG steps on the stencil plans to the single-card
+      cg_solve, BiCG (100 iterations) with dist_transposed_plan to the
+      single-card BiCG with the exact transpose (its first SB_HIST_FIRST
+      norms to SB_HIST_TOL); every rank's first matvec of each routed plan
+      through K1 and every K3u-K6u pass bit for bit against the plain
+      versions; each rank's launches gathered into the kernels line;
+    * bench weak-scaling --devices 1,2,4 (its default sizes)."""
+    from lilac_tpu_torch.bench import __main__ as bm
+    from lilac_tpu_torch.generate.npb import CLASSES, make_cg_matrix
+    from lilac_tpu_torch.generate.random_crs import random_crs
+    from lilac_tpu_torch.generate.stencil import seven_point_csr
+    from lilac_tpu_torch.parallel.dryrun import dryrun_multichip
+    from lilac_tpu_torch.parallel.launch import run_spmd, same_bits
+
+    t_phase = time.time()
+    out: dict = {"phase": "dist"}
+    walls = {}
+    t0 = time.time()
+    dry = {}
+    for n, backend in ((1, "nccl"), (DIST_RANKS, "gloo")):
+        res = dryrun_multichip(n, DEVICE, backend=backend)
+        if not same_bits(res) or any(not np.isfinite(v).all() for k, v in res[0].items()
+                                     if isinstance(v, np.ndarray)):
+            raise AssertionError(f"dryrun_multichip({n}, {backend}): ranks differ or not finite")
+        dry[n] = res[0]
+    for k in ("cg", "halo", "routed", "halo_routed", "routed_hier", "bicg"):
+        rel = _dist_rel(dry[DIST_RANKS][k], dry[1][k])
+        if rel > 1e-4:
+            raise AssertionError(f"dryrun {k}: 4 ranks against 1 differ by {rel:.3e}")
+    out["dryrun"] = {n: {"transport": r["transport"], "size": r["size"]}
+                     for n, r in dry.items()}
+    if (dry[1]["transport"], dry[DIST_RANKS]["transport"]) != ("device", "host"):
+        raise AssertionError(f"dryrun transports: {out['dryrun']}")
+    walls["dryrun"] = time.time() - t0
+    emit({"phase": "dist_dryrun", **out["dryrun"], "wall_s": round(walls["dryrun"], 1)})
+
+    t0 = time.time()
+    cls = CLASSES[DIST_NPB_CLASS]
+    ip, ix, dv, _ = make_cg_matrix(DIST_NPB_CLASS)
+    walls["npb_matrix"] = time.time() - t0
+    t0 = time.time()
+    stencil = seven_point_csr(DIST_STENCIL, DIST_STENCIL, DIST_STENCIL)
+    rcrs = random_crs(DIST_RCRS, seed=11, mean_nnz=16.0, std_nnz=8.0)
+    rng = np.random.default_rng(61)
+    xs, xr = rng.standard_normal(stencil[3][0]), rng.standard_normal(rcrs[3][0])
+    res = run_spmd(_dist_solve_rank, DIST_RANKS, ((ip, ix, dv), DIST_NPB_CLASS), stencil,
+                   rcrs, xs, xr, backend="gloo", device=DEVICE)
+    walls["ranks_4"] = time.time() - t0
+    t0 = time.time()
+    res_1 = run_spmd(_dist_npb_rank, 1, (ip, ix, dv), DIST_NPB_CLASS, backend="nccl",
+                     device=DEVICE)
+    walls["npb_rank_1"] = time.time() - t0
+    del ip, ix, dv
+    npb = {}
+    for n, backend, rows in ((DIST_RANKS, "gloo", [r["npb"] for r in res]),
+                             (1, "nccl", res_1)):
+        if not same_bits([r["zetas"] for r in rows]):
+            raise AssertionError(f"NPB on {n} ranks: the ranks' zeta histories differ")
+        r = dict(rows[0])
+        zetas = r.pop("zetas")
+        hist = zetas[0].astype(np.float64) + zetas[1].astype(np.float64)
+        rel = abs(hist[-1] - cls.zeta_verify) / cls.zeta_verify
+        if not rel <= 1e-10:
+            raise AssertionError(f"NPB on {n} ranks ({backend}): zeta rel err {rel:.3e}")
+        npb[n] = {**r, "ranks": n, "zeta": float(hist[-1]), "zeta_rel_err": rel,
+                  "time_s_max_rank": max(q["time_s"] for q in rows), "hist": hist}
+        emit({"phase": "dist_npb", "class": DIST_NPB_CLASS, "dtype": "df64",
+              "plan": "DistSpmvPlan",
+              **{k: v for k, v in npb[n].items() if k != "hist"}})
+    d = _dist_rel(npb[DIST_RANKS].pop("hist"), npb[1].pop("hist"))
+    if d > DIST_ZETA_HIST_TOL:
+        raise AssertionError(f"NPB zeta history, 4 ranks against 1: {d:.3e}")
+    out["npb"] = {"class": DIST_NPB_CLASS, "zeta_hist_4_vs_1": d,
+                  **{f"ranks_{n}": v for n, v in npb.items()}}
+    t0 = time.time()
+    ref = _dist_single_card(stencil, rcrs, xs, xr)
+    walls["single_card"] = time.time() - t0
+    r0 = res[0]
+    for name in ("halo_f64", "halo_routed_df64", "routed_f32", "hier_df64", "bicg"):
+        keys = ("x", "its", "hist", "rnorm") if name == "bicg" else ("y", "cg_x", "cg_it")
+        if not same_bits([[r[name].get(k) for k in keys] for r in res]):
+            raise AssertionError(f"dist {name}: the ranks' results differ")
+    if r0["halo_dist_ks"] != (1, 3):
+        raise AssertionError(f"stencil halo: kept ring distances {r0['halo_dist_ks']}")
+    runs = {}
+    for name in ("halo_f64", "halo_routed_df64", "routed_f32", "hier_df64"):
+        dtype = name.rsplit("_", 1)[1]
+        got, want = r0[name], ref[name]
+        row = {"matvec_rel_err": _dist_rel(got["y"], want["y"])}
+        if row["matvec_rel_err"] > DIST_MATVEC_TOL[dtype]:
+            raise AssertionError(f"dist {name} matvec: {row['matvec_rel_err']:.3e}")
+        if "cg_x" in got:
+            row["cg_rel_err"] = _dist_rel(got["cg_x"], want["cg_x"])
+            row["cg_it"] = (got["cg_it"], want["cg_it"])
+            if row["cg_rel_err"] > DIST_CG_TOL[dtype] or got["cg_it"] != want["cg_it"]:
+                raise AssertionError(f"dist {name} CG: {row}")
+            row["cg_s"] = max(r[name]["cg_s"] for r in res)
+        row.update({k: got[k] for k in ("build_s", "first_matvec_s", "matvec_ms",
+                                        "collective_ms", "collective_share",
+                                        "collective_bytes", "launches")})
+        runs[name] = row
+    gb, wb = r0["bicg"], ref["bicg"]
+    bicg = {"its": (gb["its"], wb["its"]), "s": max(r["bicg"]["s"] for r in res),
+            "hist_rel_first": _hist_rel(gb["hist"], wb["hist"], SB_HIST_FIRST),
+            "rnorm": (gb["rnorm"], wb["rnorm"]), "hist_last": (float(gb["hist"][-1]),
+                                                               float(wb["hist"][-1]))}
+    if bicg["hist_rel_first"] > SB_HIST_TOL or gb["its"] != wb["its"] \
+            or not np.isfinite(gb["x"]).all():
+        raise AssertionError(f"dist BiCG against the single card: {bicg}")
+    runs["bicg_df64"] = bicg
+    launches = dict.fromkeys(DIST_KERNELS, 0)
+    for r in res:
+        for k, v in r["launches"].items():
+            launches[k] += v
+    _add_launches(kernels, "launches_dist", [launches])
+    census = r0["hier_plan"]["pass_census"]
+    need = ["routed_apply", "routed_apply_sliced", "butterfly_apply", "window_shift_apply"]
+    if census.get("bigshift"):
+        need.append("bigshift_apply")
+    if any(launches[k] <= 0 for k in need):
+        raise AssertionError(f"dist: a kernel of the path was not launched: {launches}")
+    out.update(runs=runs, launches=launches, hier_plan=r0["hier_plan"],
+               halo_routed_table=r0["halo_routed_table"], routed_table=r0["routed_table"],
+               halo={"dist_ks": r0["halo_dist_ks"], "halos": r0["halo_halos"]})
+    emit({"phase": "dist_plans", "ranks": DIST_RANKS, "transport": r0["transport"],
+          "stencil_n": stencil[3][0], "rcrs_n": rcrs[3][0],
+          "rcrs_nnz": len(rcrs[1]), **{k: out[k] for k in (
+              "runs", "launches", "hier_plan", "halo_routed_table", "routed_table", "halo")},
+          "kernels_bit_identical_to_plain": True})
+    del ref, res
+    torch.cuda.empty_cache()
+
+    t0 = time.time()
+    out["weak_scaling"] = bm.weak_scaling(65536, 16.0, [1, 2, DIST_RANKS], 30, "f32", DEVICE)
+    walls["weak_scaling"] = time.time() - t0
+    tails = [r["tail"] for r in out["weak_scaling"]]
+    if "ranks share one card" not in tails[-1] or out["weak_scaling"][-1]["transport"] != "host":
+        raise AssertionError(f"weak-scaling: {out['weak_scaling']}")
+    out["walls_s"] = {k: round(v, 1) for k, v in walls.items()}
+    out["wall_s"] = round(time.time() - t_phase, 1)
+    emit({k: v for k, v in out.items() if k not in ("runs", "hier_plan", "halo_routed_table",
+                                                    "routed_table", "halo")})
+    return out
+
+
 PARTS = {"hier", "inner", "inner_diag", "window", "window_diag", "window_bt_diag", "k11",
          "tiles", "c", "d", "gemm", "gemm_diag", "parboil", "exchange_diag", "cg", "scan",
-         "sparsebench", "sb_profile", "graphs", "graph_profile", "pathsample", "tools"}
+         "sparsebench", "sb_profile", "graphs", "graph_profile", "pathsample", "tools",
+         "dist"}
 
 
 def main(argv) -> int:
@@ -4283,6 +4697,8 @@ def main(argv) -> int:
         phase_pathsample()
     if "tools" in only:
         phase_tools(kernels)
+    if "dist" in only:
+        phase_dist(kernels)
     if "scan" in only:
         from lilac_tpu_torch.kernels import routed_spmv as rs
         from lilac_tpu_torch.workloads import npb_cg
@@ -4348,12 +4764,14 @@ def main(argv) -> int:
     line_d, res_d = phase_main_path_d(kernels, plan_d)
     del plan_d
     torch.cuda.empty_cache()
-    phase_plan_mode_d(kernels, res_d)
+    # class D's plan mode (a second 56-59 s plan build, 3 steps) runs in the
+    # partial run "d" only: cut to keep the whole run inside its time limit
     phase_npb_scan(res_d, line_d["plan_bytes_on_card"], d_build_s)
     phase_sparsebench(kernels)
     phase_graphs(kernels)
     phase_pathsample()
     phase_tools(kernels)
+    phase_dist(kernels)
 
     names = ["routed_apply", "dfmulred"] + [
         PASS_FNS[k][i] for i in (0, 1) for k in PASS_FNS] + ADJ_NAMES + [

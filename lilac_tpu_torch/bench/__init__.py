@@ -119,6 +119,29 @@ BENCHES: Dict[str, Callable[[str, str], float]] = {
 }
 
 
+def weak_scaling_rank(mesh, indptr, indices, data, shape, dtype: str, reps: int) -> dict:
+    """One rank of `bench weak-scaling` (run by parallel.launch.run_spmd):
+    a DistSpmvPlan of the matrix, one warm matvec, then `reps` chained
+    matvecs timed to the synchronised end. Returns the seconds a matvec and
+    the seconds of it this rank spent in the transport's collectives."""
+    import time
+
+    from lilac_tpu_torch.parallel.dist import DistSpmvPlan
+    from lilac_tpu_torch.utils.profiling import synchronize
+
+    plan = DistSpmvPlan.build(indptr, indices, data, shape, mesh, dtype=dtype)
+    y = plan.vec_in(np.random.default_rng(0).normal(size=shape[1]))
+    y = plan.local_matvec(plan.a_arrays, y)
+    synchronize(mesh.device)
+    mesh.reset_stats()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        y = plan.local_matvec(plan.a_arrays, y)  # chained: the reps serialise
+    synchronize(mesh.device)
+    t = (time.perf_counter() - t0) / reps
+    return {"s": t, "collective_s": mesh.seconds / reps, "transport": mesh.transport}
+
+
 def run_bench(
     bench: str, size: str, impl: str = "auto", *, platform: str = "gpu", runs: int = 5
 ) -> BenchRow:

@@ -15,10 +15,9 @@ card; those added with the tooling that touch a device take --device
 * spgemm             C = A·B on the host, by ESC on the card, and densified;
 * ingest             a graph file at scale: read -> plan -> PageRank;
 * autotune-collect / autotune-train  the selector's corpus rows on the card
-                     (resumable) and its training with the ship gate.
-
-`weak-scaling` needs the distributed plans (ROADMAP.md Queue 1 item 9) and
-raises until they are ported."""
+                     (resumable) and its training with the ship gate;
+* weak-scaling       chained DistSpmvPlan matvecs on 1, 2, 4, ... ranks of a
+                     problem that grows with the rank count: Mnnz/s a rank."""
 
 from __future__ import annotations
 
@@ -140,9 +139,9 @@ def main(argv=None):
     elif args.cmd == "spgemm":
         spgemm([int(s) for s in args.sizes.split(",")], args.mean_nnz, args.device)
     elif args.cmd == "weak-scaling":
-        raise NotImplementedError(
-            "weak-scaling is not ported: it needs the distributed plans, "
-            "ROADMAP.md Queue 1 item 9")
+        weak_scaling(args.per_dev_n, args.mean_nnz,
+                     [int(d) for d in args.devices.split(",")], args.reps, args.dtype,
+                     args.device)
     elif args.cmd == "ingest":
         ingest(args.n, args.avg_deg, args.format, args.kernel, args.iters, args.device)
     elif args.cmd == "autotune-collect":
@@ -181,6 +180,52 @@ def graph_scale(args) -> None:
             print(f"  pagerank n={args.n} nnz={nnz} kernel={kernel:12s}"
                   f" {t:7.3f} s/run  {args.iters * nnz / t / 1e9:6.2f} Gnnz/s"
                   f"  err={r.error:.3e}")
+
+
+def weak_scaling(per_dev_n: int, mean_nnz: float, counts, reps: int, dtype: str,
+                 device="cuda") -> list:
+    """The BASELINE weak-scaling protocol (>= 70% at >= 2 hosts): the
+    problem grows with the rank count (random_crs of side (per_dev_n *
+    ranks)^(1/3), fixed rows a rank), `reps` chained DistSpmvPlan matvecs,
+    Mnnz/s a rank against the first count's. Each count runs on a group of
+    its own: NCCL (transport "device") where every rank has a card of its
+    own, Gloo (transport "host") where ranks share one card or run on the
+    CPU; every line names it. An efficiency is printed only where it
+    means something: each rank on a card of its own and at least 1 000 000
+    entries a rank."""
+    from lilac_tpu_torch.generate.random_crs import random_crs
+    from lilac_tpu_torch.parallel.launch import run_spmd
+
+    on_card = torch.device(device).type == "cuda"
+    cards = torch.cuda.device_count() if on_card else 0
+    base_rate = None
+    rows = []
+    for nd in counts:
+        own_cards = on_card and nd <= cards
+        side = max(2, round((per_dev_n * nd) ** (1.0 / 3.0)))
+        indptr, indices, data, shape = random_crs(
+            side, seed=11, mean_nnz=mean_nnz, std_nnz=mean_nnz / 2.0)
+        res = run_spmd(bench.weak_scaling_rank, nd, indptr, indices, data, shape, dtype,
+                       reps, backend="nccl" if own_cards else "gloo", device=device)
+        t = max(r["s"] for r in res)  # the slowest rank's matvec
+        nnz = len(indices)
+        rate_dev = nnz / t / nd
+        if base_rate is None:
+            base_rate = rate_dev
+        if own_cards and nnz // nd >= 1_000_000:
+            tail = f"({rate_dev / base_rate:6.1%} weak-scaling efficiency)"
+        elif on_card and not own_cards:
+            tail = "(ranks share one card: rates are not weak scaling)"
+        else:
+            tail = "(path validated; rates not meaningful on this mesh)"
+        transport = res[0]["transport"]
+        print(f"  n_dev={nd} n={shape[0]:>9d} nnz={nnz:>10d} {t * 1e3:8.3f} ms  "
+              f"{rate_dev / 1e6:8.1f} Mnnz/s/dev transport={transport} {tail}", flush=True)
+        rows.append({"n_dev": nd, "n": shape[0], "nnz": nnz, "ms": t * 1e3,
+                     "mnnz_s_dev": rate_dev / 1e6, "transport": transport,
+                     "collective_ms": max(r["collective_s"] for r in res) * 1e3,
+                     "tail": tail})
+    return rows
 
 
 def devices(device="cuda") -> list:

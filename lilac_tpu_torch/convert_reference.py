@@ -23,6 +23,9 @@ from lilac_tpu_torch.kernels.routed_spmv import (
     pack_hier,
 )
 from lilac_tpu_torch.ops.dfloat import DF
+from lilac_tpu_torch.parallel.dist import DistSpmvPlan
+from lilac_tpu_torch.parallel.dist_routed import DistRoutedHierPlan, DistRoutedPlan
+from lilac_tpu_torch.parallel.halo import HaloSpmvPlan
 from lilac_tpu_torch.solvers.line_ilu import LineILU
 from lilac_tpu_torch.solvers.precond import ILU0
 from lilac_tpu_torch.solvers.tri import LevelSweep
@@ -200,3 +203,63 @@ def min_database_from_arrays(**fields) -> MinDatabase:
     if sorted(fields) != sorted(names):
         raise ValueError(f"MinDatabase fields {sorted(fields)} != {sorted(names)}")
     return MinDatabase(**{k: np.array(fields[k]) for k in names})
+
+
+# ---- the distributed plans (parallel/): the JAX plan's global arrays,
+# [ndev, ...] on the mesh axis, and one rank's mesh -> that rank's plan
+
+
+def dist_spmv_plan_from_arrays(data, indices, shape, n_pad, dtype, mesh) -> DistSpmvPlan:
+    """data [ndev, rps, K] (or [..., 2] for df64), indices [ndev, rps, K]."""
+    r, dev = mesh.rank, mesh.device
+    return DistSpmvPlan(mesh=mesh, data=_t(data[r], dev),
+                        indices=_t(indices[r], dev, torch.int64),
+                        shape=tuple(int(v) for v in shape), n_pad=int(n_pad),
+                        rps=int(np.shape(data)[1]), dtype=str(dtype))
+
+
+def halo_plan_from_arrays(data, indices, send_tbls, dist_ks, halos, shape, n_pad,
+                          rps, dtype, mesh) -> HaloSpmvPlan:
+    """data / indices [ndev, rps, K]; send_tbls: per kept distance [ndev, H_k]."""
+    r, dev = mesh.rank, mesh.device
+    return HaloSpmvPlan(
+        mesh=mesh, data=_t(data[r], dev), indices=_t(indices[r], dev, torch.int64),
+        send_tbls=tuple(_t(t[r], dev, torch.int64) for t in send_tbls),
+        dist_ks=_detuple(tuple(dist_ks)), halos=_detuple(tuple(halos)),
+        shape=tuple(int(v) for v in shape), n_pad=int(n_pad), rps=int(rps),
+        dtype=str(dtype))
+
+
+def _inv(inv_perm, r, dev):
+    return None if inv_perm is None else _t(inv_perm[r], dev, torch.int64)
+
+
+def dist_routed_plan_from_arrays(masks, vals, inv_perm, kinds, dists, chunks, shape,
+                                 n_pad, m, rps, dtype, mesh) -> DistRoutedPlan:
+    """masks [ndev, B, P, R, 128] int8, vals [ndev, B, m(, 2)], inv_perm
+    [ndev, rps] or None."""
+    r, dev = mesh.rank, mesh.device
+    return DistRoutedPlan(
+        mesh=mesh, masks=_t(masks[r], dev, torch.int8), vals=_t(vals[r], dev),
+        inv_perm=_inv(inv_perm, r, dev), kinds=tuple(str(k) for k in kinds),
+        dists=tuple(int(d) for d in dists), chunks=_detuple(tuple(chunks)),
+        shape=tuple(int(v) for v in shape), n_pad=int(n_pad), m=int(m), rps=int(rps),
+        dtype=str(dtype))
+
+
+def dist_routed_hier_plan_from_arrays(flat_masks, net_meta, vals, inv_perm, chunks, shape,
+                                      n_pad, m, rps, bl, dtype, mesh) -> DistRoutedHierPlan:
+    """flat_masks: every net's pass masks in order, each [ndev, ...];
+    net_meta[b]: net b's static pass descriptors."""
+    r, dev = mesh.rank, mesh.device
+    net_meta = _detuple(tuple(net_meta))
+    nets, off = [], 0
+    for meta_b in net_meta:
+        nets.append(tuple(meta + (_t(flat_masks[off + j][r], dev),)
+                          for j, meta in enumerate(meta_b)))
+        off += len(meta_b)
+    return DistRoutedHierPlan(
+        mesh=mesh, nets=tuple(nets), vals=_t(vals[r], dev),
+        inv_perm=_inv(inv_perm, r, dev), chunks=_detuple(tuple(chunks)),
+        shape=tuple(int(v) for v in shape), n_pad=int(n_pad), m=int(m), rps=int(rps),
+        bl=int(bl), dtype=str(dtype))

@@ -86,9 +86,21 @@ def test_spgemm_cli(capsys):
             r"  struct_match=True  masked-dense +[0-9.]+s", line), line
 
 
-def test_weak_scaling_names_item_9():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tmain.main(["weak-scaling", "--device", CPU])
+def test_weak_scaling_runs_on_cpu_ranks(capsys):
+    """weak-scaling --devices 1,2 on Gloo CPU ranks: one line a count, each
+    naming the host transport, with the "path validated" tail and never a
+    percentage (tests/test_dist.py's weak harness test asks the same of the
+    JAX package)."""
+    assert tmain.main(["weak-scaling", "--device", CPU, "--per-dev-n", "1000",
+                       "--devices", "1,2", "--reps", "2"]) == 0
+    out = capsys.readouterr().out
+    lines = out.splitlines()
+    assert len(lines) == 2
+    for line, nd in zip(lines, (1, 2)):
+        assert re.fullmatch(
+            rf"  n_dev={nd} n= +\d+ nnz= +\d+ +[0-9.]+ ms +[0-9.]+ Mnnz/s/dev "
+            r"transport=host \(path validated; rates not meaningful on this mesh\)", line), line
+    assert "%" not in out and "weak-scaling efficiency" not in out
 
 
 def test_devices_and_marshall(capsys):
