@@ -26,7 +26,11 @@ proves on the card that
 * a general sparse matrix (unsorted rows, a column dense enough to need
   block-aligned shifts) multiplies right through the hierarchical plans,
   packed (kernels K3-K6) and net by net (their un-batched forms K3u-K6u),
-  and its transpose through the same plans in reverse (kernels K7-K10),
+  and its transpose through the same plans in reverse (kernels K7-K10);
+  the same matrix through column-segmented routing (two segments of 2^18
+  columns, K1 on each, bit for bit against its plain version and timed;
+  K2 in df64) in f32 and df64 against the gather plan, and its plan file
+  saved and loaded back,
 * a whole reversed schedule is the transpose of the gather it encodes
   (index_add_ on the composed index, in f64) and <G x, u> = <x, G^T u>,
 * NPB class S verifies in f32 / f64 / df64 through both operators, class C
@@ -35,7 +39,11 @@ proves on the card that
   each path launched on that run; class C also runs a few outer steps in
   the other factored_vt mode (adj, which launches K11) and the two zeta
   histories agree to 1e-12 (class D's other mode, plan with two forward
-  plans, runs in the partial run "d"),
+  plans, runs in the partial run "d"); class D also runs 3 outer steps in
+  the mixed layout (factored_segmode=mixed: V from the plan file the adj
+  run wrote, loaded and not rebuilt, V^T as the jagged-diagonal JagELLT
+  gather) with its zeta and rnorm histories held to the adj run's first 3,
+  and classes S and W verify in it,
 * cg_solve (CG to rtol = 1e-10) on class C's matrix, through the factored
   routed plan in df64 (K1, K2) and through SpmvPlan's xla_ell in f64,
   stops before maxit with ||b - A x|| / ||b|| <= 10 rtol (scipy, f64),
@@ -87,8 +95,11 @@ proves on the card that
   1.05 of its matvec; marshall, devices and config; ingest at n = 1 000 000
   read back bit for bit with PageRank's x equal to the in-memory run's; a
   budgeted autotune collection whose rows name the card, its model and the
-  selection it makes; a class A df64 solve restarted from its checkpoint
-  bit for bit (K1, K2); bench_npb's fingerprint,
+  selection it makes; the package's committed rows and model (trained again
+  from the rows to the same weights and meta, served on this card exactly
+  when its meta names it and its ship gate holds) and the label it gives
+  each f32 `auto` path of this script; a class A df64 solve restarted from
+  its checkpoint bit for bit (K1, K2); bench_npb's fingerprint,
 * distribution (phase dist, lilac_tpu_torch.parallel): dryrun_multichip on
   1 rank under NCCL and on 4 ranks sharing the card through the host
   transport (Gloo); NPB class B df64 through DistSpmvPlan verified on 4
@@ -117,7 +128,9 @@ schedules at m = 2^16 and timed at the main paths' shapes, "window" = K5,
 K5u and K9 at every span, bit for bit, "c" = K1, K2, K11 on the class C plan,
 "d" = the class D plan, its kernels and its runs, "gemm" = K12 and sgemm,
 "parboil" = Parboil spmv, "cg" = cg_solve on class C, "scan" = the scan
-layout (class D against 3 steps of adj), "sparsebench" = the SparseBench
+layout (class D against 3 steps of adj), "mixed" = the mixed layout
+(classes S and W, then class D against 3 steps of adj), "seg" = the
+general matrix through column-segmented routing, "sparsebench" = the SparseBench
 phase, "graphs" = PageRank and BFS, "pathsample" = PATHSAMPLE, "tools" =
 the tooling phase, "dist" = the distribution phase; opt-in,
 never in the whole run: "graph_profile" = torch.profiler over 1 and 10
@@ -1931,6 +1944,145 @@ def phase_hier_general(kernels: dict, n: int = 400_000, bl: int | None = None) -
     return line
 
 
+SEG_SIZE_GENERAL = 1 << 18  # two segments of the 400 000-column matrix
+# a product against the gather plan's, over sum |a x| a row: f32 sums of up
+# to 11 terms and a segment add in another order; df64 as the other layouts
+SEG_TOL = {"f32": 1e-5, "df64": 4e-14}
+
+
+def _k1_segment(rd, M, s: int, rng, kernels_row: dict | None) -> dict:
+    """K1 on segment s's own tables: one random plane per word of the plan,
+    bit for bit against routed_apply_plain; with `kernels_row`, timed beside
+    its byte bound and x[idx] on the index the segment's networks compose."""
+    m, masks, kinds, dists = M.m, M.masks[s], M.kinds[s], M.dists[s]
+    B, P = masks.shape[0], masks.shape[1]
+    nplanes = 2 if M.vals[s].dim() == 3 else 1
+    planes = [_f32_plane(rng, m, m) for _ in range(nplanes)]
+    got = rd.routed_apply(planes, masks, kinds, dists)
+    torch.cuda.synchronize()
+    want = rd.routed_apply_plain(planes, masks, kinds, dists)
+    if not all(_bits_equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"segment {s}: routed_apply != routed_apply_plain "
+                             f"{_bits_diff(got, want)}")
+    out = {"segment": s, "m": m, "nets": B, "stages": len(kinds), "planes": nplanes,
+           "bit_identical_to_plain": True}
+    if kernels_row is None:
+        return out
+    iota = torch.arange(m, dtype=torch.float32, device=DEVICE).view(m // 128, 128)
+    (routed_iota,) = rd.routed_apply([iota], masks, kinds, dists)
+    gidx = routed_iota.view(B, m).to(torch.int64)
+    flat = [p.view(m) for p in planes]
+    if not all(torch.equal(o.view(B, m), f[gidx]) for o, f in zip(got, flat)):
+        raise AssertionError(f"segment {s}: the network differs from its composed gather")
+    nbytes = nplanes * m * 4 + B * P * m + nplanes * B * m * 4
+    out.update(
+        ms=time_ms(lambda: rd.routed_apply(planes, masks, kinds, dists), 20),
+        plain_ms=time_ms(lambda: rd.routed_apply_plain(planes, masks, kinds, dists), 2),
+        bound_ms=nbytes / PEAK_BYTES_S * 1e3, bytes=nbytes,
+        library_ms=time_ms(lambda: [f[gidx] for f in flat], 20))
+    kernels_row.setdefault("seg_general", []).append(
+        {k: out[k] for k in ("segment", "m", "nets", "stages", "planes", "ms",
+                             "plain_ms", "bound_ms", "bytes", "library_ms")})
+    return out
+
+
+def phase_seg_general(kernels: dict, n: int = 400_000) -> dict:
+    """The general matrix of phase_hier_general (canonical: columns sorted
+    within each row) through column-segmented routing, build_routed_csr_seg
+    at seg_size 2^18 (two segments), in f32 and df64: every segment's K1
+    bit for bit against its plain version on that segment's tables (the
+    df64 plan's timed beside its bound and x[idx]), the product (K1 a
+    segment, K2 a segment in df64, counts set to 0 before and read after)
+    against the gather plan's (xla_sell / xla_sell_df) to SEG_TOL of
+    sum |a x| a row, and one save / load round trip of the plan file giving
+    the same product bit for bit."""
+    import scipy.sparse as sp
+
+    from lilac_tpu_torch.config import cfg
+    from lilac_tpu_torch.formats import convert as tconv
+    from lilac_tpu_torch.kernels import dfmulred as dfk
+    from lilac_tpu_torch.kernels import routed as rd
+    from lilac_tpu_torch.kernels import routed_spmv as rs
+    from lilac_tpu_torch.ops import dfloat as df
+    from lilac_tpu_torch.plan import SpmvPlan
+    from lilac_tpu_torch.utils.profiling import tensor_bytes
+
+    t_phase = time.time()
+    k1_row = kernels.setdefault("routed_apply", {"name": "routed_apply"})
+    k2_row = kernels.setdefault("dfmulred", {"name": "dfmulred"})
+    rng = np.random.default_rng(23)
+    indptr, indices, data = _general_matrix(rng, n)
+    rows = np.repeat(np.arange(n), np.diff(indptr))
+    ip, ix, vv = tconv.coo_to_csr_arrays(rows, indices, data, (n, n), sum_duplicates=False)
+    A = sp.csr_matrix((vv.copy(), ix.copy(), ip.copy()), shape=(n, n))
+    x = rng.standard_normal(n)
+    scale = abs(A) @ np.abs(x)
+    line = {"phase": "seg_general", "n": n, "nnz": int(ip[-1]),
+            "seg_size": SEG_SIZE_GENERAL, "runs": []}
+    ddir = cfg().resolved_data_dir()
+    os.makedirs(ddir, exist_ok=True)
+    for dtype in ("f32", "df64"):
+        t0 = time.time()
+        M = rs.build_routed_csr_seg(ip, ix, vv, (n, n), dtype=dtype,
+                                    seg_size=SEG_SIZE_GENERAL, device=DEVICE)
+        build_s = time.time() - t0
+        nseg = len(M.masks)
+        if nseg != 2:
+            raise AssertionError(f"seg plan of {nseg} segments, 2 expected")
+        k1_rows = [_k1_segment(rd, M, s, rng, k1_row if dtype == "df64" else None)
+                   for s in range(nseg)]
+        if dtype == "df64":
+            xin = df.from_f64(x, device=DEVICE)
+
+            def product(P):
+                return df.to_f64(rs.routed_seg_spmv_df(P, xin))
+        else:
+            xin = torch.as_tensor(x.astype(np.float32), device=DEVICE)
+
+            def product(P):
+                return rs.routed_seg_spmv(P, xin).double().cpu().numpy()
+        _reset_hier_counts(rd, dfk)
+        got = product(M)
+        torch.cuda.synchronize()
+        counts = {"routed_apply": rd.routed_apply.launches,
+                  "dfmulred": dfk.dfmulred.launches}
+        gplan = SpmvPlan(ip, ix, vv, (n, n), dtype=dtype,
+                         kernel="xla_sell_df" if dtype == "df64" else "xla_sell",
+                         device=DEVICE)
+        want = gplan.vec_out(gplan.matvec(gplan.vec_in(x)))
+        err = float((np.abs(got - want) / scale).max())
+        path = os.path.join(ddir, f"seg_general_{dtype}.npz")
+        t0 = time.time()
+        rs.save_routed(path, M)
+        L = rs.load_routed(path, device=DEVICE)
+        io_s = time.time() - t0
+        os.remove(path)
+        same = np.array_equal(product(L), got)
+        run = {"dtype": dtype, "build_s": round(build_s, 2), "segments": nseg,
+               "nets": [mk.shape[0] for mk in M.masks],
+               "stages": [len(k) for k in M.kinds],
+               "bytes_on_card": tensor_bytes(M),
+               "k1_segments": k1_rows, "launches": counts,
+               "max_err_over_sum_abs_vs_gather": err, "tol": SEG_TOL[dtype],
+               "gather_kernel": gplan.kernel,
+               "ms": time_ms(lambda: product(M), 5),
+               "gather_ms": time_ms(lambda: gplan.matvec(gplan.vec_in(x)), 5),
+               "save_load_s": round(io_s, 2), "reloaded_bit_identical": same}
+        line["runs"].append(run)
+        if got.shape != (n,) or not np.isfinite(got).all() or err > SEG_TOL[dtype] \
+                or not same or counts["routed_apply"] != nseg \
+                or counts["dfmulred"] != (nseg if dtype == "df64" else 0):
+            raise AssertionError(f"seg general {dtype}: {run}")
+        k1_row[f"launches_seg_{dtype}"] = counts["routed_apply"]
+        if dtype == "df64":
+            k2_row["launches_seg_df64"] = counts["dfmulred"]
+        del M, L, gplan
+        torch.cuda.empty_cache()
+    line["wall_s"] = round(time.time() - t_phase, 1)
+    emit(line)
+    return line
+
+
 def phase_hier_class_d(plan_d, kernels: dict) -> dict:
     """K3, K4, K5 (and K6 where the plan has such a pass) at class D's own
     shapes: the largest packed group of the V plan, every pass of its
@@ -2170,7 +2322,9 @@ def phase_gemm(kernels: dict) -> dict:
     bits. Timed at n = 4096: K12 (split + GEMM), the GEMM and the split
     alone, beside the plain version and torch.matmul with TF32 off, with
     the launch configuration. Then sgemm.run_arrays at n = 4096 through the
-    entry point, launch count set to 0 just before and read just after."""
+    entry point, launch count set to 0 just before and read just after, and
+    again with the reference's kernel name "pallas": K12 again, the same
+    bits."""
     from lilac_tpu_torch.kernels import gemm
     from lilac_tpu_torch.workloads import sgemm
 
@@ -2225,6 +2379,14 @@ def phase_gemm(kernels: dict) -> dict:
                             torch.as_tensor(C, device=DEVICE), "sgemm.run_arrays")
     timed["launches"] = launches
     timed["launches_on"] = "sgemm.run_arrays, n = 4096 (a warm-up and 4 chained repetitions)"
+    # the reference's name of its hand kernel (its default) runs K12 too
+    gemm.matmul_nt.launches = 0
+    C_ref_name, res_ref_name = sgemm.run_arrays(A, BT, kernel="pallas", device=DEVICE)
+    timed["launches_pallas_name"] = gemm.matmul_nt.launches
+    if res_ref_name.kernel != "cuda" or timed["launches_pallas_name"] != 5 \
+            or not np.array_equal(C_ref_name.view(np.uint32), C.view(np.uint32)):
+        raise AssertionError(f"sgemm.run_arrays(kernel='pallas'): {res_ref_name.kernel}, "
+                             f"{timed['launches_pallas_name']} K12 launches")
     kernels["matmul_nt"] = timed
     line = {"phase": "gemm", "kinds": list(GEMM_KINDS),
             "max_err_over_bound": {kind: max(r["max_err_over_bound"] for r in rows)
@@ -2355,6 +2517,33 @@ def phase_gemm_diag() -> dict:
 PARBOIL_ROWS = 146_689
 
 
+# the plain-float `auto` plans of this script past SpmvPlan's reuse rule
+# (path, the kernel taken, row stats), noted where each runs; phase tools
+# prints the committed model's label for each
+AUTO_PATHS: list = []
+
+# the kernel each of those paths must take, written down per card. On the
+# card the committed model names (lilac_tpu_torch/autotune/model.json), the
+# model serves inside its corpus (rows_h100.jsonl: at most 250 000 rows and
+# 13.0 M entries): Parboil's 146 689 rows of spread lengths take xla_csr, as
+# every random-CRS and bimodal row of 1.6 to 3.9 M entries there does. The
+# 1M-node graphs lie beyond the corpus, so the heuristic serves them
+# (bucketed ELL: rows spread), as xla_sell won the corpus's largest
+# power-law graphs (150 000 nodes, 16 a row). On any other card the
+# heuristic serves every path.
+AUTO_HEURISTIC = {"parboil spmv": "xla_sell", "pagerank 1M": "xla_sell",
+                  "bfs 1M": "xla_sell"}
+AUTO_EXPECTED = {"NVIDIA H100 80GB HBM3": {**AUTO_HEURISTIC, "parboil spmv": "xla_csr"}}
+
+
+def _note_auto(what: str, plan) -> None:
+    want = AUTO_EXPECTED.get(torch.cuda.get_device_name(0), AUTO_HEURISTIC)[what]
+    AUTO_PATHS.append({"path": what, "kernel": plan.kernel, "dtype": plan.dtype,
+                       "row_stats": dict(plan.row_stats)})
+    if plan.kernel != want:
+        raise AssertionError(f"{what}: auto took {plan.kernel}, this card's is {want}")
+
+
 def _write_parboil_inputs(root: str, rng):
     """A symmetric MatrixMarket file at Dubcova3's scale with unequal row
     lengths (1% of the rows about eight times as long as the rest), an f32
@@ -2434,7 +2623,8 @@ def phase_parboil(kernels: dict) -> dict:
         if res.matched is not True or res.rows != PARBOIL_ROWS:
             raise AssertionError(f"parboil spmv {kernel}: {run}")
         if kernel == "auto":
-            if res.kernel != "xla_sell" or k1 or k11:
+            _note_auto("parboil spmv", res.plan)
+            if not res.kernel.startswith("xla_") or k1 or k11:
                 raise AssertionError(f"parboil auto ran {res.kernel} ({k1} K1 launches)")
         else:
             if res.kernel != "routed" or k1 != 2 * res.reps or k11:
@@ -2522,6 +2712,7 @@ def phase_npb_small() -> list:
         a, b = zetas[("routed", dtype)], zetas[("single", dtype)]
         if abs(a - b) > 1e-11 * abs(b):
             raise AssertionError(f"class S {dtype}: routed {a} vs gather {b}")
+    lines += _mixed_small()
     # an assembled matrix through SpmvPlan and a registry kernel, as
     # `bench run --bench npb --impl <kernel>` runs it
     for kernel, dtype in (("xla_ell", "f64"), ("xla_sell_df", "df64")):
@@ -2531,6 +2722,21 @@ def phase_npb_small() -> list:
         if res.kernel != kernel or not res.verified or abs(res.zeta - b) > 1e-10 * abs(b):
             raise AssertionError(f"class S {kernel} {dtype}: {lines[-1]} vs factored {b}")
     emit({"phase": "npb_small", "runs": lines})
+    return lines
+
+
+def _mixed_small() -> list:
+    """Classes S and W in df64 through the mixed layout (V a hierarchical
+    plan, V^T the JagELLT gather), uncut and verified."""
+    from lilac_tpu_torch.workloads import npb_cg
+
+    lines = []
+    for cls in ("S", "W"):
+        res = _with_env({"LILAC_FACTORED_SEGMODE": "mixed"},
+                        lambda: npb_cg.run(cls, dtype="df64", device=DEVICE))
+        lines.append(_npb_line(res, segmode="mixed"))
+        if res.kernel != "factored_mixed_df" or not res.verified:
+            raise AssertionError(f"class {cls} mixed layout: {lines[-1]}")
     return lines
 
 
@@ -2831,6 +3037,7 @@ def phase_npb_scan(adj_res, adj_bytes: int, adj_build_s: float) -> dict:
                                  "adj": adj_res.time_s / adj_res.niter}}
     if V.nseg != 10 or VT.nseg != 10 or not rel.max() <= 1e-12:
         raise AssertionError(f"class D scan layout: {line['class_d']}")
+    line["class_d_zeta_history"] = res.zeta_history.tolist()
     del plan, V, VT
     torch.cuda.empty_cache()
     line["general_matrix"] = _general_layouts()
@@ -2890,6 +3097,121 @@ def phase_main_path_d(kernels: dict, plan_d):
     kernels["dfmulred"]["launches_class_d"] = k2_d
     kernels["dfmulred"]["launches"] += k2_d
     return line, res
+
+
+# class D in the mixed layout against adj's first outer steps: the zeta
+# history to 1e-12 relative (V's products are the same bits, V^T's df64 sums
+# run in another order, as in the scan layout): the zeta check is the one
+# that tells a right product from a wrong one. rnorm, the residual after 25
+# CG steps, sits at df64's rounding floor (1e-12 to 4e-14 at classes S and
+# W), where two orders of the same sums differ by 5 to 15% of it (gather,
+# mixed and routed layouts on the CPU); at class D it differed from adj's by
+# at most 1.5% (an H100 at 700 W), and is held to 0.1 relative
+MIXED_D_STEPS = 3
+MIXED_RNORM_TOL = 0.1
+
+
+def phase_mixed_d(kernels: dict, adj_res, adj_bytes: int, class_name: str = "D"):
+    """The mixed layout at class D (factored_segmode=mixed,
+    factored_vt=plan) through FactoredNPBPlan: V is the hierarchical plan
+    file the adj run just wrote, loaded and not rebuilt (the build function
+    is counted and the file's mtime read), V^T the JagELLT gather in df64.
+    3 outer steps with the counts set to 0 before and read after: K3-K5 and
+    K2 on V, no adjoint and no single-table kernel; the zeta and rnorm
+    histories held to the adj run's first 3. Returns (line, result)."""
+    from lilac_tpu_torch.config import cfg
+    from lilac_tpu_torch.formats.sparse import JagELLT
+    from lilac_tpu_torch.kernels import dfmulred as dfk
+    from lilac_tpu_torch.kernels import factored as fac
+    from lilac_tpu_torch.kernels import routed as rd
+    from lilac_tpu_torch.kernels import routed_spmv as rs
+    from lilac_tpu_torch.plan import FactoredNPBPlan
+    from lilac_tpu_torch.utils.profiling import tensor_bytes
+    from lilac_tpu_torch.workloads import npb_cg
+
+    env = {"LILAC_FACTORED_SEGMODE": "mixed", "LILAC_FACTORED_VT": "plan"}
+    path = os.path.join(cfg().resolved_data_dir(),
+                        f"routed2_{class_name}_df64_V{fac.plan_tag(cfg(), hier=True)}.npz")
+    if not os.path.exists(path):
+        raise AssertionError(f"class {class_name} mixed: no V plan file {path} from the "
+                             "adj run")
+    mtime = os.stat(path).st_mtime_ns
+    builds = []
+    build_hier = fac._build_hier_plan
+
+    def counted(*a, **k):
+        builds.append(a[0])
+        return build_hier(*a, **k)
+
+    fac._build_hier_plan = counted
+    t0 = time.time()
+    try:
+        plan = _with_env(env, lambda: FactoredNPBPlan(class_name, dtype="df64",
+                                                      device=DEVICE))
+    finally:
+        fac._build_hier_plan = build_hier
+    build_s = time.time() - t0
+    V, VT = plan.A.V, plan.A.VT
+    if builds or os.stat(path).st_mtime_ns != mtime:
+        raise AssertionError(f"class D mixed rebuilt V ({builds}) instead of loading {path}")
+    if plan.kernel != "factored_mixed_df" or plan.factored_vt != "plan" or not (
+            isinstance(V, rs.RoutedMatHierP) and isinstance(VT, JagELLT)):
+        raise AssertionError(f"class D mixed: {plan.kernel}, {type(V).__name__}, "
+                             f"{type(VT).__name__}")
+    v_bytes, vt_bytes = rs.plan_bytes(V), tensor_bytes(VT)
+    _reset_hier_counts(rd, dfk)
+    steps = min(MIXED_D_STEPS, adj_res.niter)
+    t0 = time.time()
+    res = npb_cg.run(class_name, dtype="df64", niter=steps, plan=plan)
+    wall = time.time() - t0
+    counts = _hier_counts(rd)
+    k2 = dfk.dfmulred.launches
+    matvecs = (res.niter + 1) * 26
+    zrel = np.abs(res.zeta_history - adj_res.zeta_history[:steps]) / np.abs(
+        adj_res.zeta_history[:steps])
+    rrel = np.abs(res.rnorm_history - adj_res.rnorm_history[:steps]) / np.abs(
+        adj_res.rnorm_history[:steps])
+    line = _npb_line(
+        res, phase="npb_mixed", wall_s=wall, build_s=round(build_s, 2),
+        v_loaded_from=os.path.basename(path), v_rebuilt=False, outer_steps=steps,
+        matvecs=matvecs, launches={k: v for k, v in counts.items() if v},
+        dfmulred_launches=k2,
+        routed_apply_launches=rd.routed_apply.launches,
+        jag_buckets=[[int(v.shape[0]), int(r)] for v, r in zip(VT.data_hi, VT.row_counts)],
+        bytes_on_card={"mixed": v_bytes + vt_bytes, "V": v_bytes, "JagELLT": vt_bytes,
+                       "adj": adj_bytes},
+        untraced_step_wall_s={"mixed": res.time_s / res.niter,
+                              "adj": adj_res.time_s / adj_res.niter},
+        zeta_history_max_rel_diff_vs_adj=float(zrel.max()), zeta_tol=1e-12,
+        rnorm_history_max_rel_diff_vs_adj=float(rrel.max()), rnorm_tol=MIXED_RNORM_TOL)
+    emit(line)
+    if not np.isfinite([*res.zeta_history, *res.rnorm_history]).all() \
+            or not zrel.max() <= 1e-12 or not rrel.max() <= MIXED_RNORM_TOL:
+        raise AssertionError(f"class D mixed disagrees with adj: {line}")
+    if rd.routed_apply.launches or any(counts[name] for name in ADJ_D) \
+            or any(counts[name] < matvecs for name in FWD_D) \
+            or k2 != len(V.groups) * matvecs:
+        raise AssertionError(f"class D mixed launches: {counts}, K2 {k2} on {matvecs} "
+                             f"matvecs ({len(V.groups)} groups)")
+    for name in FWD_D:
+        kernels.setdefault(name, {"name": name})["launches_mixed_d"] = counts[name]
+    kernels.setdefault("dfmulred", {"name": "dfmulred"})["launches_mixed_d"] = k2
+    del plan, V, VT
+    torch.cuda.empty_cache()
+    return line, res
+
+
+def _hold_to_gather(res, gather_hist, what: str, tol: float = 1e-12) -> float:
+    """A cut run's zeta history against the gather operator's (the scan
+    layout's) over their common outer steps, to `tol` relative."""
+    k = min(len(res.zeta_history), len(gather_hist))
+    rel = float((np.abs(res.zeta_history[:k] - gather_hist[:k])
+                 / np.abs(gather_hist[:k])).max())
+    emit({"phase": "vs_gather", "what": what, "outer_steps_compared": k,
+          "zeta_history_max_rel_diff": rel, "tol": tol})
+    if not rel <= tol:
+        raise AssertionError(f"{what}: {rel:.3e} from the gather operator")
+    return rel
 
 
 def phase_plan_mode_d(kernels: dict, adj_res) -> dict:
@@ -3687,6 +4009,7 @@ def phase_graphs(kernels: dict) -> dict:
     del r
     torch.cuda.empty_cache()
     r, line, counts = _pagerank_on_card(g, "auto", replica)
+    _note_auto("pagerank 1M", r.plan)
     if not r.plan.kernel.startswith("xla_") or any(counts.values()):
         raise AssertionError(f"pagerank 1M auto: {r.plan.kernel}, {counts}")
     big["pagerank_auto"] = line
@@ -3702,6 +4025,8 @@ def phase_graphs(kernels: dict) -> dict:
         routed = kernel == "routed"
         if routed and (r.plan.kernel != "routed_hier" or any(counts[k] <= 0 for k in FWD_HIER)):
             raise AssertionError(f"bfs 1M routed: {r.plan.kernel}, {counts}")
+        if not routed:
+            _note_auto("bfs 1M", r.plan)
         if not routed and (not r.plan.kernel.startswith("xla_") or any(counts.values())):
             raise AssertionError(f"bfs 1M auto: {r.plan.kernel}, {counts}")
         if routed:
@@ -3956,7 +4281,10 @@ def phase_pathsample() -> dict:
 TOOLS_SPGEMM_SIZES = (16, 24, 32, 48)
 TOOLS_ROOFLINE_SIZES = (20, 40, 60, 70)
 TOOLS_INGEST_N = 1_000_000
-TOOLS_AUTOTUNE_BUDGET_S = 40.0
+# the committed rows (lilac_tpu_torch/autotune/rows_h100.jsonl) cover the
+# corpus; the phase's own collection only exercises collect_rows, so it is
+# cut from 40 s to a few rows
+TOOLS_AUTOTUNE_BUDGET_S = 5.0
 TOOLS_AUTOTUNE_KERNELS = ("xla_ell", "xla_sell", "xla_csr", "routed")
 TOOLS_SHARE_MAX = 1.05  # an HBM share or a stage floor over its matvec
 
@@ -4112,7 +4440,8 @@ def _tools_ingest(ddir: str) -> dict:
                     reuse="many", device=DEVICE)
     r = pagerank.run(*g, iters=64, runs=1, plan=plan)
     if not np.array_equal(r.x.view(np.uint64), res["x"].view(np.uint64)):
-        raise AssertionError("ingest: PageRank's x differs from the in-memory run's")
+        raise AssertionError(f"ingest: PageRank's x differs from the in-memory run's "
+                             f"({res['kernel']})")
     return {k: res[k] for k in ("write_s", "read_s", "plan_s", "solve_s", "kernel",
                                 "error")} | {"nnz": len(g[1]), "x_bit_identical": True}
 
@@ -4169,21 +4498,70 @@ def _tools_autotune(kernels: dict, rd, dfk, ddir: str) -> dict:
         autotune._cached_model = autotune._cached_path = None
         try:
             plan = SpmvPlan(ip, ix, dv, sh, dtype="f32", reuse="once", device=DEVICE)
-            return (plan.kernel, autotune.installed_model() is not None,
-                    autotune.predict(sh[0], len(ix), float(cnt.mean()), float(cnt.std())))
+            return (plan.kernel, autotune.installed_model(DEVICE) is not None,
+                    autotune.predict(sh[0], len(ix), float(cnt.mean()), float(cnt.std()),
+                                     device=DEVICE))
         finally:
             autotune._cached_model = autotune._cached_path = None
 
     got, installed, label = _with_env({"LILAC_AUTOTUNE_MODEL": model_path}, select)
     spread = cnt.max() > 1.5 * max(cnt.mean(), 1.0) + 4
     heuristic = "xla_sell" if spread else "xla_ell"
-    if installed != meta["gated_ok"] or got != (label if installed else heuristic):
+    # predict is None beyond the collected rows' extent: the heuristic serves
+    if installed != meta["gated_ok"] or got != (label or heuristic):
         raise AssertionError(f"autotune selection: {got}, installed {installed}, "
                              f"label {label}, gated_ok {meta['gated_ok']}")
     return {"rows": len(rows), "collect_s": round(collect_s, 1),
             "winners_by_family": winners, "selected": got, "gated_ok": meta["gated_ok"],
             **{k: meta[k] for k in ("test_accuracy", "majority_accuracy",
                                     "heuristic_accuracy", "label_counts")}}
+
+
+def _tools_committed_model(ddir: str) -> dict:
+    """The package's committed rows and model: every row names one card,
+    build_model_v2 on the rows gives the committed weights (to 1e-12
+    relative: another machine's numpy) and the same meta, installed_model
+    serves it on this card exactly when its meta names this card and its
+    ship gate holds; for each f32 `auto` path noted so far (each took this
+    card's AUTO_EXPECTED kernel), the model's label (None beyond its
+    corpus) and the heuristic's."""
+    from lilac_tpu_torch import autotune
+
+    if os.environ.get("LILAC_AUTOTUNE_MODEL"):
+        raise AssertionError("LILAC_AUTOTUNE_MODEL is set: the committed model is not asked")
+    card = torch.cuda.get_device_name(0)
+    rows = autotune._read_rows(autotune.DEFAULT_ROWS_PATH)
+    with open(autotune.DEFAULT_MODEL_PATH) as f:
+        committed = json.load(f)
+    meta = committed["meta"]
+    again = os.path.join(ddir, "model_again.json")
+    autotune.build_model_v2(autotune.DEFAULT_ROWS_PATH, again, verbose=False)
+    with open(again) as f:
+        rebuilt = json.load(f)
+    os.remove(again)
+    same_weights = all(np.allclose(rebuilt[k], committed[k], rtol=1e-12, atol=1e-12)
+                       for k in ("mean", "scale", "W", "b"))
+    autotune._cached_model = autotune._cached_path = None
+    served = autotune.installed_model(DEVICE) is not None
+    serves = bool(meta["gated_ok"]) and meta["device"] == card
+    labels = []
+    for p in AUTO_PATHS:
+        st = p["row_stats"]
+        spread = st["max_row"] > 1.5 * max(st["mean_row"], 1.0) + 4
+        labels.append({"path": p["path"], "dtype": p["dtype"], "kernel": p["kernel"],
+                       "model_label": autotune.predict(
+                           st["nrows"], st["nnz"], st["mean_row"], st["std_row"],
+                           device=DEVICE),
+                       "heuristic": "xla_sell" if spread else "xla_ell"})
+    out = {"rows": len(rows), "row_devices": sorted({r["device"] for r in rows}),
+           "meta": meta, "rebuilt_same_weights": same_weights,
+           "rebuilt_same_meta": rebuilt["meta"] == meta, "card": card,
+           "served_here": served, "auto_paths": labels}
+    if {r["device"] for r in rows} != {meta["device"]} or len(rows) != meta["corpus_rows"] \
+            or not same_weights or rebuilt["meta"] != meta or served != serves \
+            or rebuilt["classes"] != committed["classes"]:
+        raise AssertionError(f"committed autotune model: {out}")
+    return out
 
 
 def _tools_checkpoint(kernels: dict, rd, dfk, ddir: str) -> dict:
@@ -4263,6 +4641,10 @@ def phase_tools(kernels: dict) -> dict:
     walls["autotune"] = time.time() - t0
     emit({"phase": "tools_autotune", **out["autotune"]})
     t0 = time.time()
+    out["committed_model"] = _tools_committed_model(ddir)
+    walls["committed_model"] = time.time() - t0
+    emit({"phase": "tools_committed_model", **out["committed_model"]})
+    t0 = time.time()
     out["checkpoint"] = _tools_checkpoint(kernels, rd, dfk, ddir)
     walls["checkpoint"] = time.time() - t0
     _reset_hier_counts(rd, dfk)
@@ -4273,7 +4655,8 @@ def phase_tools(kernels: dict) -> dict:
     out["fingerprint"] = fp
     out["walls_s"] = {k: round(v, 1) for k, v in walls.items()}
     out["wall_s"] = round(time.time() - t_phase, 1)
-    emit({k: v for k, v in out.items() if k not in ("spgemm", "ingest", "autotune")})
+    emit({k: v for k, v in out.items() if k not in ("spgemm", "ingest", "autotune",
+                                                    "committed_model")})
     return out
 
 
@@ -4650,8 +5033,8 @@ def phase_dist(kernels: dict) -> dict:
 
 PARTS = {"hier", "inner", "inner_diag", "window", "window_diag", "window_bt_diag", "k11",
          "tiles", "c", "d", "gemm", "gemm_diag", "parboil", "exchange_diag", "cg", "scan",
-         "sparsebench", "sb_profile", "graphs", "graph_profile", "pathsample", "tools",
-         "dist"}
+         "mixed", "seg", "sparsebench", "sb_profile", "graphs", "graph_profile",
+         "pathsample", "tools", "dist"}
 
 
 def main(argv) -> int:
@@ -4667,6 +5050,19 @@ def main(argv) -> int:
     phase_build()
     _set_peaks()
     kernels: dict = {}
+    if "mixed" in only:
+        from lilac_tpu_torch.kernels import routed_spmv as rs
+        from lilac_tpu_torch.workloads import npb_cg
+
+        emit({"phase": "npb_mixed_small", "runs": _mixed_small()})
+        plan_d = build_plan_d()
+        res_d = npb_cg.run("D", dtype="df64", niter=MIXED_D_STEPS, plan=plan_d)
+        d_bytes = rs.plan_bytes(plan_d.A.V)
+        del plan_d
+        torch.cuda.empty_cache()
+        phase_mixed_d(kernels, res_d, d_bytes)
+    if "seg" in only:
+        phase_seg_general(kernels)
     if "k11" in only:
         phase_k11_small()
     if "tiles" in only:
@@ -4748,6 +5144,7 @@ def main(argv) -> int:
     phase_inner()
     phase_window()
     phase_hier_general(kernels)
+    phase_seg_general(kernels)
     phase_npb_small()
     phase_gemm(kernels)
     phase_parboil(kernels)
@@ -4764,9 +5161,18 @@ def main(argv) -> int:
     line_d, res_d = phase_main_path_d(kernels, plan_d)
     del plan_d
     torch.cuda.empty_cache()
+    line_mixed, res_mixed = phase_mixed_d(kernels, res_d, line_d["plan_bytes_on_card"])
     # class D's plan mode (a second 56-59 s plan build, 3 steps) runs in the
     # partial run "d" only: cut to keep the whole run inside its time limit
-    phase_npb_scan(res_d, line_d["plan_bytes_on_card"], d_build_s)
+    line_scan = phase_npb_scan(res_d, line_d["plan_bytes_on_card"], d_build_s)
+    _hold_to_gather(res_mixed, line_scan["class_d_zeta_history"],
+                    "class D mixed against the scan layout (gather)")
+    emit({"phase": "class_d_layouts",
+          "bytes_on_card": {**line_mixed["bytes_on_card"],
+                            "scan": line_scan["class_d"]["bytes_on_card"]["scan"]},
+          "untraced_step_wall_s": {
+              **line_mixed["untraced_step_wall_s"],
+              "scan": line_scan["class_d"]["untraced_step_wall_s"]["scan"]}})
     phase_sparsebench(kernels)
     phase_graphs(kernels)
     phase_pathsample()

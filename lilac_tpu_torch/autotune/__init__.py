@@ -20,8 +20,11 @@ The host functions are the JAX package's, bit for bit. The JAX package's
 corpus and model were measured on a TPU and are not read here. Every row
 names the card it was timed on (`device`), a rows file holds one card's
 rows, and the default paths are the package's own, whatever the working
-directory. No model ships yet, so installed_model() is None and the
-heuristic serves.
+directory. The package ships the rows of an H100 (rows_h100.jsonl) and the
+model trained on them (model.json), whose meta names that card: the model
+serves only there, only if it passes its ship gate, and only for a matrix
+inside its corpus (no more rows or entries than the largest row it was
+trained on); elsewhere the heuristic serves.
 """
 
 from __future__ import annotations
@@ -121,9 +124,11 @@ def measure(
 ) -> Dict[str, float]:
     """Seconds a matvec of each kernel takes on a square matrix: a chain of
     `reps` matvecs between two synchronisations, after one untimed chain.
-    A kernel whose container refuses the matrix (SpmvPlan's ValueError)
-    does not apply and is left out; any other failure, a kernel that does
-    not build or launch included, raises."""
+    A kernel whose container refuses the matrix (SpmvPlan's ValueError) or
+    does not fit the device's memory with its product (torch's
+    OutOfMemoryError: plain ELL of a power-law graph pads every row to the
+    longest) does not apply and is left out; any other failure, a kernel
+    that does not build or launch included, raises."""
     from lilac_tpu_torch.plan import SpmvPlan
     from lilac_tpu_torch.utils.profiling import timed_chain
 
@@ -131,17 +136,23 @@ def measure(
     out = {}
     for k in kernels:
         try:
-            plan = SpmvPlan(indptr, indices, data, shape, dtype=dtype, kernel=k,
-                            device=dev)
-        except ValueError:
-            continue
-        x = plan.vec_in(np.random.default_rng(0).normal(size=shape[1]))
-        out[k] = timed_chain(lambda v, plan=plan: plan.matvec_with(plan.A, v), x, reps)
+            try:
+                plan = SpmvPlan(indptr, indices, data, shape, dtype=dtype, kernel=k,
+                                device=dev)
+            except ValueError:
+                continue
+            x = plan.vec_in(np.random.default_rng(0).normal(size=shape[1]))
+            out[k] = timed_chain(lambda v, plan=plan: plan.matvec_with(plan.A, v),
+                                 x, reps)
+        except torch.OutOfMemoryError:
+            plan = x = None
+            torch.cuda.empty_cache()
     return out
 
 
 _cached_model: Optional[LinearSelector] = None
 _cached_path: Optional[str] = None
+_cached_meta: dict = {}  # the cached model's meta: its card, its corpus's extent
 
 
 def heuristic_label(nrows: int, ncols: int, mean_row: float, std_row: float,
@@ -157,12 +168,17 @@ def heuristic_label(nrows: int, ncols: int, mean_row: float, std_row: float,
     return "xla_sell" if max_row > 1.5 * max(mean_row, 1.0) + 4 else "xla_ell"
 
 
-def installed_model() -> Optional[LinearSelector]:
-    """The model at cfg().autotune_model (default DEFAULT_MODEL_PATH), or
-    None when there is none or it fails the ship gate: a model whose
-    recorded held-out accuracy does not beat both the majority-class and
-    the heuristic baselines is ignored, and the heuristic serves."""
-    global _cached_model, _cached_path
+def installed_model(device) -> Optional[LinearSelector]:
+    """The model at cfg().autotune_model (default DEFAULT_MODEL_PATH) that
+    serves on `device`, or None when there is none or it fails the ship
+    gate: a model whose recorded held-out accuracy does not beat both the
+    majority-class and the heuristic baselines is ignored, and the
+    heuristic serves.
+
+    A model whose meta names a card serves only where `device` is that card
+    (device_name; the CPU is none): one card's timings say nothing of
+    another device. A model whose meta names none serves anywhere."""
+    global _cached_model, _cached_path, _cached_meta
     from lilac_tpu_torch.config import cfg
 
     path = cfg().autotune_model or DEFAULT_MODEL_PATH
@@ -179,13 +195,28 @@ def installed_model() -> Optional[LinearSelector]:
             return None
         _cached_model = LinearSelector.load(path)
         _cached_path = path
+        _cached_meta = meta
+    card = _cached_meta.get("device")
+    if card is not None:
+        dev = torch.device(device)
+        # a CUDA device where torch sees no card is no card the model names
+        here = (device_name(dev) if dev.type != "cuda" or torch.cuda.is_available()
+                else None)
+        if here != card:
+            return None
     return _cached_model
 
 
-def predict(nrows, nnz, mean_row, std_row) -> Optional[str]:
-    """Model-gated kernel choice; None when no model is installed."""
-    m = installed_model()
+def predict(nrows, nnz, mean_row, std_row, device) -> Optional[str]:
+    """Model-gated kernel choice; None when no model serves on `device`
+    (installed_model) or the matrix lies beyond the model's corpus: more
+    rows or entries than the largest of the rows it was trained on (meta
+    corpus_max_nrows, corpus_max_nnz), where its timings say nothing."""
+    m = installed_model(device)
     if m is None:
+        return None
+    if nrows > _cached_meta.get("corpus_max_nrows", nrows) \
+            or nnz > _cached_meta.get("corpus_max_nnz", nnz):
         return None
     return m.predict(features(nrows, nnz, mean_row, std_row))
 
@@ -420,7 +451,8 @@ def build_model_v2(
     """Train from collected rows with held-out splits and record the
     held-out accuracy and the ship-gate baselines in the model JSON (the
     reference's train / test protocol, suite.py:97-102). The rows must all
-    name one card, which the meta records."""
+    name one card, which the meta records with the corpus's largest row
+    and entry counts."""
     rows = _read_rows(jsonl_path)
     devices = sorted({str(r.get("device")) for r in rows})
     if len(devices) != 1 or any("device" not in r for r in rows):
@@ -475,6 +507,9 @@ def build_model_v2(
         label_counts={c: int(y.count(c)) for c in sorted(set(y))},
         source=os.path.basename(jsonl_path),
         device=devices[0],
+        # the corpus's extent: predict() serves no matrix beyond it
+        corpus_max_nrows=max(int(r["nrows"]) for r in rows),
+        corpus_max_nnz=max(int(r["nnz"]) for r in rows),
     )
     with open(path, "w") as f:
         json.dump(meta, f, indent=1)

@@ -73,12 +73,13 @@ KNOBS = (
          "rnorm histories (None = the whole loop, one read-back at the "
          "end)."),
     Knob("factored_segmode", "LILAC_FACTORED_SEGMODE", str, "auto",
-         "Layout for the factored NPB operator: auto | routed | scan | "
-         "single (auto = routed when the plan's device is CUDA, single on "
-         "CPU). Routed plans are single-table up to n = 2^18 and "
-         "hierarchical beyond; scan is the column-segmented gather layout "
-         "(SegELLScan). 'mixed' is not ported ('mixed' with "
-         "factored_vt=adj is 'routed')."),
+         "Layout for the factored NPB operator: auto | routed | mixed | "
+         "scan | single (auto = routed when the plan's device is CUDA, "
+         "single on CPU). Routed plans are single-table up to n = 2^18 and "
+         "hierarchical beyond; mixed keeps V as a hierarchical plan and "
+         "applies V^T as a gather layout (JagELLT in df64), taken only when "
+         "asked for ('mixed' with factored_vt=adj is 'routed'); scan is "
+         "the column-segmented gather layout (SegELLScan)."),
     Knob("factored_vt", "LILAC_FACTORED_VT", str, "auto",
          "How the routed factored operator computes V^T u: 'plan' = stage "
          "a dedicated VT routed plan (two plans resident); 'adj' = run V's "
@@ -97,9 +98,10 @@ KNOBS = (
          "into its tail."),
     Knob("autotune_model", "LILAC_AUTOTUNE_MODEL", str, None,
          "Path of a trained kernel-selection model JSON (default: "
-         "lilac_tpu_torch/autotune/model.json, resolved from the package; "
-         "none ships, so the heuristic serves until one is trained on the "
-         "card and passes the ship gate)."),
+         "lilac_tpu_torch/autotune/model.json, resolved from the package, "
+         "trained on an H100's rows). A model serves only on the card its "
+         "meta names and only if it passes the ship gate; elsewhere the "
+         "heuristic serves."),
     Knob("bench_budget_s", "LILAC_BENCH_BUDGET_S", float, 480.0,
          "bench_npb wall budget in seconds; the class ladder stops before "
          "exceeding it."),

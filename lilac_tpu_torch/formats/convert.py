@@ -19,6 +19,7 @@ from lilac_tpu_torch.formats.sparse import (
     CSR,
     ELL,
     BucketELL,
+    JagELLT,
     SegBucketELL,
     SegELLScan,
     SlicedELL,
@@ -503,4 +504,69 @@ def bucket_ell_device(indptr, indices, data, shape, dtype=None, quantiles=(50, 9
         inv_perm=_index(inv_perm, device),
         shape=tuple(shape),
         widths=widths,
+    )
+
+
+def jag_ellt_arrays(indptr, indices, data_pair, shape, *, max_buckets: int = 6):
+    """Host part of csr_sorted_to_jag_ellt: (data_hi, data_lo, indices,
+    row_counts), per bucket [K_b, rows_b] float32 / float32 / int32 arrays
+    and rows_b, bit-identical to the reference's.
+
+    Buckets are contiguous row ranges chosen greedily: a bucket extends
+    while counts stay >= 3/4 of its leading (max) count; the max_buckets-th
+    bucket takes the whole remaining tail at its leading K. Zero-count rows
+    (sorted to the tail) are dropped."""
+    n = shape[0]
+    counts = np.diff(indptr).astype(np.int64)
+    if (np.diff(counts) > 0).any():
+        raise ValueError("csr_sorted_to_jag_ellt: rows must be length-sorted "
+                         "(descending counts)")
+    n_nz = int(np.searchsorted(-counts, 0, side="left"))
+
+    bounds = []
+    i = 0
+    while i < n_nz:
+        K = int(counts[i])
+        if len(bounds) + 1 == max_buckets:
+            j = n_nz  # last bucket takes the tail at its leading K
+        else:
+            j = int(np.searchsorted(-counts, -max(1, (3 * K) // 4), side="right"))
+            j = max(j, i + 1)
+        bounds.append((i, j, K))
+        i = j
+
+    dh, dl, ix, rc = [], [], [], []
+    for (i0, i1, K) in bounds:
+        rows_b = i1 - i0
+        vh = np.zeros((K, rows_b), dtype=np.float32)
+        vl = np.zeros((K, rows_b), dtype=np.float32)
+        ii = np.zeros((K, rows_b), dtype=np.int32)
+        lo_e, hi_e = int(indptr[i0]), int(indptr[i1])
+        cnt = counts[i0:i1]
+        r_e = np.repeat(np.arange(rows_b), cnt)
+        k_e = np.arange(hi_e - lo_e) - np.repeat(indptr[i0:i1] - lo_e, cnt)
+        vh[k_e, r_e] = data_pair[lo_e:hi_e, 0]
+        vl[k_e, r_e] = data_pair[lo_e:hi_e, 1]
+        ii[k_e, r_e] = indices[lo_e:hi_e]
+        dh.append(vh)
+        dl.append(vl)
+        ix.append(ii)
+        rc.append(rows_b)
+    return dh, dl, ix, rc
+
+
+def csr_sorted_to_jag_ellt(
+    indptr, indices, data_pair, shape, *, max_buckets: int = 6, device="cuda"
+) -> JagELLT:
+    """Stage a length-SORTED CSR (descending row counts) as JagELLT on
+    `device`. data_pair: [nnz, 2] (hi, lo) f32 split values
+    (df.split_f64_np). See jag_ellt_arrays for the buckets."""
+    dh, dl, ix, rc = jag_ellt_arrays(indptr, indices, data_pair, shape,
+                                     max_buckets=max_buckets)
+    return JagELLT(
+        data_hi=tuple(torch.as_tensor(a, device=device) for a in dh),
+        data_lo=tuple(torch.as_tensor(a, device=device) for a in dl),
+        indices=tuple(_index(a, device) for a in ix),
+        shape=tuple(shape),
+        row_counts=tuple(rc),
     )

@@ -6,8 +6,9 @@ any float dtype, or double-word (df64) pairs stored as a trailing [..., 2]
 (hi, lo) float32 axis (see lilac_tpu_torch.ops.dfloat). `shape` is the
 logical (unpadded) matrix shape.
 
-JagELLT is not carried (its only consumer, the reference's `mixed`
-factored mode, is not ported).
+`todense()` on COO, CSR, ELL and BSR scatter-adds the entries into a
+dense tensor on the container's device (duplicates sum), as the reference
+does.
 """
 
 from __future__ import annotations
@@ -31,6 +32,10 @@ class COO:
     @property
     def nnz(self) -> int:
         return self.row.shape[0]
+
+    def todense(self) -> torch.Tensor:
+        out = torch.zeros(self.shape, dtype=self.data.dtype, device=self.data.device)
+        return out.index_put_((self.row, self.col), self.data, accumulate=True)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +72,11 @@ class CSR:
         return dataclasses.replace(
             self, row_ids=torch.as_tensor(rid, device=self.indices.device))
 
+    def todense(self) -> torch.Tensor:
+        me = self.with_row_ids()
+        out = torch.zeros(self.shape, dtype=self.data.dtype, device=self.data.device)
+        return out.index_put_((me.row_ids, me.indices), me.data, accumulate=True)
+
 
 @dataclasses.dataclass(frozen=True)
 class ELL:
@@ -88,6 +98,16 @@ class ELL:
     @property
     def slots(self) -> int:
         return self.indices.shape[1]
+
+    def todense(self) -> torch.Tensor:
+        """Padding rows (beyond shape[0]) are cut."""
+        n, m = self.shape
+        rid = torch.arange(self.nrows_pad, device=self.indices.device)[:, None]
+        out = torch.zeros((self.nrows_pad, m), dtype=self.data.dtype,
+                          device=self.data.device)
+        out.index_put_((rid.expand_as(self.indices), self.indices), self.data,
+                       accumulate=True)
+        return out[:n]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,6 +140,23 @@ class BSR:
     @property
     def nblocks(self) -> int:
         return self.indices.shape[0]
+
+    def todense(self) -> torch.Tensor:
+        """Every block added at its place in one indexed scatter-add (the
+        reference loops over the blocks on the host), trimmed to shape."""
+        bh, bw = self.block_shape
+        n, m = self.shape
+        dev = self.indices.device
+        nbr = self.indptr.shape[0] - 1
+        brow = torch.repeat_interleave(
+            torch.arange(nbr, device=dev), torch.diff(self.indptr))
+        rows = (brow * bh)[:, None, None] + torch.arange(bh, device=dev)[None, :, None]
+        cols = (self.indices * bw)[:, None, None] + torch.arange(bw, device=dev)[None, None, :]
+        out = torch.zeros((nbr * bh, (m + bw - 1) // bw * bw), dtype=self.data.dtype,
+                          device=self.data.device)
+        out.index_put_((rows.expand(-1, bh, bw), cols.expand(-1, bh, bw)), self.data,
+                       accumulate=True)
+        return out[:n, :m]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,3 +225,22 @@ class SegBucketELL:
     parts: tuple
     seg_size: int
     identity_perm: bool = False  # original row order kept (uniform rows)
+
+
+@dataclasses.dataclass(frozen=True)
+class JagELLT:
+    """Jagged-diagonal transposed ELL of a length-SORTED CSR (df64 values).
+
+    Bucket b covers the contiguous row range [r0_b, r0_b + rows_b) and
+    stores its entries K-major: data_hi[b] / data_lo[b] / indices[b] are
+    [K_b, rows_b], so a product sweeps bucket b's K_b jagged diagonals, each
+    a [rows_b] vector. Zero-count tail rows are in no bucket (sum of
+    row_counts <= shape[0]); the product writes zeros there. The `mixed`
+    factored layout holds V^T in it.
+    """
+
+    data_hi: tuple  # per bucket [K_b, rows_b] float32
+    data_lo: tuple  # per bucket [K_b, rows_b] float32
+    indices: tuple  # per bucket [K_b, rows_b] int64
+    shape: Tuple[int, int]
+    row_counts: tuple  # per bucket rows_b

@@ -10,7 +10,7 @@ about (nonzer+1)^2 nonzeros per row, but the FACTORED product
 needs two narrow sparse passes: about (nonzer+1)/2 times fewer gathered
 elements than the assembled form.
 
-Two layouts are ported:
+Four layouts are ported:
 
 * ``routed``: V and V^T as routed plans (kernels/routed_spmv.py, the
   hand-written CUDA kernels): single-table for n <= 2^18 (NPB classes S to
@@ -27,12 +27,18 @@ Two layouts are ported:
   and accumulated one segment at a time (kernels/gather.py), so that a
   product's temporaries stay one segment's slab: the reference's
   memory-bounded gather layout for the large classes. No hand kernel.
+* ``mixed``: V as a hierarchical routed plan (always, whatever n; the same
+  plan file as ``routed`` at the hierarchical classes), V^T as a gather
+  layout: the jagged-diagonal JagELLT in df64 (kernels/gather.py:
+  jag_ellt_spmv_df), a single-segment SegBucketELL in f32 / f64. One plan
+  resident instead of two, with a forward-only V^T.
 
 ``factored_segmode=auto`` is ``routed`` when the plan's device is CUDA and
-``single`` on the CPU. The reference's ``mixed`` layout raises
-NotImplementedError: its jagged-diagonal gather layout is not ported
-(``mixed`` with ``adj`` is ``routed``, as in the reference: adj removes the
-reason mixed exists).
+``single`` on the CPU. ``mixed`` with ``adj`` is ``routed``, as in the
+reference: adj removes the reason mixed exists. Unlike the reference, the
+port takes ``mixed`` only when it is asked for: the reference switches
+``routed`` with a V^T plan to ``mixed`` beyond n = 2^21 because two class-E
+plans overflow a 16 GB TPU, a limit that is not this card's.
 
 Exactly the same matrix: summation order differs from the assembled CSR
 by O(eps), far inside the zeta tolerance of 1e-10. Supports the f32 / f64
@@ -49,8 +55,9 @@ from typing import Tuple, Union
 import numpy as np
 import torch
 
-from lilac_tpu_torch.formats.sparse import SegBucketELL, SegELLScan
+from lilac_tpu_torch.formats.sparse import JagELLT, SegBucketELL, SegELLScan
 from lilac_tpu_torch.kernels.gather import (
+    jag_ellt_spmv_df,
     seg_bucket_ell_spmv,
     seg_bucket_ell_spmv_df,
     seg_ell_scan_spmv,
@@ -60,6 +67,7 @@ from lilac_tpu_torch.kernels.routed_spmv import (
     RoutedMat,
     RoutedMatHier,
     RoutedMatHierP,
+    RoutedMatSeg,
     hier_bl_cfg,
     build_routed_csr,
     build_routed_csr_hier,
@@ -69,6 +77,8 @@ from lilac_tpu_torch.kernels.routed_spmv import (
     routed_hier_spmv_adj_t,
     routed_hier_spmv_adj_t_df,
     routed_hier_spmv_df,
+    routed_seg_spmv,
+    routed_seg_spmv_df,
     routed_spmv,
     routed_spmv_adj_t,
     routed_spmv_adj_t_df,
@@ -94,9 +104,10 @@ class FactoredNPB:
 
     # [n x n] sparse with rows a_i, and its transpose; VT None
     # (factored_vt=adj) = apply V's own routed plan in reverse
-    V: Union[RoutedMat, RoutedMatHier, RoutedMatHierP, SegBucketELL, SegELLScan]
-    VT: Union[RoutedMat, RoutedMatHier, RoutedMatHierP, SegBucketELL, SegELLScan,
-              None]
+    V: Union[RoutedMat, RoutedMatHier, RoutedMatHierP, RoutedMatSeg, SegBucketELL,
+             SegELLScan]
+    VT: Union[RoutedMat, RoutedMatHier, RoutedMatHierP, RoutedMatSeg, SegBucketELL,
+              SegELLScan, JagELLT, None]
     s: torch.Tensor  # [n] outer-product weights (f32/f64 or [n, 2] df)
     d0: torch.Tensor  # scalar diagonal shift rcond - shift (or [2] df)
 
@@ -123,13 +134,8 @@ def _resolve_modes(conf, n: int, device) -> Tuple[str, str]:
     if vt_mode not in ("plan", "adj"):
         raise ValueError(f"unknown factored_vt {vt_mode!r}")
     if mode == "mixed" and vt_mode == "adj":
-        mode = "routed"
-    if mode == "mixed":
-        raise NotImplementedError(
-            "factored_segmode='mixed' is not ported: it needs the "
-            "jagged-diagonal gather layout (JagELLT) beside a hierarchical plan"
-        )
-    if mode not in ("routed", "single", "scan"):
+        mode = "routed"  # adj removes the reason mixed exists
+    if mode not in ("routed", "mixed", "single", "scan"):
         raise ValueError(f"unknown factored_segmode {mode!r}")
     if mode != "routed":
         vt_mode = "plan"  # a gather layout has no network to run in reverse
@@ -197,19 +203,20 @@ def build_factored(
     d0 = to_dev(np.asarray(cls.rcond - cls.shift))
 
     paths = meta_path = None
-    if mode == "routed":
+    if mode in ("routed", "mixed"):
         cache_dir = conf.resolved_data_dir()
         os.makedirs(cache_dir, exist_ok=True)
-        tag = plan_tag(conf, hier=n > SINGLE_TABLE_MAX)
-        # adj needs, and writes, V's file alone
+        # mixed's V is a hier plan at every n
+        tag = plan_tag(conf, hier=mode == "mixed" or n > SINGLE_TABLE_MAX)
+        # adj and mixed need, and write, V's file alone
         paths = [
             os.path.join(cache_dir, f"routed2_{cls.name}_{dtype}_{t}{tag}.npz")
-            for t in (("V",) if adj else ("V", "VT"))
+            for t in (("V",) if adj or mode == "mixed" else ("V", "VT"))
         ]
         meta_path = os.path.join(
             cache_dir, f"routed2_{cls.name}_{dtype}_meta{tag}.npz"
         )
-        if os.path.exists(meta_path):
+        if mode == "routed" and os.path.exists(meta_path):
             # full cache hit: the sidecar carries the already-permuted s
             # and nnz_eff, so the makea triples are not regenerated
             plans = _load_plans(paths, device)
@@ -227,7 +234,7 @@ def build_factored(
     pos_j = ivc - 1
 
     sigma_i = None
-    if mode == "routed":
+    if mode in ("routed", "mixed"):
         # Run the whole solve in sigma-space: relabel the j (row/column)
         # space by descending V-column multiplicity so VT's rows are
         # already length-sorted and its per-matvec un-permute vanishes.
@@ -269,6 +276,23 @@ def build_factored(
             else:
                 plans.append(_build_hier_plan(path, ip, ix, vv, n, dtype, device))
         V, VT = plans + [None] * adj
+    elif mode == "mixed":
+        # V routed (its hier plan file loaded, or built and saved), V^T a
+        # gather layout: its rows are the sigma-sorted j space, already
+        # length-sorted, as JagELLT needs
+        cached = _load_plans(paths, device)
+        if cached is not None:
+            V = maybe_pack_hier(cached[0], device)
+        else:
+            V = _build_hier_plan(paths[0], v_ip, v_ix, v_v, n, dtype, device)
+        if dtype == "df64":
+            from lilac_tpu_torch.formats.convert import csr_sorted_to_jag_ellt
+
+            VT = csr_sorted_to_jag_ellt(t_ip, t_ix, to_vals(t_v, dtype), (n, n),
+                                        device=device)
+        else:
+            VT = csr_to_seg_bucket_ell(t_ip, t_ix, to_vals(t_v, dtype), (n, n),
+                                       seg_size=max(SEG_SIZE, n), device=device)
     elif mode == "scan":
         V, VT = (csr_to_seg_ell_scan(
             ip, ix, to_vals(vv, dtype), (n, n), seg_size=SEG_SIZE,
@@ -305,16 +329,22 @@ def _spmv_any(A, x):
         return routed_spmv(A, x)
     if isinstance(A, (RoutedMatHier, RoutedMatHierP)):
         return routed_hier_spmv(A, x)
+    if isinstance(A, RoutedMatSeg):
+        return routed_seg_spmv(A, x)
     if isinstance(A, SegELLScan):
         return seg_ell_scan_spmv(A, x)
     return seg_bucket_ell_spmv(A, x)
 
 
 def _spmv_any_df(A, x):
+    if isinstance(A, JagELLT):
+        return jag_ellt_spmv_df(A, x)
     if isinstance(A, RoutedMat):
         return routed_spmv_df(A, x)
     if isinstance(A, (RoutedMatHier, RoutedMatHierP)):
         return routed_hier_spmv_df(A, x)
+    if isinstance(A, RoutedMatSeg):
+        return routed_seg_spmv_df(A, x)
     if isinstance(A, SegELLScan):
         return seg_ell_scan_spmv_df(A, x)
     return seg_bucket_ell_spmv_df(A, x)

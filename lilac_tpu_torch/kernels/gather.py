@@ -7,7 +7,8 @@ the check on the routed operators. They are registered under the
 reference's names (xla_csr, xla_coo, xla_ell, xla_ell_df, xla_bsr,
 xla_sell, xla_sell_df, xla_segell, xla_segell_df, xla_segscan,
 xla_segscan_df), so a kernel name means the same computation on both
-platforms.
+platforms. `jag_ellt_spmv_df` (the `mixed` factored layout's V^T) is, as in
+the reference, not registered.
 
 Each transpose form (`*_t`) is the true Aᵀx by scatter-add.
 """
@@ -22,6 +23,7 @@ from lilac_tpu_torch.formats.sparse import (
     CSR,
     ELL,
     BucketELL,
+    JagELLT,
     SegBucketELL,
     SegELLScan,
 )
@@ -245,3 +247,36 @@ def seg_ell_scan_spmv_df(A: SegELLScan, x: df.DF) -> df.DF:
 
 register_kernel("xla_segscan", seg_ell_scan_spmv, SegELLScan)
 register_kernel("xla_segscan_df", seg_ell_scan_spmv_df, SegELLScan, dfloat=True)
+
+
+# -- JagELLT --------------------------------------------------------------------
+# The reference sweeps a bucket's jagged diagonals with lax.scan; here a
+# Python loop over them, in the same order: one pair-gather a diagonal,
+# df.mul by its values, df.add into the bucket's accumulator.
+
+
+def jag_ellt_spmv_df(A: JagELLT, x: df.DF) -> df.DF:
+    """df64 y = A x as per-bucket column sweeps: every intermediate is a
+    [rows_b] vector. Zero-count tail rows get zeros; a matrix of empty rows
+    (zero buckets) gives a zero vector."""
+    n = A.shape[0]
+    dev = x.hi.device
+    if len(A.row_counts) == 0:
+        z = torch.zeros(n, dtype=torch.float32, device=dev)
+        return df.DF(z, z.clone())
+    xs = torch.stack([x.hi, x.lo], dim=-1)
+    outs_h, outs_l = [], []
+    for vh, vl, ix, rows_b in zip(A.data_hi, A.data_lo, A.indices, A.row_counts):
+        z = torch.zeros(rows_b, dtype=torch.float32, device=dev)
+        acc = df.DF(z, z.clone())
+        for k in range(vh.shape[0]):
+            g = pair_gather(xs, ix[k])
+            acc = df.add(acc, df.mul(df.DF(vh[k], vl[k]), df.DF(g[:, 0], g[:, 1])))
+        outs_h.append(acc.hi)
+        outs_l.append(acc.lo)
+    hi, lo = torch.cat(outs_h), torch.cat(outs_l)
+    pad = n - hi.shape[0]
+    if pad > 0:  # zero-count tail rows
+        hi = torch.nn.functional.pad(hi, (0, pad))
+        lo = torch.nn.functional.pad(lo, (0, pad))
+    return df.DF(hi[:n], lo[:n])

@@ -1,7 +1,7 @@
-"""SpMV through plan-time routing networks (single table and hierarchical).
+"""SpMV through plan-time routing networks (single table, column
+segments and hierarchical).
 
-Counterpart of lilac_tpu/kernels/routed_spmv.py without its column
-segments. Pipeline per matvec: pad x into the
+Counterpart of lilac_tpu/kernels/routed_spmv.py. Pipeline per matvec: pad x into the
 network input slots ([m] = [R, 128] planes), run every row-chunk's gather
 network in one routed_apply call (kernels/routed.py), then multiply by the
 values, pre-arranged at PLAN time into the routed slot order, and reduce
@@ -13,7 +13,9 @@ pads to its own max length; the row order is restored by one [n]-sized
 gather at the end. Matrices with near-uniform rows skip the sort.
 
 Single-table plans (RoutedMat) need ncols <= m with the whole table in one
-kernel call. Hierarchical plans (RoutedMatHier, second half of this file)
+kernel call. Column-segmented plans (RoutedMatSeg) cut the columns into
+segments of at most 2^18 and run one single-table network group a segment
+over that segment's slice of x, all segments sharing one row order. Hierarchical plans (RoutedMatHier, second half of this file)
 serve larger tables: one full-size network per m-slot super-block of
 terms, applied pass by pass (kernels/routed.py), rows globally sorted by
 length, an un-permute network at the end where the rows were not sorted
@@ -264,18 +266,19 @@ def _single_table_k2(chunks, m: int) -> dfk.ChunkTable:
     return dfk.ChunkTable(spec)
 
 
-def _mulreduce_df_2d(A: RoutedMat, oh, ol):
-    """df64 mul+row-sum for the [B, m] single-table container. Column-major
-    plans with the df_fused knob on take the fused kernel, all chunks in one
+def _mulreduce_df_2d(vals, oh, ol, chunks, m: int, colmajor: bool):
+    """df64 mul+row-sum for the [B, m] single-table and segment containers:
+    chunk c is net-row c's leading rows_c * k_c slots. Column-major plans
+    with the df_fused knob on take the fused kernel, all chunks in one
     launch; else the op chain."""
     from lilac_tpu_torch.config import cfg
 
-    if A.colmajor and cfg().df_fused:
-        v = A.vals.reshape(-1, 2)
+    if colmajor and cfg().df_fused:
+        v = vals.reshape(-1, 2)
         return dfk.dfmulred_chunks(v[:, 0], v[:, 1], oh.reshape(-1), ol.reshape(-1),
-                                   _single_table_k2(A.chunks, A.m))
-    prod = df.mul(df.DF(A.vals[..., 0], A.vals[..., 1]), df.DF(oh, ol))
-    return _chunk_reduce_df(prod, A.chunks, A.colmajor)
+                                   _single_table_k2(chunks, m))
+    prod = df.mul(df.DF(vals[..., 0], vals[..., 1]), df.DF(oh, ol))
+    return _chunk_reduce_df(prod, chunks, colmajor)
 
 
 def routed_spmv(A: RoutedMat, x: torch.Tensor) -> torch.Tensor:
@@ -295,7 +298,8 @@ def routed_spmv_df(A: RoutedMat, x: df.DF) -> df.DF:
         A.masks, A.kinds, A.dists,
     )
     B = len(A.chunks)
-    hi, lo = _mulreduce_df_2d(A, oh.view(B, A.m), ol.view(B, A.m))
+    hi, lo = _mulreduce_df_2d(A.vals, oh.view(B, A.m), ol.view(B, A.m), A.chunks,
+                              A.m, A.colmajor)
     if A.inv_perm is not None:
         hi, lo = hi[A.inv_perm], lo[A.inv_perm]
     return df.DF(hi[: A.shape[0]], lo[: A.shape[0]])
@@ -357,6 +361,192 @@ def routed_spmv_adj_t_df(A: RoutedMat, u: df.DF) -> df.DF:
         A.masks, A.kinds, A.dists, dfpair=True)
     y = df.sum_df0(df.DF(oh.view(B, A.m), ol.view(B, A.m)))
     return df.DF(y.hi[: A.shape[1]], y.lo[: A.shape[1]])
+
+
+# ---------------------------------------------------------------------------
+# column-segmented routing (a matrix whose x exceeds one network table)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class RoutedMatSeg:
+    """Column-segmented RoutedMat: one single-table network group a column
+    segment of seg_size (= m) columns.
+
+    All segments share ONE global row order (descending total degree), so
+    their chunk-concatenated partial sums align; y accumulates over the
+    segments in sorted order and one [n] pair-gather by inv_perm (row ->
+    position in that order) restores the natural order at the end."""
+
+    masks: tuple  # per segment [B_s, P_s, R, 128] int8
+    vals: tuple  # per segment [B_s, m] (or [B_s, m, 2] df64)
+    kinds: Tuple[Tuple[str, ...], ...]
+    dists: Tuple[Tuple[int, ...], ...]
+    chunks: Tuple[Tuple[Tuple[int, int], ...], ...]
+    inv_perm: torch.Tensor  # [n] int64
+    shape: Tuple[int, int]
+    m: int
+    seg_size: int
+    colmajor: bool = False  # see RoutedMat.colmajor
+
+
+def build_routed_csr_seg(
+    indptr: np.ndarray,
+    indices: np.ndarray,
+    data: np.ndarray,
+    shape: Tuple[int, int],
+    *,
+    dtype: str = "f32",
+    seg_size: int = 1 << 18,
+    verbose: bool = False,
+    colmajor: bool = True,
+    device="cuda",
+) -> RoutedMatSeg:
+    """Stage a host CSR as column-segmented routing networks on `device`,
+    bit-identical to the JAX package's builder. The entries of a row must be
+    column-sorted (canonical CSR). A segment's table is checked as a single
+    table of m = seg_size slots (check_table_feasible) of at most 2^18
+    slots, and the card's shared memory must take a tile of the kernel for
+    the plan's words (routed_tile)."""
+    from lilac_tpu_torch.kernels.factored import SINGLE_TABLE_MAX
+
+    n, ncol = shape
+    m = seg_size
+    if m > SINGLE_TABLE_MAX:
+        raise ValueError(f"segment of {m} columns: at most {SINGLE_TABLE_MAX}")
+    rd.check_table_feasible(m, what=f"seg-table m={m}")
+    nplanes, esize = (2, 4) if dtype == "df64" else (1, 8 if dtype == "f64" else 4)
+    limit = rd.smem_optin_bytes(device)
+    rd.check_tile(rd.routed_tile(nplanes, esize, limit), nplanes, esize, limit)
+    nseg = -(-ncol // seg_size)
+    counts = np.diff(indptr).astype(np.int64)
+    order = np.argsort(-counts, kind="stable")
+    rank = np.empty(n, dtype=np.int64)
+    rank[order] = np.arange(n)
+
+    if dtype == "df64":
+        dvals = df.split_f64_np(data)
+    else:
+        dvals = data.astype({"f32": np.float32, "f64": np.float64}[dtype])
+
+    rows_rep = np.repeat(np.arange(n), counts)
+    seg_of = indices // seg_size
+    # per (row, segment) counts and the slot of each entry inside its run
+    rs_counts = np.zeros((n, nseg), dtype=np.int64)
+    np.add.at(rs_counts, (rows_rep, seg_of), 1)
+    run_key = rows_rep * nseg + seg_of
+    run_start = np.zeros(len(indices), dtype=bool)
+    if len(indices):
+        run_start[0] = True
+        run_start[1:] = run_key[1:] != run_key[:-1]
+    run_id = np.cumsum(run_start) - 1
+    first_of_run = np.zeros(run_id[-1] + 1 if len(indices) else 0, dtype=np.int64)
+    first_of_run[run_id[run_start]] = np.nonzero(run_start)[0]
+    slot_in_run = np.arange(len(indices)) - first_of_run[run_id]
+
+    from lilac_tpu_torch.config import cfg as _cfg
+
+    mode = _cfg().net_mode
+    seg_masks, seg_vals, seg_kinds, seg_dists, seg_chunks = [], [], [], [], []
+    for s in range(nseg):
+        cs = rs_counts[order, s]  # per-row segment counts in the global order
+        # greedy chunks over the shared order; K = the max count inside a
+        # chunk (counts are not monotone in this order)
+        chunks = []
+        i0 = 0
+        while i0 < n:
+            k_c = max(int(cs[i0]), 1)
+            rows_c = min(m // k_c, n - i0)
+            k_true = int(cs[i0 : i0 + rows_c].max())
+            if k_true > k_c:
+                rows_c = min(m // k_true, n - i0)
+                k_c = int(cs[i0 : i0 + rows_c].max())
+            else:
+                k_c = k_true if k_true else 1
+            chunks.append((i0, rows_c, k_c))
+            i0 += rows_c
+        B = len(chunks)
+        chunk_of = np.empty(n, dtype=np.int64)
+        r_local = np.empty(n, dtype=np.int64)
+        k_of_chunk = np.empty(B, dtype=np.int64)
+        for b, (i0, rows_c, k_c) in enumerate(chunks):
+            chunk_of[order[i0 : i0 + rows_c]] = b
+            r_local[order[i0 : i0 + rows_c]] = np.arange(rows_c)
+            k_of_chunk[b] = k_c
+        sel = seg_of == s
+        rr = rows_rep[sel]
+        b_e = chunk_of[rr]
+        if colmajor:
+            rowsc_of = np.array([rc for _, rc, _ in chunks], dtype=np.int64)
+            t_e = slot_in_run[sel] * rowsc_of[b_e] + r_local[rr]
+        else:
+            t_e = r_local[rr] * k_of_chunk[b_e] + slot_in_run[sel]
+        idx_all = np.zeros((B, m), dtype=np.int64)
+        idx_all[b_e, t_e] = indices[sel] - s * seg_size
+        vals = np.zeros((B, m) + dvals.shape[1:], dtype=dvals.dtype)
+        vals[b_e, t_e] = dvals[sel]
+        ncol_s = min(seg_size, ncol - s * seg_size)
+        if mode == "monotone":
+            _fill_pads_with_missing(idx_all, b_e, t_e, ncol_s)
+        net = rn.build_gather_network(idx_all, ncol_s, m, mode=mode)
+        if verbose:
+            print(f"  seg {s}: chunks={B} stages={len(net.kinds)} "
+                  f"masks={net.masks.nbytes / 1e6:.0f}MB(bool)", flush=True)
+        seg_masks.append(rd.masks_device(net, device))
+        seg_vals.append(torch.as_tensor(vals, device=device))
+        seg_kinds.append(net.kinds)
+        seg_dists.append(net.dists)
+        seg_chunks.append(tuple((rc, kc) for _, rc, kc in chunks))
+
+    return RoutedMatSeg(
+        masks=tuple(seg_masks), vals=tuple(seg_vals), kinds=tuple(seg_kinds),
+        dists=tuple(seg_dists), chunks=tuple(seg_chunks),
+        inv_perm=torch.as_tensor(rank, dtype=torch.int64, device=device),
+        shape=tuple(shape), m=m, seg_size=seg_size, colmajor=colmajor,
+    )
+
+
+def _seg_planes(x: torch.Tensor, A: RoutedMatSeg) -> torch.Tensor:
+    """x zero-padded to nseg * m words, [nseg, R, 128]: plane s is segment
+    s's slice of x (contiguous, so aligned as K1 needs)."""
+    nseg = len(A.masks)
+    xp = x.new_zeros(nseg * A.m)
+    xp[: x.shape[0]] = x
+    return xp.view(nseg, A.m // 128, 128)
+
+
+def routed_seg_spmv(A: RoutedMatSeg, x: torch.Tensor) -> torch.Tensor:
+    """y = A x: K1 on each segment's slice of x, its chunk row sums, the
+    segments summed in order, then one gather by inv_perm."""
+    xs = _seg_planes(x.to(A.vals[0].dtype), A)
+    y = None
+    for s in range(len(A.masks)):
+        (out,) = rd.routed_apply([xs[s]], A.masks[s], A.kinds[s], A.dists[s])
+        t = _chunk_reduce(A.vals[s] * out.view(len(A.chunks[s]), A.m),
+                          A.chunks[s], A.m, A.colmajor)
+        y = t if y is None else y + t
+    from lilac_tpu_torch.kernels.gather import pair_gather
+
+    return pair_gather(y, A.inv_perm)
+
+
+def routed_seg_spmv_df(A: RoutedMatSeg, x: df.DF) -> df.DF:
+    """df64 y = A x: K1 on the hi and lo planes of each segment, K2 on the
+    segment's chunk table (the op chain with df_fused off), the segments
+    combined by a compensated df.add in order, then one gather by
+    inv_perm."""
+    hs, ls = _seg_planes(x.hi, A), _seg_planes(x.lo, A)
+    y = None
+    for s in range(len(A.masks)):
+        oh, ol = rd.routed_apply([hs[s], ls[s]], A.masks[s], A.kinds[s], A.dists[s])
+        B = len(A.chunks[s])
+        t = df.DF(*_mulreduce_df_2d(A.vals[s], oh.view(B, A.m), ol.view(B, A.m),
+                                    A.chunks[s], A.m, A.colmajor))
+        # every segment reaches every row: the compensated add keeps the
+        # (hi, lo) pair non-overlapping across the segment merge
+        y = t if y is None else df.add(y, t)
+    ys = torch.stack([y.hi, y.lo], dim=-1)[A.inv_perm]
+    return df.DF(ys[:, 0], ys[:, 1])
+
 
 
 # ---------------------------------------------------------------------------
@@ -475,15 +665,49 @@ def _load_hier(path: str, z, device) -> "RoutedMatHier":
     )
 
 
+def _save_seg(path: str, M: RoutedMatSeg) -> None:
+    kv = {"version": _CACHE_VERSION, "cls": "RoutedMatSeg",
+          "shape": np.asarray(M.shape), "m": M.m, "colmajor": int(M.colmajor),
+          "seg_size": M.seg_size, "nseg": len(M.masks),
+          "inv_perm": _np(M.inv_perm).astype(np.int32)}
+    for s in range(len(M.masks)):
+        kv[f"masks{s}"] = _np(M.masks[s])
+        kv[f"vals{s}"] = _np(M.vals[s])
+        kv[f"kinds{s}"] = np.array(M.kinds[s])
+        kv[f"dists{s}"] = np.asarray(M.dists[s])
+        kv[f"chunks{s}"] = np.asarray(M.chunks[s])
+    _savez_atomic(path, **kv)
+
+
+def _load_seg(path: str, z, device) -> RoutedMatSeg:
+    m = int(z["m"])
+    rd.check_table_feasible(m, what=f"cached seg plan {path}")
+    nseg = int(z["nseg"])
+    return RoutedMatSeg(
+        masks=tuple(torch.as_tensor(z[f"masks{s}"], device=device) for s in range(nseg)),
+        vals=tuple(torch.as_tensor(z[f"vals{s}"], device=device) for s in range(nseg)),
+        kinds=tuple(tuple(str(k) for k in z[f"kinds{s}"]) for s in range(nseg)),
+        dists=tuple(tuple(int(d) for d in z[f"dists{s}"]) for s in range(nseg)),
+        chunks=tuple(tuple((int(a), int(b)) for a, b in z[f"chunks{s}"])
+                     for s in range(nseg)),
+        inv_perm=torch.as_tensor(z["inv_perm"].astype(np.int64), device=device),
+        shape=tuple(int(v) for v in z["shape"]), m=m, seg_size=int(z["seg_size"]),
+        colmajor=bool(int(z["colmajor"])) if "colmajor" in z.files else False,
+    )
+
+
 def save_routed(path: str, M) -> None:
-    """Write a RoutedMat or an unpacked RoutedMatHier in the JAX package's
-    npz format (hier plans per net, so packing happens after the save)."""
+    """Write a RoutedMat, a RoutedMatSeg or an unpacked RoutedMatHier in the
+    JAX package's npz format (hier plans per net, so packing happens after
+    the save)."""
     if isinstance(M, RoutedMatHier):
         return _save_hier(path, M)
+    if isinstance(M, RoutedMatSeg):
+        return _save_seg(path, M)
     if not isinstance(M, RoutedMat):
         raise TypeError(
-            f"save_routed takes a RoutedMat or an unpacked RoutedMatHier, got "
-            f"{type(M).__name__}")
+            f"save_routed takes a RoutedMat, a RoutedMatSeg or an unpacked "
+            f"RoutedMatHier, got {type(M).__name__}")
     _savez_atomic(
         path,
         version=_CACHE_VERSION, cls="RoutedMat", shape=np.asarray(M.shape),
@@ -497,21 +721,21 @@ def save_routed(path: str, M) -> None:
 
 
 def load_routed(path: str, device="cuda"):
-    """Load a plan file; None for another cache version. A RoutedMat comes
-    back on `device`. A RoutedMatHier comes back host-staged (numpy leaves;
-    maybe_pack_hier uploads it) after its passes were checked against
-    `device`'s shared memory: a plan whose block length does not fit raises
-    ValueError. A column-segmented plan raises NotImplementedError."""
+    """Load a plan file; None for another cache version. A RoutedMat or a
+    RoutedMatSeg comes back on `device`. A RoutedMatHier comes back
+    host-staged (numpy leaves; maybe_pack_hier uploads it) after its passes
+    were checked against `device`'s shared memory: a plan whose block
+    length does not fit raises ValueError."""
     z = np.load(path, allow_pickle=False)
     if int(z["version"]) != _CACHE_VERSION:
         return None
-    if str(z["cls"]) == "RoutedMatHier":
+    cls = str(z["cls"])
+    if cls == "RoutedMatHier":
         return _load_hier(path, z, device)
-    if str(z["cls"]) != "RoutedMat":
-        raise NotImplementedError(
-            f"{path}: plan class {str(z['cls'])} is not ported (column "
-            "segments, routed_seg_spmv)"
-        )
+    if cls == "RoutedMatSeg":
+        return _load_seg(path, z, device)
+    if cls != "RoutedMat":
+        raise ValueError(f"{path}: unknown plan class {cls!r}")
     # pre-colmajor caches carry no flag and are row-major
     cm = bool(int(z["colmajor"])) if "colmajor" in z.files else False
     inv = z["inv_perm"]

@@ -184,6 +184,10 @@ def sqrt(a: DF) -> DF:
     return add(s_df, from_f32(corr))
 
 
+def rsqrt(a: DF) -> DF:
+    return div(full((), 1.0, device=a.hi.device), sqrt(a))
+
+
 # ---------------------------------------------------------------------------
 # reductions
 # ---------------------------------------------------------------------------

@@ -153,14 +153,13 @@ class SpmvPlan:
            matvecs;
         2. df64 takes the heuristic's df64 gather layout;
         3. the trained model's choice (autotune.predict), where one is
-           installed and passes its ship gate; a routed label is ignored on
-           the CPU (the plain versions are no measure of the card) and for
-           bf16 (the routed kernels move 4- and 8-byte words);
+           installed, passes its ship gate and was trained on this plan's
+           device (a model whose meta names another card, the shipped H100
+           model on the CPU for one, is not asked); a routed label is
+           ignored on the CPU (the plain versions are no measure of the
+           card) and for bf16 (the routed kernels move 4- and 8-byte words);
         4. the heuristic: ELL for near-uniform rows, bucketed ELL where row
-           lengths spread.
-
-        No model ships yet (the JAX package's was measured on a TPU), so
-        step 3 passes until one is trained on the card."""
+           lengths spread."""
         from lilac_tpu_torch import autotune
         from lilac_tpu_torch.kernels.factored import SINGLE_TABLE_MAX
 
@@ -173,7 +172,8 @@ class SpmvPlan:
         spread = s["max_row"] > 1.5 * max(s["mean_row"], 1.0) + 4
         if self.dtype == "df64":
             return "xla_sell_df" if spread else "xla_ell_df"
-        choice = autotune.predict(s["nrows"], s["nnz"], s["mean_row"], s["std_row"])
+        choice = autotune.predict(s["nrows"], s["nnz"], s["mean_row"], s["std_row"],
+                                  device=self.device)
         if choice is not None and not (choice.startswith("routed") and (
                 self.device.type != "cuda" or self.dtype == "bf16")):
             return choice
@@ -257,6 +257,7 @@ class FactoredNPBPlan:
             RoutedMat,
             RoutedMatHier,
             RoutedMatHierP,
+            RoutedMatSeg,
         )
 
         cls = CLASSES[class_name.upper()]
@@ -266,7 +267,7 @@ class FactoredNPBPlan:
         self.A, self.nnz = _f.build_factored(class_name, dtype=dtype, device=device)
         # label the sub-kernel serving the V / VT passes: "routed" = routing
         # networks through the CUDA kernels, "gather" = plain torch indexing
-        routed = (RoutedMat, RoutedMatHier, RoutedMatHierP)
+        routed = (RoutedMat, RoutedMatHier, RoutedMatHierP, RoutedMatSeg)
         v_routed = isinstance(self.A.V, routed)
         # how V^T is applied: "adj" = V's own plan run in reverse (no VT
         # plan is held), "plan" = a dedicated forward plan

@@ -43,6 +43,7 @@ class NPBCGResult:
     # how V^T was applied: its own plan, or V's in reverse (None: an
     # assembled matrix, no factored operator)
     factored_vt: Optional[str] = "plan"
+    rnorm_history: Optional[np.ndarray] = None  # rnorm after each outer step
 
 
 def nnz_per_row_flops(cls) -> float:
@@ -154,6 +155,7 @@ def run(
         rnorm_last=float(rnorm_hist[-1]),
         zeta_history=zeta_hist,
         factored_vt=getattr(plan, "factored_vt", None),
+        rnorm_history=rnorm_hist,
     )
 
 

@@ -7,7 +7,9 @@ prints GFLOP/s; the golden comparison uses parboil's float tolerance.
 
 kernel: "cuda" (kernel K12, kernels/gemm.py; what "auto" means) or
 "torch" (one torch.matmul with TF32 off, the counterpart of the
-reference's XLA option).
+reference's XLA option). The reference's names are taken too and mean
+what they mean there: "pallas" (its hand kernel, its default) runs K12,
+"xla" runs torch.matmul.
 """
 
 from __future__ import annotations
@@ -53,15 +55,21 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+# every kernel name run_arrays takes -> the port's route
+KERNELS = {"auto": "cuda", "cuda": "cuda", "torch": "torch",
+           "pallas": "cuda", "xla": "torch"}
+
+
 def run_arrays(A: np.ndarray, BT: np.ndarray, kernel: str = "auto", device="cuda"):
     """C = A @ BT.T on `device`. Returns (C as numpy, SgemmResult): one
     warm-up call, then 4 chained repetitions timed up to a synchronised
-    scalar read-back."""
+    scalar read-back. SgemmResult.kernel is the route taken, "cuda" or
+    "torch"."""
     from lilac_tpu_torch.kernels import gemm
 
-    if kernel not in ("auto", "cuda", "torch"):
-        raise ValueError(f"unknown sgemm kernel {kernel!r}: auto | cuda | torch")
-    kernel = "cuda" if kernel == "auto" else kernel
+    if kernel not in KERNELS:
+        raise ValueError(f"unknown sgemm kernel {kernel!r}: {' | '.join(KERNELS)}")
+    kernel = KERNELS[kernel]
     fn = gemm.matmul_nt if kernel == "cuda" else gemm.matmul_nt_torch
     m, k = A.shape
     n, _ = BT.shape

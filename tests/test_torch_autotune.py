@@ -3,9 +3,9 @@
 features, train, heuristic_label, LinearSelector's JSON, the corpora and
 build_model_v2 are host numpy: bit for bit. The port's own rules are held
 here too: every row names its card, one rows file holds one card's rows,
-the default paths are the package's, no model ships, measure skips only a
-kernel whose container refuses the matrix, and SpmvPlan asks an installed
-model in the reference's order.
+the default paths are the package's, the shipped model serves on no CPU,
+measure skips only a kernel whose container refuses the matrix, and
+SpmvPlan asks an installed model in the reference's order.
 """
 
 import json
@@ -116,6 +116,9 @@ def test_build_model_v2_writes_the_same_numbers(tmp_path):
     tm = json.loads((tmp_path / "t.json").read_text())["meta"]
     jm = json.loads((tmp_path / "j.json").read_text())["meta"]
     tm.pop("device")
+    # the port's meta also records the corpus's extent (predict's range)
+    assert tm.pop("corpus_max_nrows") == max(r["nrows"] for r in rows)
+    assert tm.pop("corpus_max_nnz") == max(r["nnz"] for r in rows)
     assert tm == jm
 
 
@@ -135,7 +138,7 @@ def test_build_model_v2_refuses_mixed_devices(tmp_path):
 def test_ship_gate_blocks_a_weak_model(tmp_path, monkeypatch, no_model):
     """A model whose held-out accuracy does not beat both baselines is not
     installed; a separable one is (tests/test_autotune_bench.py's case)."""
-    rows = _rows(40)
+    rows = _rows(40, device=CPU)
     for i, r in enumerate(rows):  # routed wins 80%, features are noise
         win = "routed" if i % 5 else "xla_ell"
         r["times"] = {"routed": 2.0, "xla_ell": 2.0}
@@ -149,8 +152,8 @@ def test_ship_gate_blocks_a_weak_model(tmp_path, monkeypatch, no_model):
     with open(model_path, "w") as f:
         json.dump(d, f)
     monkeypatch.setenv(tat.MODEL_ENV, model_path)
-    assert tat.installed_model() is None
-    assert tat.predict(1000, 5000, 5.0, 1.0) is None
+    assert tat.installed_model(CPU) is None
+    assert tat.predict(1000, 5000, 5.0, 1.0, device=CPU) is None
     for i, r in enumerate(rows):  # separable on feat[0]
         win = "routed" if i % 2 else "xla_ell"
         r["times"] = {"routed": 2.0, "xla_ell": 2.0}
@@ -160,7 +163,32 @@ def test_ship_gate_blocks_a_weak_model(tmp_path, monkeypatch, no_model):
     tat.build_model_v2(rows_path, model_path, verbose=False)
     assert json.loads(open(model_path).read())["meta"]["gated_ok"]
     tat._cached_model = tat._cached_path = None
-    assert tat.installed_model() is not None
+    assert tat.installed_model(CPU) is not None
+
+
+def test_model_serves_only_inside_its_corpus(tmp_path, monkeypatch, no_model):
+    """predict answers for a matrix with no more rows and entries than the
+    largest of the model's rows, and None beyond (the heuristic serves)."""
+    rows = _rows(40, device=CPU)
+    for i, r in enumerate(rows):  # separable on feat[0]: xla_csr above 0
+        win = "xla_csr" if i % 2 else "xla_ell"
+        r["times"] = {"xla_csr": 2.0, "xla_ell": 2.0}
+        r["times"][win] = 1.0
+        r["feat"][0] = 5.0 if win == "xla_csr" else -5.0
+    rows_path, model_path = str(tmp_path / "rows.jsonl"), str(tmp_path / "m.json")
+    _write(rows_path, rows)
+    tat.build_model_v2(rows_path, model_path, verbose=False)
+    monkeypatch.setenv(tat.MODEL_ENV, model_path)
+    meta = json.loads(open(model_path).read())["meta"]
+    n, nnz = meta["corpus_max_nrows"], meta["corpus_max_nnz"]
+    assert (n, nnz) == (max(r["nrows"] for r in rows), max(r["nnz"] for r in rows))
+    assert tat.installed_model(CPU) is not None
+    assert tat.predict(n, nnz, 5.0, 1.0, device=CPU) == "xla_csr"
+    assert tat.predict(n + 1, nnz, 5.0, 1.0, device=CPU) is None
+    assert tat.predict(n, nnz + 1, 5.0, 1.0, device=CPU) is None
+    # SpmvPlan on a matrix inside the extent takes the model's label
+    (ip, ix, v), sh = random_csr(np.random.default_rng(4), 64, 64, 0.1)
+    assert SpmvPlan(ip, ix, v, sh, dtype="f32", device=CPU).kernel == "xla_csr"
 
 
 def test_collect_rows_resumes_and_names_the_device(tmp_path, monkeypatch):
@@ -206,11 +234,16 @@ def test_measure_times_kernels_and_skips_only_refusals(monkeypatch):
 
 
 def test_defaults_are_the_package_files_and_no_model_ships(no_model):
+    """The defaults are the package's files. A model ships since the
+    card's corpus was collected (tests/test_torch_formats_dense.py holds
+    it): it names its card, so on the CPU no model serves."""
     here = os.path.dirname(os.path.abspath(tat.__file__))
     assert tat.DEFAULT_MODEL_PATH == os.path.join(here, "model.json")
     assert tat.DEFAULT_ROWS_PATH == os.path.join(here, "rows_h100.jsonl")
-    assert not os.path.exists(tat.DEFAULT_MODEL_PATH)
-    assert tat.installed_model() is None and tat.predict(1000, 5000, 5.0, 1.0) is None
+    with open(tat.DEFAULT_MODEL_PATH) as f:
+        assert "H100" in json.load(f)["meta"]["device"]
+    assert tat.installed_model(CPU) is None
+    assert tat.predict(1000, 5000, 5.0, 1.0, device=CPU) is None
 
 
 def test_plan_uses_an_installed_model(tmp_path, monkeypatch, no_model):

@@ -436,8 +436,8 @@ def test_npb_class_s_through_hier_plans(small_hier_classes, monkeypatch):
 def test_hier_modes_that_still_raise(monkeypatch):
     """factored_vt=adj raises for no size; auto resolves as in the reference
     (adj beyond one table, plan below, plan for a gather layout); scan is a
-    gather layout (plan); mixed still raises, except with adj, which is
-    routed."""
+    gather layout (plan); mixed is routed with adj and, since it is ported,
+    mixed with a V^T plan: no mode raises any more."""
     from lilac_tpu_torch.config import cfg
 
     monkeypatch.setenv("LILAC_FACTORED_VT", "adj")
@@ -454,8 +454,7 @@ def test_hier_modes_that_still_raise(monkeypatch):
     monkeypatch.setenv("LILAC_FACTORED_VT", "plan")
     assert tfac._resolve_modes(cfg(), 1_500_000, "cuda") == ("scan", "plan")
     monkeypatch.setenv("LILAC_FACTORED_SEGMODE", "mixed")
-    with pytest.raises(NotImplementedError, match="JagELLT"):
-        tfac._resolve_modes(cfg(), 1_500_000, "cuda")
+    assert tfac._resolve_modes(cfg(), 1_500_000, "cuda") == ("mixed", "plan")
 
 
 # ---- K4 / K6 launch shapes (butterfly_launch_config) --------------------------

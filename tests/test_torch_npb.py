@@ -262,9 +262,11 @@ def test_unported_paths_raise(data_dirs, monkeypatch):
     monkeypatch.setenv("LILAC_FACTORED_SEGMODE", "scan")
     A, _ = tfac.build_factored("S", device="cpu")
     assert A.V.nseg == A.VT.nseg == 1 and A.V.shape == (1400, 1400)
+    # mixed is ported (tests/test_torch_mixed.py): V a hier plan, V^T a
+    # single-segment gather layout in f64
     monkeypatch.setenv("LILAC_FACTORED_SEGMODE", "mixed")
-    with pytest.raises(NotImplementedError, match="JagELLT"):
-        tfac.build_factored("S", device="cpu")
+    A, _ = tfac.build_factored("S", device="cpu")
+    assert isinstance(A.V, trs.RoutedMatHierP) and A.VT.shape == (1400, 1400)
     monkeypatch.setenv("LILAC_FACTORED_SEGMODE", "routed")
     monkeypatch.setenv("LILAC_FACTORED_VT", "adj")
     # the adjoint product is ported: adj raises for no class, holds V's plan

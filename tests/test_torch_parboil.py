@@ -216,8 +216,10 @@ def test_sgemm_torch_option_and_files(tmp_path):
     c64, bound = _gemm_bound(A, BT)
     C, res = tsg.run_arrays(A, BT, kernel="torch", device="cpu")
     assert res.kernel == "torch" and np.all(np.abs(C - c64) <= bound)
+    # the reference's names are taken (test_torch_formats_dense.py); a name
+    # of neither package is refused
     with pytest.raises(ValueError, match="unknown sgemm kernel"):
-        tsg.run_arrays(A, BT, kernel="pallas", device="cpu")
+        tsg.run_arrays(A, BT, kernel="mxu", device="cpu")
     for name, mat in (("a", A), ("bt", BT), ("c", c64.astype(np.float32))):
         tsg.write_col_major(str(tmp_path / f"{name}.txt"), mat)
     C2, _, matched = tsg.run(str(tmp_path / "a.txt"), str(tmp_path / "bt.txt"),

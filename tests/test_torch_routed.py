@@ -219,9 +219,10 @@ def test_plan_files_interchange(tmp_path, dtype):
     z["version"] = np.asarray(1)
     np.savez(str(tmp_path / "old.npz"), **z)
     assert trs.load_routed(str(tmp_path / "old.npz"), device="cpu") is None
-    # column-segmented plans are not ported (hierarchical ones are: see
-    # test_torch_hier.py)
-    z["version"], z["cls"] = np.asarray(2), np.asarray("RoutedMatSeg")
-    np.savez(str(tmp_path / "seg.npz"), **z)
-    with pytest.raises(NotImplementedError):
-        trs.load_routed(str(tmp_path / "seg.npz"), device="cpu")
+    # a plan class neither package writes is refused, not misread (column-
+    # segmented and hierarchical plans interchange too: see
+    # test_torch_routed_seg.py and test_torch_hier.py)
+    z["version"], z["cls"] = np.asarray(2), np.asarray("RoutedMatNone")
+    np.savez(str(tmp_path / "other.npz"), **z)
+    with pytest.raises(ValueError, match="unknown plan class"):
+        trs.load_routed(str(tmp_path / "other.npz"), device="cpu")
