@@ -3662,6 +3662,47 @@ def _sparsebench(kernels: dict, t_phase: float, replica) -> dict:
 PORT_KERNELS = ("hier_", "adj_", "dfmulred", "inner::", "tile_pass", "routed_stage")
 
 
+def _trace(fn):
+    """Run fn under torch.profiler: (wall seconds, {kernel: (count, us)},
+    device busy seconds). Copies and sets are device work but no kernel
+    launches: they count in busy, the union of every device operation's
+    interval, and are left out of the kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels, spans = {}, []
+    for ev in prof.events():
+        if "cuda" not in str(getattr(ev, "device_type", "")).lower():
+            continue
+        spans.append((ev.time_range.start, ev.time_range.end))
+        if not ev.name.startswith(("Memcpy", "Memset")):
+            c, us = kernels.get(ev.name, (0, 0.0))
+            kernels[ev.name] = (c + 1, us + ev.device_time)
+    busy_us, reach = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > reach:
+            busy_us += b - max(a, reach)
+            reach = b
+    return wall, kernels, busy_us * 1e-6
+
+
+def _summary(wall, kernels, busy, top=20):
+    rows = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:top]
+    return {
+        "wall_ms": wall * 1e3,
+        "device_busy_ms": busy * 1e3,
+        "device_idle_share": max(0.0, 1.0 - busy / wall) if wall else None,
+        "launches": sum(c for c, _ in kernels.values()),
+        "top_by_device_time": [
+            {"kernel": name[:90], "count": c, "ms": us / 1e3} for name, (c, us) in rows],
+    }
+
+
 def phase_sb_profile(size: int = 160) -> dict:
     """Opt-in: where the size-160 BiCG spends its time. For the routed plan
     (adj) and the gather path, torch.profiler traces one A p, one A^T p and
@@ -3669,7 +3710,6 @@ def phase_sb_profile(size: int = 160) -> dict:
     2 warm-up iterations), beside the untraced wall of those 3 iterations;
     each trace's device time is split between the port's kernels and
     PyTorch's (the df64 glue and vector ops)."""
-    from lilac_tpu_torch.profile_npb import _summary, _trace
     from lilac_tpu_torch.solvers.algebra import get_algebra
     from lilac_tpu_torch.solvers.bicg import bicg_solve
     from lilac_tpu_torch.workloads import sparsebench as sb
@@ -3701,8 +3741,8 @@ def phase_sb_profile(size: int = 160) -> dict:
         for what, fn in (("A_p", lambda: args[0](As, p)), ("At_p", lambda: mv_t(As, p)),
                          ("three_iterations", iterations)):
             fn()
-            wall, ks = _trace(fn)
-            s = _summary(wall, ks, top=12)
+            wall, ks, busy = _trace(fn)
+            s = _summary(wall, ks, busy, top=12)
             port_us = sum(us for name, (_, us) in ks.items()
                           if any(k in name for k in PORT_KERNELS))
             s["port_kernels_ms"] = port_us / 1e3
@@ -4080,7 +4120,6 @@ def phase_graph_profile() -> dict:
     iterations (after a warm-up), beside the untraced wall of 10; each
     trace's device time is split between the port's kernels and PyTorch's."""
     from lilac_tpu_torch.generate.graphs import powerlaw_graph
-    from lilac_tpu_torch.profile_npb import _summary, _trace
     from lilac_tpu_torch.workloads import pagerank
 
     g = powerlaw_graph(GRAPH_N, GRAPH_DEG, seed=0)
@@ -4101,8 +4140,8 @@ def phase_graph_profile() -> dict:
         row = {"kernel": plan.kernel, "ten_iterations_untraced_ms":
                (time.perf_counter() - t0) * 1e3}
         for what, k in (("one_iteration", 1), ("ten_iterations", 10)):
-            wall, ks = _trace(lambda: iterations(k))
-            s = _summary(wall, ks, top=12)
+            wall, ks, busy = _trace(lambda: iterations(k))
+            s = _summary(wall, ks, busy, top=12)
             port_us = sum(us for name, (_, us) in ks.items()
                           if any(p in name for p in PORT_KERNELS))
             s["port_kernels_ms"] = port_us / 1e3
@@ -4191,7 +4230,6 @@ def phase_pathsample() -> dict:
     with its seeded pfold; pfold against the dense committor at a mixing
     temperature; and the bench CLI's pathsample row."""
     from lilac_tpu_torch.plan import SpmvPlan
-    from lilac_tpu_torch.profile_npb import _trace
     from lilac_tpu_torch.workloads import pathsample as ps
 
     t_phase = time.time()
@@ -4228,7 +4266,7 @@ def phase_pathsample() -> dict:
             p = torch.where(mask, plan.matvec_with(plan.A, p), p)
 
     sweeps()
-    _, ks = _trace(sweeps)
+    _, ks, _ = _trace(sweeps)
     out["pfold"].update(kernel=plan.kernel, launches_a_sweep=sum(
         c for c, _ in ks.values()) / 10, kernels_a_sweep={
         name[:60]: c / 10 for name, (c, _) in ks.items()})

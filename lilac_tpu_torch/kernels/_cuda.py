@@ -22,6 +22,8 @@ import subprocess
 import time
 from typing import Dict
 
+from lilac_tpu_torch.utils.profiling import BUILD, span
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(os.path.dirname(_PKG), "build", "lilac_tpu_torch")
@@ -41,6 +43,8 @@ NVCC_FLAGS = (
 )
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# a library's first load in the process: dlopen, and nvcc where it is missing
+_KERNELS = span("lilac.build.kernels", BUILD)
 
 
 def source_path(name: str) -> str:
@@ -111,10 +115,11 @@ def load(name: str) -> ctypes.CDLL:
     """The ctypes library of one source file, built on first use."""
     lib = _libs.get(name)
     if lib is None:
-        so = _target(name)
-        if not os.path.exists(so):
-            build_all()
-        lib = ctypes.CDLL(so)
+        with _KERNELS:
+            so = _target(name)
+            if not os.path.exists(so):
+                build_all()
+            lib = ctypes.CDLL(so)
         _libs[name] = lib
     return lib
 

@@ -86,6 +86,14 @@ from lilac_tpu_torch.kernels.routed_spmv import (
     save_routed,
 )
 from lilac_tpu_torch.ops import dfloat as df
+from lilac_tpu_torch.utils.profiling import BUILD, span
+
+_MATVEC = span("lilac.operator.matvec")
+_V = span("lilac.operator.V")
+_VT = span("lilac.operator.VT")  # VT's own plan, or V's run in reverse
+_PLAN_READ = span("lilac.build.plan.read", BUILD)
+_PLAN_MAKEA = span("lilac.build.plan.makea", BUILD)
+_PLAN_ROUTE = span("lilac.build.plan.route", BUILD)
 
 SINGLE_TABLE_MAX = 1 << 18  # largest n the reference serves with one table
 # Columns a segment of the scan layout. A layout constant: it fixes the
@@ -163,7 +171,9 @@ def _load_plans(paths, device):
     if not all(os.path.exists(p) for p in paths):
         return None
     try:
-        plans = [load_routed(p, device=device) for p in paths]
+        # a single table is uploaded inside load_routed, a hier plan later
+        with _PLAN_READ(fence=device):
+            plans = [load_routed(p, device=device) for p in paths]
     except _LOAD_ERRORS:
         return None
     if any(p is None for p in plans) or not plans[0].colmajor:
@@ -172,9 +182,10 @@ def _load_plans(paths, device):
 
 
 def _build_hier_plan(path, indptr, indices, vals, n, dtype, device):
-    M = build_routed_csr_hier(
-        indptr, indices, vals, (n, n), dtype=dtype, bl=hier_bl_cfg(), verbose=True)
-    save_routed(path, M)
+    with _PLAN_ROUTE:
+        M = build_routed_csr_hier(
+            indptr, indices, vals, (n, n), dtype=dtype, bl=hier_bl_cfg(), verbose=True)
+        save_routed(path, M)
     return maybe_pack_hier(M, device)
 
 
@@ -221,15 +232,17 @@ def build_factored(
             # and nnz_eff, so the makea triples are not regenerated
             plans = _load_plans(paths, device)
             try:
-                z = np.load(meta_path, allow_pickle=False)
-                s_meta, nnz_meta = z["s"], int(z["nnz_eff"])
+                with _PLAN_READ:
+                    z = np.load(meta_path, allow_pickle=False)
+                    s_meta, nnz_meta = z["s"], int(z["nnz_eff"])
             except _LOAD_ERRORS:
                 plans = None
             if plans is not None:
                 V, VT = [maybe_pack_hier(p, device) for p in plans] + [None] * adj
                 return FactoredNPB(V=V, VT=VT, s=to_dev(s_meta), d0=d0), nnz_meta
 
-    nzv_arr, ivc, vc = _generate_triples(cls)
+    with _PLAN_MAKEA:
+        nzv_arr, ivc, vc = _generate_triples(cls)
     rows_i = np.repeat(np.arange(n, dtype=np.int64), nzv_arr)
     pos_j = ivc - 1
 
@@ -270,9 +283,10 @@ def build_factored(
             if cached is not None:
                 plans.append(maybe_pack_hier(cached[0], device))
             elif n <= SINGLE_TABLE_MAX:
-                plans.append(build_routed_csr(
-                    ip, ix, vv, (n, n), dtype=dtype, device=device))
-                save_routed(path, plans[-1])
+                with _PLAN_ROUTE(fence=device):
+                    plans.append(build_routed_csr(
+                        ip, ix, vv, (n, n), dtype=dtype, device=device))
+                    save_routed(path, plans[-1])
             else:
                 plans.append(_build_hier_plan(path, ip, ix, vv, n, dtype, device))
         V, VT = plans + [None] * adj
@@ -370,17 +384,23 @@ def _spmv_adj_any_df(A, u):
 
 def factored_spmv(A: FactoredNPB, x: torch.Tensor) -> torch.Tensor:
     """Plain-float factored product (f32/f64)."""
-    t = _spmv_any(A.V, x)
-    u = A.s * t
-    y = _spmv_adj_any(A.V, u) if A.VT is None else _spmv_any(A.VT, u)
-    return y + A.d0 * x
+    with _MATVEC:
+        with _V:
+            t = _spmv_any(A.V, x)
+        u = A.s * t
+        with _VT:
+            y = _spmv_adj_any(A.V, u) if A.VT is None else _spmv_any(A.VT, u)
+        return y + A.d0 * x
 
 
 def factored_spmv_df(A: FactoredNPB, x: df.DF) -> df.DF:
     """df64 factored product: TwoProd per element, compensated reductions."""
-    t = _spmv_any_df(A.V, x)
-    s = df.DF(A.s[..., 0], A.s[..., 1])
-    u = df.mul(s, t)
-    y = _spmv_adj_any_df(A.V, u) if A.VT is None else _spmv_any_df(A.VT, u)
-    d0 = df.DF(A.d0[..., 0], A.d0[..., 1])
-    return df.add(y, df.mul(d0, x))
+    with _MATVEC:
+        with _V:
+            t = _spmv_any_df(A.V, x)
+        s = df.DF(A.s[..., 0], A.s[..., 1])
+        u = df.mul(s, t)
+        with _VT:
+            y = _spmv_adj_any_df(A.V, u) if A.VT is None else _spmv_any_df(A.VT, u)
+        d0 = df.DF(A.d0[..., 0], A.d0[..., 1])
+        return df.add(y, df.mul(d0, x))

@@ -49,6 +49,13 @@ from lilac_tpu_torch.kernels import dfmulred as dfk
 from lilac_tpu_torch.kernels import routed as rd
 from lilac_tpu_torch.kernels import routenet as rn
 from lilac_tpu_torch.ops import dfloat as df
+from lilac_tpu_torch.utils.profiling import BUILD, span
+
+# the calls into the network passes (kernels/routed.py: K1, K3-K11) and
+# into K2 and its chunk forms (kernels/dfmulred.py)
+_ROUTE = span("lilac.kernels.route")
+_MULRED = span("lilac.kernels.mulred")
+_UPLOAD = span("lilac.build.plan.upload", BUILD)
 
 
 @dataclasses.dataclass
@@ -247,9 +254,10 @@ def _chunk_reduce_df(prod, chunks, colmajor=False):
     concatenated 1D tensors."""
     his, los = [], []
     for c, (rows_c, k_c) in enumerate(chunks):
-        h, l_ = dfk.chunk_reduce_net_df(
-            df.DF(prod.hi[c], prod.lo[c]), ((0, rows_c, k_c),), colmajor
-        )
+        with _MULRED:
+            h, l_ = dfk.chunk_reduce_net_df(
+                df.DF(prod.hi[c], prod.lo[c]), ((0, rows_c, k_c),), colmajor
+            )
         his.append(h)
         los.append(l_)
     return torch.cat(his), torch.cat(los)
@@ -275,16 +283,18 @@ def _mulreduce_df_2d(vals, oh, ol, chunks, m: int, colmajor: bool):
 
     if colmajor and cfg().df_fused:
         v = vals.reshape(-1, 2)
-        return dfk.dfmulred_chunks(v[:, 0], v[:, 1], oh.reshape(-1), ol.reshape(-1),
-                                   _single_table_k2(chunks, m))
+        with _MULRED:
+            return dfk.dfmulred_chunks(v[:, 0], v[:, 1], oh.reshape(-1),
+                                       ol.reshape(-1), _single_table_k2(chunks, m))
     prod = df.mul(df.DF(vals[..., 0], vals[..., 1]), df.DF(oh, ol))
     return _chunk_reduce_df(prod, chunks, colmajor)
 
 
 def routed_spmv(A: RoutedMat, x: torch.Tensor) -> torch.Tensor:
-    (out,) = rd.routed_apply(
-        [_pad_plane(x.to(A.vals.dtype), A.m)], A.masks, A.kinds, A.dists
-    )
+    with _ROUTE:
+        (out,) = rd.routed_apply(
+            [_pad_plane(x.to(A.vals.dtype), A.m)], A.masks, A.kinds, A.dists
+        )
     prod = A.vals * out.view(len(A.chunks), A.m)
     y = _chunk_reduce(prod, A.chunks, A.m, A.colmajor)
     if A.inv_perm is not None:
@@ -293,10 +303,11 @@ def routed_spmv(A: RoutedMat, x: torch.Tensor) -> torch.Tensor:
 
 
 def routed_spmv_df(A: RoutedMat, x: df.DF) -> df.DF:
-    oh, ol = rd.routed_apply(
-        [_pad_plane(x.hi, A.m), _pad_plane(x.lo, A.m)],
-        A.masks, A.kinds, A.dists,
-    )
+    with _ROUTE:
+        oh, ol = rd.routed_apply(
+            [_pad_plane(x.hi, A.m), _pad_plane(x.lo, A.m)],
+            A.masks, A.kinds, A.dists,
+        )
     B = len(A.chunks)
     hi, lo = _mulreduce_df_2d(A.vals, oh.view(B, A.m), ol.view(B, A.m), A.chunks,
                               A.m, A.colmajor)
@@ -345,7 +356,8 @@ def routed_spmv_adj_t(A: RoutedMat, u: torch.Tensor) -> torch.Tensor:
     B, R = len(A.chunks), A.m // 128
     sl = _adj_slots(A, _adj_sorted(A, u.unsqueeze(0)))[0]
     prod = (A.vals * sl).to(u.dtype)
-    (out,) = rd.routed_apply_t([prod.view(B, R, 128)], A.masks, A.kinds, A.dists)
+    with _ROUTE:
+        (out,) = rd.routed_apply_t([prod.view(B, R, 128)], A.masks, A.kinds, A.dists)
     return out.view(B, A.m).sum(dim=0)[: A.shape[1]]
 
 
@@ -356,9 +368,10 @@ def routed_spmv_adj_t_df(A: RoutedMat, u: df.DF) -> df.DF:
     B, R = len(A.chunks), A.m // 128
     sl = _adj_slots(A, _adj_sorted(A, torch.stack([u.hi, u.lo])))
     prod = df.mul(df.DF(A.vals[..., 0], A.vals[..., 1]), df.DF(sl[0], sl[1]))
-    oh, ol = rd.routed_apply_t(
-        [prod.hi.view(B, R, 128), prod.lo.view(B, R, 128)],
-        A.masks, A.kinds, A.dists, dfpair=True)
+    with _ROUTE:
+        oh, ol = rd.routed_apply_t(
+            [prod.hi.view(B, R, 128), prod.lo.view(B, R, 128)],
+            A.masks, A.kinds, A.dists, dfpair=True)
     y = df.sum_df0(df.DF(oh.view(B, A.m), ol.view(B, A.m)))
     return df.DF(y.hi[: A.shape[1]], y.lo[: A.shape[1]])
 
@@ -520,7 +533,8 @@ def routed_seg_spmv(A: RoutedMatSeg, x: torch.Tensor) -> torch.Tensor:
     xs = _seg_planes(x.to(A.vals[0].dtype), A)
     y = None
     for s in range(len(A.masks)):
-        (out,) = rd.routed_apply([xs[s]], A.masks[s], A.kinds[s], A.dists[s])
+        with _ROUTE:
+            (out,) = rd.routed_apply([xs[s]], A.masks[s], A.kinds[s], A.dists[s])
         t = _chunk_reduce(A.vals[s] * out.view(len(A.chunks[s]), A.m),
                           A.chunks[s], A.m, A.colmajor)
         y = t if y is None else y + t
@@ -537,7 +551,9 @@ def routed_seg_spmv_df(A: RoutedMatSeg, x: df.DF) -> df.DF:
     hs, ls = _seg_planes(x.hi, A), _seg_planes(x.lo, A)
     y = None
     for s in range(len(A.masks)):
-        oh, ol = rd.routed_apply([hs[s], ls[s]], A.masks[s], A.kinds[s], A.dists[s])
+        with _ROUTE:
+            oh, ol = rd.routed_apply([hs[s], ls[s]], A.masks[s], A.kinds[s],
+                                     A.dists[s])
         B = len(A.chunks[s])
         t = df.DF(*_mulreduce_df_2d(A.vals[s], oh.view(B, A.m), ol.view(B, A.m),
                                     A.chunks[s], A.m, A.colmajor))
@@ -782,7 +798,8 @@ def _split_hier(passes) -> HierNet:
 def hier_net_apply(net: HierNet, planes, bl: int):
     """One net through the un-batched appliers (kernels K3u-K6u)."""
     passes = [m + (mk,) for m, mk in zip(net.pass_meta, net.pass_masks)]
-    return rd.hier_apply(planes, passes, bl)
+    with _ROUTE:
+        return rd.hier_apply(planes, passes, bl)
 
 
 @dataclasses.dataclass
@@ -945,7 +962,8 @@ def maybe_pack_hier(M, device="cuda"):
 
     if not isinstance(M, RoutedMatHier):
         return M
-    return pack_hier(M, device) if cfg().hier_pack else hier_to_device(M, device)
+    with _UPLOAD(fence=device):
+        return pack_hier(M, device) if cfg().hier_pack else hier_to_device(M, device)
 
 
 def hier_bl_cfg() -> int:
@@ -1161,7 +1179,8 @@ def _routed_hier_spmv_packed(A: RoutedMatHierP, x):
     xp = _pad_plane(x.to(A.groups[0].vals.dtype), A.m)
     parts = [None] * len(A.chunks)
     for grp in A.groups:
-        (o,) = rd.hier_apply_batched((xp,), grp.pass_meta, grp.pass_masks, A.bl)
+        with _ROUTE:
+            (o,) = rd.hier_apply_batched((xp,), grp.pass_meta, grp.pass_masks, A.bl)
         prod = grp.vals * o  # both [Ng, m//128, 128]
         for li, ni in enumerate(grp.net_ids):
             parts[ni] = _chunk_reduce_net(
@@ -1203,19 +1222,24 @@ def _routed_hier_spmv_packed_df(A: RoutedMatHierP, x: df.DF) -> df.DF:
         nnets = len(A.chunks)
         parts_h, parts_l = [None] * nnets, [None] * nnets
         for grp in A.groups:
-            oh, ol = rd.hier_apply_batched(planes, grp.pass_meta, grp.pass_masks, A.bl)
+            with _ROUTE:
+                oh, ol = rd.hier_apply_batched(planes, grp.pass_meta, grp.pass_masks,
+                                               A.bl)
             for li, ni in enumerate(grp.net_ids):
-                parts_h[ni], parts_l[ni] = dfk.chunk_mulreduce_df(
-                    (grp.vals[0, li].reshape(A.m), grp.vals[1, li].reshape(A.m)),
-                    oh[li].reshape(A.m), ol[li].reshape(A.m),
-                    A.chunks[ni], A.colmajor)
+                with _MULRED:
+                    parts_h[ni], parts_l[ni] = dfk.chunk_mulreduce_df(
+                        (grp.vals[0, li].reshape(A.m), grp.vals[1, li].reshape(A.m)),
+                        oh[li].reshape(A.m), ol[li].reshape(A.m),
+                        A.chunks[ni], A.colmajor)
         return df.DF(*_hier_unperm(A, (torch.cat(parts_h), torch.cat(parts_l))))
     tables = _hier_k2(A.chunks, tuple(g.net_ids for g in A.groups), A.m)
     out = _k2_outputs(tables, planes[0])
     for grp, table in zip(A.groups, tables):
-        oh, ol = rd.hier_apply_batched(planes, grp.pass_meta, grp.pass_masks, A.bl)
-        out = dfk.dfmulred_chunks(grp.vals[0].reshape(-1), grp.vals[1].reshape(-1),
-                                  oh.reshape(-1), ol.reshape(-1), table, out)
+        with _ROUTE:
+            oh, ol = rd.hier_apply_batched(planes, grp.pass_meta, grp.pass_masks, A.bl)
+        with _MULRED:
+            out = dfk.dfmulred_chunks(grp.vals[0].reshape(-1), grp.vals[1].reshape(-1),
+                                      oh.reshape(-1), ol.reshape(-1), table, out)
     return df.DF(*_hier_unperm(A, out))
 
 
@@ -1234,8 +1258,9 @@ def routed_hier_spmv_df(A, x: df.DF) -> df.DF:
         his, los = [], []
         for net, vals, chlist in zip(A.nets, A.vals, A.chunks):
             oh, ol = hier_net_apply(net, planes, A.bl)
-            h, l_ = dfk.chunk_mulreduce_df(
-                vals, oh.reshape(A.m), ol.reshape(A.m), chlist, A.colmajor)
+            with _MULRED:
+                h, l_ = dfk.chunk_mulreduce_df(
+                    vals, oh.reshape(A.m), ol.reshape(A.m), chlist, A.colmajor)
             his.append(h)
             los.append(l_)
         return df.DF(*_hier_unperm(A, (torch.cat(his), torch.cat(los))))
@@ -1243,8 +1268,9 @@ def routed_hier_spmv_df(A, x: df.DF) -> df.DF:
     out = _k2_outputs(tables, planes[0])
     for net, vals, table in zip(A.nets, A.vals, tables):
         oh, ol = hier_net_apply(net, planes, A.bl)
-        out = dfk.dfmulred_chunks(vals[:, 0], vals[:, 1], oh.reshape(-1),
-                                  ol.reshape(-1), table, out)
+        with _MULRED:
+            out = dfk.dfmulred_chunks(vals[:, 0], vals[:, 1], oh.reshape(-1),
+                                      ol.reshape(-1), table, out)
     return df.DF(*_hier_unperm(A, out))
 
 
@@ -1278,11 +1304,12 @@ def _hier_adj_unperm(A, u: torch.Tensor, dfpair: bool) -> torch.Tensor:
     sorted space."""
     if A.unperm is None:
         return u[:, : A.n_nz]
-    outs = rd.hier_apply_batched_t(
-        tuple(_pad_plane(p, A.m_out).unsqueeze(0) for p in u),
-        A.unperm.pass_meta,
-        tuple(mk.unsqueeze(0) for mk in A.unperm.pass_masks),
-        A.bl, dfpair=dfpair)
+    with _ROUTE:
+        outs = rd.hier_apply_batched_t(
+            tuple(_pad_plane(p, A.m_out).unsqueeze(0) for p in u),
+            A.unperm.pass_meta,
+            tuple(mk.unsqueeze(0) for mk in A.unperm.pass_masks),
+            A.bl, dfpair=dfpair)
     return torch.stack([o.reshape(A.m_out)[: A.n_nz] for o in outs])
 
 
@@ -1322,8 +1349,9 @@ def routed_hier_spmv_adj_t(A, u: torch.Tensor) -> torch.Tensor:
     for net_ids, meta, masks, vals in _hier_adj_groups(A):
         sl = _hier_adj_slots(A, us, net_ids)[0]
         prod = (vals.reshape(len(net_ids), A.m) * sl).to(u.dtype)
-        (o,) = rd.hier_apply_batched_t(
-            (prod.reshape(len(net_ids), R, 128),), meta, masks, A.bl)
+        with _ROUTE:
+            (o,) = rd.hier_apply_batched_t(
+                (prod.reshape(len(net_ids), R, 128),), meta, masks, A.bl)
         t = o.sum(dim=0).reshape(A.m)
         y = t if y is None else y + t
     return y[: A.shape[1]]
@@ -1345,9 +1373,10 @@ def routed_hier_spmv_adj_t_df(A, u: df.DF) -> df.DF:
         prod = df.mul(df.DF(vh.reshape(N, A.m), vl.reshape(N, A.m)),
                       df.DF(sl[0], sl[1]))
         del sl
-        oh, ol = rd.hier_apply_batched_t(
-            (prod.hi.reshape(N, R, 128), prod.lo.reshape(N, R, 128)), meta, masks,
-            A.bl, dfpair=True)
+        with _ROUTE:
+            oh, ol = rd.hier_apply_batched_t(
+                (prod.hi.reshape(N, R, 128), prod.lo.reshape(N, R, 128)), meta,
+                masks, A.bl, dfpair=True)
         del prod
         t = df.sum_df0(df.DF(oh.view(N, A.m), ol.view(N, A.m)))
         y = t if y is None else df.add(y, t)

@@ -23,6 +23,9 @@ from lilac_tpu_torch.kernels import gather as _gather  # noqa: F401  (registers 
 from lilac_tpu_torch.kernels import routed_spmv as _rs  # noqa: F401  (registers kernels)
 from lilac_tpu_torch.kernels.registry import get_kernel
 from lilac_tpu_torch.ops import dfloat as df
+from lilac_tpu_torch.utils.profiling import BUILD, span
+
+_PLAN = span("lilac.build.plan", BUILD)
 
 ROUTED_KERNELS = ("routed", "routed_df", "routed_hier", "routed_hier_df")
 _HOST_DTYPE = {"f32": np.float32, "f64": np.float64, "bf16": np.float32}
@@ -264,7 +267,8 @@ class FactoredNPBPlan:
         self.shape = (cls.na, cls.na)
         self.dtype = dtype
         self.device = torch.device(device)
-        self.A, self.nnz = _f.build_factored(class_name, dtype=dtype, device=device)
+        with _PLAN(fence=self.device):
+            self.A, self.nnz = _f.build_factored(class_name, dtype=dtype, device=device)
         # label the sub-kernel serving the V / VT passes: "routed" = routing
         # networks through the CUDA kernels, "gather" = plain torch indexing
         routed = (RoutedMat, RoutedMatHier, RoutedMatHierP, RoutedMatSeg)

@@ -10,6 +10,15 @@ import numpy as np
 import torch
 
 from lilac_tpu_torch.ops import dfloat as df
+from lilac_tpu_torch.utils.profiling import span
+
+# the solver's own vector algebra, a span a method
+_DOT = span("lilac.solver.dot")
+_ADD = span("lilac.solver.add")
+_SUB = span("lilac.solver.sub")
+_SMUL = span("lilac.solver.smul")
+_SDIV = span("lilac.solver.sdiv")
+_SSQRT = span("lilac.solver.ssqrt")
 
 
 class FloatAlg:
@@ -22,22 +31,28 @@ class FloatAlg:
     def dot(self, u, v):
         # multiply + reduce-sum, as the reference does: the two packages
         # then round at the same places up to the order of the sum
-        return (u * v).sum()
+        with _DOT:
+            return (u * v).sum()
 
     def add(self, u, v):
-        return u + v
+        with _ADD:
+            return u + v
 
     def sub(self, u, v):
-        return u - v
+        with _SUB:
+            return u - v
 
     def smul(self, s, u):  # scalar * vector (or scalar * scalar)
-        return s * u
+        with _SMUL:
+            return s * u
 
     def sdiv(self, a, b):  # scalar / scalar
-        return a / b
+        with _SDIV:
+            return a / b
 
     def ssqrt(self, a):
-        return torch.sqrt(a)
+        with _SSQRT:
+            return torch.sqrt(a)
 
     def scalar(self, v):
         return torch.tensor(float(v), dtype=self.dtype, device=self.device)
@@ -61,23 +76,29 @@ class DF64Alg:
         self.device = device
 
     def dot(self, u, v):
-        return df.dot(u, v)
+        with _DOT:
+            return df.dot(u, v)
 
     def add(self, u, v):
-        return df.add(u, v)
+        with _ADD:
+            return df.add(u, v)
 
     def sub(self, u, v):
-        return df.sub(u, v)
+        with _SUB:
+            return df.sub(u, v)
 
     def smul(self, s, u):
         # scalar DF times vector DF: 0-dim tensors broadcast through mul
-        return df.mul(s, u)
+        with _SMUL:
+            return df.mul(s, u)
 
     def sdiv(self, a, b):
-        return df.div(a, b)
+        with _SDIV:
+            return df.div(a, b)
 
     def ssqrt(self, a):
-        return df.sqrt(a)
+        with _SSQRT:
+            return df.sqrt(a)
 
     def scalar(self, v):
         return df.full((), float(v), device=self.device)

@@ -20,6 +20,11 @@ from typing import Callable
 import torch
 
 from lilac_tpu_torch.ops.dfloat import DF
+from lilac_tpu_torch.utils.profiling import span
+
+_STEP = span("lilac.solver.step")
+_ITER = span("lilac.solver.iter")
+_RESIDUAL = span("lilac.solver.residual")
 
 
 def npb_conj_grad(matvec: Callable, alg, A, x, cgitmax: int = 25):
@@ -30,19 +35,21 @@ def npb_conj_grad(matvec: Callable, alg, A, x, cgitmax: int = 25):
     rho = alg.dot(r, r)
 
     for _ in range(cgitmax):
-        q = matvec(A, p)
-        d = alg.dot(p, q)
-        alpha = alg.sdiv(rho, d)
-        z = alg.add(z, alg.smul(alpha, p))
-        r = alg.sub(r, alg.smul(alpha, q))
-        rho_new = alg.dot(r, r)
-        beta = alg.sdiv(rho_new, rho)
-        p = alg.add(r, alg.smul(beta, p))
-        rho = rho_new
+        with _ITER:
+            q = matvec(A, p)
+            d = alg.dot(p, q)
+            alpha = alg.sdiv(rho, d)
+            z = alg.add(z, alg.smul(alpha, p))
+            r = alg.sub(r, alg.smul(alpha, q))
+            rho_new = alg.dot(r, r)
+            beta = alg.sdiv(rho_new, rho)
+            p = alg.add(r, alg.smul(beta, p))
+            rho = rho_new
 
-    az = matvec(A, z)
-    d = alg.sub(x, az)
-    rnorm = alg.ssqrt(alg.dot(d, d))
+    with _RESIDUAL:
+        az = matvec(A, z)
+        d = alg.sub(x, az)
+        rnorm = alg.ssqrt(alg.dot(d, d))
     return z, rnorm
 
 
@@ -59,12 +66,13 @@ def npb_power_method(
     x = x0
     zetas, rnorms = [], []
     for _ in range(niter):
-        z, rnorm = npb_conj_grad(matvec, alg, A, x, cgitmax)
-        norm1 = alg.dot(x, z)
-        norm2 = alg.dot(z, z)
-        zetas.append(alg.add(shift_s, alg.sdiv(one, norm1)))
-        rnorms.append(rnorm)
-        x = alg.smul(alg.sdiv(one, alg.ssqrt(norm2)), z)
+        with _STEP:
+            z, rnorm = npb_conj_grad(matvec, alg, A, x, cgitmax)
+            norm1 = alg.dot(x, z)
+            norm2 = alg.dot(z, z)
+            zetas.append(alg.add(shift_s, alg.sdiv(one, norm1)))
+            rnorms.append(rnorm)
+            x = alg.smul(alg.sdiv(one, alg.ssqrt(norm2)), z)
     return alg.stack(zetas), alg.stack(rnorms), x
 
 

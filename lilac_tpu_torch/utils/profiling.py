@@ -1,18 +1,21 @@
-"""Observability: phase timers, report cards, roofline accounting.
+"""Observability: spans, phase timers, report cards, roofline accounting.
 
 Counterpart of lilac_tpu/utils/profiling.py (the reference's per-section
-timers, per-op-class flop ledgers and parboil's time categories):
+timers and parboil's time categories):
 
+* span()          a named host-only range at a layer boundary of the
+                  program, recorded while a torch profiler records;
 * chip_spec()     the card's published peaks, looked up by its name;
 * PhaseTimers     named wall-clock sections, fenced by
                   torch.cuda.synchronize, printable as NPB's report card;
-* FlopLedger      analytic per-op-class flop / byte counters with rates;
+                  BUILD totals the set-up spans of the process;
 * roofline()      achieved GB/s and FLOP/s against the card's peaks;
 * spmv_traffic_bytes / routed_stage_work  a plan's bytes and stage work a
                   matvec;
 * measure_stage_roofline / measure_plan_stage_time  K1 (and the
                   hierarchical passes K3-K6) timed on synthetic planes;
-* trace()         torch.profiler around a region, written as a Chrome trace.
+* trace()         torch.profiler around a region, written as a Chrome trace
+                  with the spans on the kernels' timeline.
 
 Host arithmetic and report strings are the JAX package's, character for
 character, for the same inputs and the same spec.
@@ -28,6 +31,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 # published peaks, f32 unless noted: the H100 SXM data sheet (HBM3
 # 3.35 TB/s, 67 TFLOP/s f32, 989 TFLOP/s dense bf16 on the tensor cores),
@@ -116,50 +120,78 @@ class PhaseTimers:
         return "\n".join(lines)
 
 
-@dataclasses.dataclass
-class OpClass:
-    flops: float = 0.0
-    bytes: float = 0.0
-    time_s: float = 0.0
+# the set-up spans of this process (plan read, upload, build; kernel
+# libraries), by name: BUILD.report() prints them as NPB's card
+BUILD = PhaseTimers()
+
+# torch's function-scope range: a host event on the profiler's own clock,
+# for which the profiler draws no device-side annotation (it draws one for
+# the user-scope ranges of torch.profiler.record_function)
+_Range = torch._C._profiler._RecordFunctionFast
 
 
-class FlopLedger:
-    """Per-op-class flop / byte / time ledger (SparseBench's add_*_flops)."""
+class Span:
+    """A named range at one of the program's layer boundaries,
+    ``lilac.<layer>.<what>``, used as ``with SPAN:``. Made once a call site,
+    at import: entering it constructs nothing.
 
-    def __init__(self):
-        self.classes: Dict[str, OpClass] = {}
+    While a torch profiler records, the span opens a host-only range of its
+    name on the profiler's clock, so it shares a clock with the device
+    activity; its parent is the span that encloses it on the host thread.
+    Otherwise entering it checks one flag and leaving it finds no open
+    range. Spans of one object nest on one thread."""
 
-    def add(self, name: str, *, flops=0.0, bytes=0.0, time_s=0.0) -> None:
-        c = self.classes.setdefault(name, OpClass())
-        c.flops += flops
-        c.bytes += bytes
-        c.time_s += time_s
+    __slots__ = ("name", "_open")
 
-    def add_spmv(self, nnz: int, value_bytes=4, index_bytes=4, time_s=0.0):
-        self.add(
-            "spmv",
-            flops=2.0 * nnz,
-            bytes=nnz * (value_bytes + index_bytes) + 2 * value_bytes * nnz,
-            time_s=time_s,
-        )
+    def __init__(self, name: str):
+        self.name = name
+        self._open = []
 
-    def report(self, device="cuda") -> str:
-        spec = chip_spec(device)
-        lines = [
-            "  OP CLASS      GFLOP     GB     time(s)   GFLOP/s    GB/s   %roofline"
-        ]
-        for k, c in sorted(self.classes.items()):
-            gf = c.flops / 1e9
-            gb = c.bytes / 1e9
-            fr = gf / c.time_s if c.time_s else 0.0
-            br = gb / c.time_s if c.time_s else 0.0
-            roof = max(
-                fr / (spec["f32_tflops"] * 1e3), br / spec["hbm_gbps"]
-            )
-            lines.append(
-                f"  {k:12s} {gf:8.2f} {gb:7.2f} {c.time_s:9.4f} {fr:9.1f} {br:7.1f}  {roof:8.1%}"
-            )
-        return "\n".join(lines)
+    def __enter__(self):
+        if _autograd_profiler._is_profiler_enabled:
+            rf = _Range(self.name)
+            rf.__enter__()
+            self._open.append(rf)
+        return self
+
+    def __exit__(self, *exc):
+        if self._open:
+            self._open.pop().__exit__(None, None, None)
+        return False
+
+
+class BuildSpan(Span):
+    """A set-up span: a Span that also totals its host-clock seconds in
+    `timers` (BUILD), profiler or not. ``with SPAN(fence=device):`` waits
+    for the device work queued inside it before its clock stops, so that
+    work is inside the span. Set-up runs once a plan, so the clock costs
+    nothing that matters."""
+
+    __slots__ = ("timers", "_fence")
+
+    def __init__(self, name: str, timers: PhaseTimers):
+        super().__init__(name)
+        self.timers = timers
+        self._fence = None
+
+    def __call__(self, fence=None) -> "BuildSpan":
+        self._fence = fence
+        return self
+
+    def __enter__(self):
+        self.timers.start(self.name)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        fence, self._fence = self._fence, None
+        self.timers.stop(self.name, fence=fence)
+        return super().__exit__(*exc)
+
+
+def span(name: str, timers: Optional[PhaseTimers] = None) -> Span:
+    """The span `name` ("lilac.<layer>.<what>"): a Span, or a BuildSpan
+    totalled in `timers`."""
+    return Span(name) if timers is None else BuildSpan(name, timers)
 
 
 def tensor_bytes(obj) -> int:
@@ -354,7 +386,9 @@ def roofline(bytes_moved: float, flops: float, time_s: float, device="cuda") -> 
 def trace(logdir: str):
     """torch.profiler around a region, the host and (where there is one)
     the card: with trace('/tmp/trace'): run(). Writes
-    <logdir>/trace.json, a Chrome trace."""
+    <logdir>/trace.json, a Chrome trace, in which the program's spans
+    (lilac.solver.*, lilac.operator.*, lilac.kernels.*, lilac.build.*) lie
+    on the host's rows above the kernels they launched."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]
