@@ -12,6 +12,9 @@ proves on the card that
 
 * the CUDA kernels build from csrc/ (nvcc, sm_90a),
 * TwoSum / TwoProd inside the df64 kernel's translation unit are exact,
+* the solvers' df64 dot (kernels/dfdot.py, two launches) is the eager
+  df.dot bit for bit at NPB class C's and D's na, at odd sizes and on
+  adversarial planes, and is timed against it,
 * each kernel agrees with its plain PyTorch version (and the routing
   appliers with the numpy applier of the networks) at the shapes the main
   path gives it and at a small size; the routing kernels bit for bit, the
@@ -126,13 +129,15 @@ fault ("hier" = the small hierarchical checks and the general matrix, "k11"
 forced small tiles at m = 2^16, "inner" = K3, K3u and K7 on forced stage
 schedules at m = 2^16 and timed at the main paths' shapes, "window" = K5,
 K5u and K9 at every span, bit for bit, "c" = K1, K2, K11 on the class C plan,
+then the class C main path,
 "d" = the class D plan, its kernels and its runs, "gemm" = K12 and sgemm,
 "parboil" = Parboil spmv, "cg" = cg_solve on class C, "scan" = the scan
 layout (class D against 3 steps of adj), "mixed" = the mixed layout
 (classes S and W, then class D against 3 steps of adj), "seg" = the
 general matrix through column-segmented routing, "sparsebench" = the SparseBench
 phase, "graphs" = PageRank and BFS, "pathsample" = PATHSAMPLE, "tools" =
-the tooling phase, "dist" = the distribution phase; opt-in,
+the tooling phase, "dist" = the distribution phase, "dfdot" = the df64
+dot's two-launch kernel against df.dot and timed; opt-in,
 never in the whole run: "graph_profile" = torch.profiler over 1 and 10
 PageRank iterations at n = 1 000 000, routed and gather, "sb_profile" = torch.profiler over
 A p, A^T p and 3 BiCG iterations at size 160, routed and gather,
@@ -312,6 +317,123 @@ def phase_eft() -> dict:
             and line["nonzero_e_sum"] > n // 2 and line["nonzero_e_prod"] > n // 2):
         raise AssertionError(f"eft: transformations are not exact: {line}")
     return line
+
+
+DFDOT_SIZES = (150000, 1500000, 1, 4097, 1234567)  # NPB C and D, then three odd
+
+
+def _dfdot_planes(n: int, seed: int, adversarial: bool):
+    """Two df vectors of n terms on the card. Random: 12 decades, every
+    other product cancelling its neighbour's to 1e-9. Adversarial: hi words
+    drawn from phase_eft's operands (one ulp apart, full 24-bit mantissas,
+    powers of two, signed zeros) and subnormals, lo words of either sign,
+    zero or -0.0."""
+    from lilac_tpu_torch.ops import dfloat as df
+
+    rng = np.random.default_rng(seed)
+    if not adversarial:
+        a = rng.standard_normal(n) * 10.0 ** rng.uniform(-6, 6, n)
+        b = rng.standard_normal(n) * 10.0 ** rng.uniform(-6, 6, n)
+        a[1::2] = -a[0:n - 1:2] * (1.0 + 1e-9)
+        b[1::2] = b[0:n - 1:2]
+        return df.from_f64(a, DEVICE), df.from_f64(b, DEVICE)
+    eps = 2.0 ** -23
+    ops = np.array([1 + eps, 1 - eps / 2, 4097.0, 16777215.0, -16777214.0, 0.1,
+                    -0.1, 1e-10, 1e10, 1.0 / 3.0, 2.0 ** -24, 0.0, -0.0,
+                    8388609.0, 8388607.0, 1.9999999, 1e-40, -2e-39],
+                   dtype=np.float32)
+
+    def plane():
+        hi = ops[rng.integers(0, len(ops), n)]
+        lo = (hi * np.float32(2.0 ** -30) * rng.uniform(-1, 1, n).astype(np.float32))
+        lo[rng.random(n) < 0.2] = np.float32(-0.0)
+        return df.DF(torch.as_tensor(hi, device=DEVICE),
+                     torch.as_tensor(lo.astype(np.float32), device=DEVICE))
+
+    return plane(), plane()
+
+
+def _device_kernels(fn) -> int:
+    """Kernels the card ran for one call of fn, by the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith(("Memcpy", "Memset")))
+
+
+def _host_us(fn, reps: int) -> float:
+    """Host microseconds a call, the card waited for at the end."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
+def phase_dfdot() -> dict:
+    """The df64 dot of the solvers (kernels/dfdot.py, csrc/dfdot.cu) held to
+    the eager df.dot on the card bit for bit, and to dfdot_plain (its
+    schedule in eager ops on the host, at the library's K), at NPB class C's
+    and D's na, at three odd sizes and on adversarial planes; then timed at
+    C and D, L2 flushed and back to back, against the eager df.dot, beside
+    the bound (16 n bytes over the card's peak) and the kernels each ran.
+    Returns the kernel's row of the `kernels` line (timed at class C; its
+    launches are the main paths')."""
+    from lilac_tpu_torch.kernels import dfdot as kd
+    from lilac_tpu_torch.ops import dfloat as df
+
+    sms = kd.device_sms(torch.cuda.current_device())
+    checks = []
+    for n in DFDOT_SIZES:
+        depth = kd.kernel_depth(n, sms)
+        for adversarial in (False, True):
+            u, v = _dfdot_planes(n, n + adversarial, adversarial)
+            got, want = kd.dfdot(u, v), df.dot(u, v)
+            host = kd.dfdot_plain(df.DF(u.hi.cpu(), u.lo.cpu()),
+                                  df.DF(v.hi.cpu(), v.lo.cpu()), depth)
+            torch.cuda.synchronize()
+            for other, what in ((want, "df.dot on the card"), (host, "dfdot_plain")):
+                if not (_bits_equal(got.hi.cpu(), other.hi.cpu())
+                        and _bits_equal(got.lo.cpu(), other.lo.cpu())):
+                    raise AssertionError(
+                        f"dfdot at n = {n} (adversarial {adversarial}) != {what}: "
+                        f"{(got.hi.item(), got.lo.item())} != "
+                        f"{(other.hi.item(), other.lo.item())}")
+            checks.append({"n": n, "adversarial": adversarial,
+                           "depth": depth, "hi": got.hi.item(),
+                           "lo": got.lo.item()})
+    timed = []
+    for n in DFDOT_SIZES[:2]:
+        u, v = _dfdot_planes(n, n, False)
+        fused = lambda: kd.dfdot(u, v)  # noqa: E731
+        eager = lambda: df.dot(u, v)  # noqa: E731
+        depth = kd.kernel_depth(n, sms)
+        timed.append({
+            "n": n, "depth": depth, "threads": [kd.level_size(n, depth), 1024],
+            "ms": time_cold_ms(fused, 50), "warm_ms": time_ms(fused, 200),
+            "bound_ms": 16 * n / PEAK_BYTES_S * 1e3, "bound_by": "bytes",
+            "eager_ms": time_cold_ms(eager, 5), "eager_warm_ms": time_ms(eager, 10),
+            "kernels": _device_kernels(fused), "eager_kernels": _device_kernels(eager),
+            "host_us": _host_us(fused, 200), "eager_host_us": _host_us(eager, 10)})
+    emit({"phase": "dfdot", "checks": len(checks), "sms": sms, "timed": timed,
+          "values": checks})
+    c = timed[0]
+    return {
+        "name": "dfdot", "route": "cuda", "source": "lilac_tpu_torch/csrc/dfdot.cu",
+        "replaces": "none: the JAX package leaves ops/dfloat.py:dot to XLA",
+        "launches": 0, "ms": c["ms"], "plain_ms": c["eager_ms"],
+        "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": None,
+        "library": "none: no single PyTorch call computes a df64 dot",
+        "shape": {"n": c["n"], "depth": c["depth"], "dtype": "float32 (hi, lo)"},
+        "bytes": 16 * c["n"], "timed": timed}
 
 
 def _unpack_masks(masks: torch.Tensor, S: int) -> np.ndarray:
@@ -1123,6 +1245,30 @@ def _reset_hier_counts(rd, dfk) -> None:
         w.launches = 0
         w.stage_launches = 0
     dfk.dfmulred.launches = 0
+    from lilac_tpu_torch.kernels import dfdot as kd
+    kd.dfdot.launches = 0
+
+
+def _check_dfdot(kernels: dict, res, class_name: str) -> int:
+    """dfdot's launches in an NPB df64 run just made, held to the steps run
+    (its warm-up step included): 54 dots a step (rho, two in each of the 25
+    CG iterations, the residual's, norm1, norm2), each two launches where
+    the library splits the tree, one where it does not. Into the `kernels`
+    line's dfdot row."""
+    from lilac_tpu_torch.generate.npb import CLASSES
+    from lilac_tpu_torch.kernels import dfdot as kd
+
+    depth = kd.kernel_depth(CLASSES[class_name].na,
+                            kd.device_sms(torch.cuda.current_device()))
+    got = kd.dfdot.launches
+    want = (res.niter + 1) * 54 * (2 if depth else 1)
+    if got != want:
+        raise AssertionError(f"dfdot launched {got} times in {res.niter + 1} outer "
+                             f"steps of class {class_name} ({want} expected)")
+    row = kernels.setdefault("dfdot", {"name": "dfdot", "launches": 0})
+    row[f"launches_class_{class_name.lower()}"] = got
+    row["launches"] += got
+    return got
 
 
 def _hier_counts(rd) -> dict:
@@ -2824,13 +2970,15 @@ def phase_main_path_c(kernels: dict) -> dict:
     kernels["routed_apply"]["launches"] = rd.routed_apply.launches
     kernels["routed_apply"]["grid_launches"] = rd.routed_apply.stage_launches
     k2_c = dfk.dfmulred.launches
+    dot_c = _check_dfdot(kernels, res, "C")
     matvecs = (res.niter + 1) * 26  # the untimed warm-up step included
     line = _npb_line(
         res, phase="npb", wall_s=wall, matvecs=matvecs,
         routed_apply_launches=rd.routed_apply.launches,
         routed_apply_grid_launches=rd.routed_apply.stage_launches,
         routed_apply_t_launches=rd.routed_apply_t.launches,
-        dfmulred_launches=k2_c, full_width="class C", outer_steps=steps)
+        dfmulred_launches=k2_c, dfdot_launches=dot_c, full_width="class C",
+        outer_steps=steps)
     emit(line)
     _check_npb(res, line, "C", steps)
     if res.factored_vt != "plan" or rd.routed_apply_t.launches:
@@ -3067,10 +3215,11 @@ def phase_main_path_d(kernels: dict, plan_d):
     wall = time.time() - t0
     counts = _hier_counts(rd)
     k2_d = dfk.dfmulred.launches
+    dot_d = _check_dfdot(kernels, res, "D")
     matvecs = (res.niter + 1) * 26
     line = _npb_line(
         res, phase="npb", wall_s=wall, matvecs=matvecs, launches=counts,
-        dfmulred_launches=k2_d, full_width="class D, na = 1500000",
+        dfmulred_launches=k2_d, dfdot_launches=dot_d, full_width="class D, na = 1500000",
         outer_steps=steps, factored_vt=res.factored_vt,
         plan_bytes_on_card=rs.plan_bytes(plan_d.A.V),
         peak_device_bytes=torch.cuda.max_memory_allocated())
@@ -5072,7 +5221,7 @@ def phase_dist(kernels: dict) -> dict:
 PARTS = {"hier", "inner", "inner_diag", "window", "window_diag", "window_bt_diag", "k11",
          "tiles", "c", "d", "gemm", "gemm_diag", "parboil", "exchange_diag", "cg", "scan",
          "mixed", "seg", "sparsebench", "sb_profile", "graphs", "graph_profile",
-         "pathsample", "tools", "dist"}
+         "pathsample", "tools", "dist", "dfdot"}
 
 
 def main(argv) -> int:
@@ -5088,6 +5237,8 @@ def main(argv) -> int:
     phase_build()
     _set_peaks()
     kernels: dict = {}
+    if "dfdot" in only:
+        kernels["dfdot"] = phase_dfdot()
     if "mixed" in only:
         from lilac_tpu_torch.kernels import routed_spmv as rs
         from lilac_tpu_torch.workloads import npb_cg
@@ -5147,6 +5298,7 @@ def main(argv) -> int:
         phase_npb_scan(res_d, d_bytes, d_build_s)
     if "c" in only:
         kernels.update(phase_kernels(build_plan_c()))
+        phase_main_path_c(kernels)
     if "hier" in only:
         phase_hier_small()
         phase_hier_general(kernels)
@@ -5170,11 +5322,13 @@ def main(argv) -> int:
         return 2  # a partial run proves nothing: never the contract's last line
 
     phase_eft()
+    dfdot_row = phase_dfdot()
 
     plan_c = build_plan_c()
     phase_k11_small()
     phase_tiles()
     kernels = phase_kernels(plan_c)
+    kernels["dfdot"] = dfdot_row
     del plan_c
     torch.cuda.empty_cache()
 
@@ -5217,7 +5371,7 @@ def main(argv) -> int:
     phase_tools(kernels)
     phase_dist(kernels)
 
-    names = ["routed_apply", "dfmulred"] + [
+    names = ["routed_apply", "dfmulred", "dfdot"] + [
         PASS_FNS[k][i] for i in (0, 1) for k in PASS_FNS] + ADJ_NAMES + [
         "routed_apply_t", "matmul_nt"]
     for name in names:

@@ -9,11 +9,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from lilac_tpu_torch.kernels.dfdot import dfdot
 from lilac_tpu_torch.ops import dfloat as df
 from lilac_tpu_torch.utils.profiling import span
 
 # the solver's own vector algebra, a span a method
 _DOT = span("lilac.solver.dot")
+_DOT_FUSED = span("lilac.solver.dot.fused")  # a dot through kernels/dfdot.py
 _ADD = span("lilac.solver.add")
 _SUB = span("lilac.solver.sub")
 _SMUL = span("lilac.solver.smul")
@@ -76,7 +78,12 @@ class DF64Alg:
         self.device = device
 
     def dot(self, u, v):
+        # CUDA vectors take the two-launch kernel, df.dot's bits; CPU
+        # vectors the op chain itself
         with _DOT:
+            if u.hi.is_cuda:
+                with _DOT_FUSED:
+                    return dfdot(u, v)
             return df.dot(u, v)
 
     def add(self, u, v):
@@ -93,8 +100,16 @@ class DF64Alg:
             return df.mul(s, u)
 
     def sdiv(self, a, b):
+        # a zero numerator gives that zero, not 0/0 = NaN: a df64 word keeps
+        # f32's exponent range, so a converged CG's rho (r.r) underflows to
+        # 0 and beta = rho_new / rho would be 0/0 (NPB class C, from some
+        # start vectors, after a few dozen outer steps). Any other quotient
+        # is df.div's, bit for bit. The JAX package's df.div gives the NaN:
+        # here the port parts from it on purpose.
         with _SDIV:
-            return df.div(a, b)
+            q = df.div(a, b)
+            zero = a.hi == 0
+            return df.DF(torch.where(zero, a.hi, q.hi), torch.where(zero, a.hi, q.lo))
 
     def ssqrt(self, a):
         with _SSQRT:
