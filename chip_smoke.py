@@ -319,7 +319,9 @@ def phase_eft() -> dict:
     return line
 
 
-DFDOT_SIZES = (150000, 1500000, 1, 4097, 1234567)  # NPB C and D, then three odd
+# NPB C and D, three odd sizes, and SparseBench 160's n (the first launch at
+# depth 6: its level 5 holds more than the second launch takes)
+DFDOT_SIZES = (150000, 1500000, 1, 4097, 1234567, 4096000)
 
 
 def _dfdot_planes(n: int, seed: int, adversarial: bool):
@@ -382,7 +384,8 @@ def phase_dfdot() -> dict:
     """The df64 dot of the solvers (kernels/dfdot.py, csrc/dfdot.cu) held to
     the eager df.dot on the card bit for bit, and to dfdot_plain (its
     schedule in eager ops on the host, at the library's K), at NPB class C's
-    and D's na, at three odd sizes and on adversarial planes; then timed at
+    and D's na, at three odd sizes, at SparseBench 160's n (the first launch
+    at depth 6) and on adversarial planes; then timed at
     C and D, L2 flushed and back to back, against the eager df.dot, beside
     the bound (16 n bytes over the card's peak) and the kernels each ran.
     Returns the kernel's row of the `kernels` line (timed at class C; its
@@ -3520,9 +3523,20 @@ def _sb_golden() -> dict:
             "wall_s": round(time.time() - t0, 1)}
 
 
+def _sb_dots(its: int) -> int:
+    """The df64 dots of one BiCG solve that ended at `its` (solvers/bicg.py):
+    three in each iteration run whole, the norm alone in a converged last
+    one, and the final norm."""
+    return 3 * -its + 1 if its < 0 else 3 * (its - 1) + 2
+
+
 def _sb_run(size: int, kernel: str, env: dict | None = None):
     """sparsebench.benchmark(size) in df64 through `kernel`, launch counts
-    set to 0 just before and read just after; returns (result, counts)."""
+    set to 0 just before and read just after; returns (result, counts).
+    dfdot's launches are held to the dots of its two solves (the warm-up
+    and the timed one), each two launches where the library splits the
+    tree, one where it does not."""
+    from lilac_tpu_torch.kernels import dfdot as kd
     from lilac_tpu_torch.kernels import dfmulred as dfk
     from lilac_tpu_torch.kernels import routed as rd
     from lilac_tpu_torch.workloads import sparsebench as sb
@@ -3532,9 +3546,14 @@ def _sb_run(size: int, kernel: str, env: dict | None = None):
         size, kernel=kernel, dtype="df64", device=DEVICE))
     counts = {**_hier_counts(rd), "routed_apply": rd.routed_apply.launches,
               "routed_apply_t": rd.routed_apply_t.launches,
-              "dfmulred": dfk.dfmulred.launches}
+              "dfmulred": dfk.dfmulred.launches, "dfdot": kd.dfdot.launches}
     if not np.isfinite(res.hist).all() or not res.validated:
         raise AssertionError(f"sparsebench {size} {kernel}: not validated: {res}")
+    depth = kd.kernel_depth(res.n, kd.device_sms(torch.cuda.current_device()))
+    want = 2 * _sb_dots(res.iterations) * (2 if depth else 1)
+    if counts["dfdot"] != want:
+        raise AssertionError(f"sparsebench {size} {kernel}: dfdot launched "
+                             f"{counts['dfdot']} times in two solves ({want} expected)")
     return res, counts
 
 
@@ -3762,6 +3781,9 @@ def _sparsebench(kernels: dict, t_phase: float, replica) -> dict:
         raise AssertionError(f"size 160 went through a single-table kernel: {counts}")
     for name in FWD_D + ADJ_D + ("bigshift_apply_b", "bigshift_apply_bt", "dfmulred"):
         kernels.setdefault(name, {"name": name})["launches_sb160"] = counts[name]
+    dfdot_row = kernels.setdefault("dfdot", {"name": "dfdot", "launches": 0})
+    dfdot_row["launches_sb160"] = counts["dfdot"]
+    dfdot_row["launches"] += counts["dfdot"]
     t0 = time.time()
     host, replica_s = replica.result()
     replica_wait_s = time.time() - t0

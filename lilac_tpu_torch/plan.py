@@ -26,6 +26,9 @@ from lilac_tpu_torch.ops import dfloat as df
 from lilac_tpu_torch.utils.profiling import BUILD, span
 
 _PLAN = span("lilac.build.plan", BUILD)
+_ROUTE = span("lilac.build.plan.route", BUILD)  # a routed plan built, not read
+_MATVEC = span("lilac.operator.matvec")  # SpmvPlan's products, both directions
+_ADJOINT = span("lilac.operator.adjoint")  # the registry transpose, in a matvec
 
 ROUTED_KERNELS = ("routed", "routed_df", "routed_hier", "routed_hier_df")
 _HOST_DTYPE = {"f32": np.float32, "f64": np.float64, "bf16": np.float32}
@@ -64,21 +67,14 @@ class SpmvPlan:
         cache_key: str | None = None,
         device="cuda",
     ):
-        if dtype not in ("f32", "f64", "bf16", "df64"):
-            raise ValueError(f"unknown value policy {dtype!r}")
-        self.reuse = reuse
-        self.shape = tuple(shape)
-        self.nnz = int(len(indices))
-        self.dtype = dtype
-        self.device = torch.device(device)
         counts = np.diff(indptr)
-        self.row_stats = dict(
+        self._describe(shape, dict(
             nrows=shape[0],
-            nnz=self.nnz,
+            nnz=int(len(indices)),
             max_row=int(counts.max()) if len(counts) else 0,
             mean_row=float(counts.mean()) if len(counts) else 0.0,
             std_row=float(counts.std()) if len(counts) else 0.0,
-        )
+        ), dtype, reuse, device)
         if kernel == "auto":
             kernel = self._select_kernel()
         self.kernel = kernel
@@ -105,46 +101,92 @@ class SpmvPlan:
         elif kernel in ROUTED_KERNELS:
             if dtype == "bf16":
                 raise ValueError("the bf16 policy serves the gather kernels only")
-            self.A = self._routed(indptr, indices, data, kernel, cache_key)
-            vdt = "df64" if dtype == "df64" or kernel.endswith("_df") else dtype
-            base = "routed_hier" if isinstance(
-                self.A, (_rs.RoutedMatHier, _rs.RoutedMatHierP)) else "routed"
-            self.kernel = base + ("_df" if vdt == "df64" else "")
+            self._set_routed(self._routed(indptr, indices, data, kernel, cache_key),
+                             kernel)
         else:
             raise ValueError(f"kernel {kernel!r} not wired into SpmvPlan")
 
         if dtype == "bf16":
             self.A = _cast_floating(self.A, torch.bfloat16)
 
-    def _routed(self, indptr, indices, data, kernel, cache_key):
-        """The routed plan: a single table up to 2^18 columns, hierarchical
-        networks beyond (or when asked for), loaded from its plan file when
-        `cache_key` names one that holds this shape."""
+    @classmethod
+    def read(cls, cache_key: str, shape, row_stats: dict, *, dtype: str = "f32",
+             kernel: str = "routed", device="cuda"):
+        """The routed plan of a matrix read from the plan file `cache_key`
+        names, without the matrix: `row_stats` are the matrix's, as a plan
+        built from it holds them. None where the file is missing, unreadable
+        or holds another shape."""
+        if kernel not in ROUTED_KERNELS or dtype == "bf16":
+            raise ValueError(f"only a routed plan is read from its file, not {kernel!r}")
+        self = cls.__new__(cls)
+        self._describe(shape, row_stats, dtype, "once", device)
+        A = self._read_routed(self._routed_file(kernel, cache_key)[0])
+        if A is None:
+            return None
+        self._set_routed(_rs.maybe_pack_hier(A, self.device), kernel)
+        return self
+
+    def _describe(self, shape, row_stats, dtype, reuse, device) -> None:
+        if dtype not in ("f32", "f64", "bf16", "df64"):
+            raise ValueError(f"unknown value policy {dtype!r}")
+        self.reuse = reuse
+        self.shape = tuple(shape)
+        self.nnz = int(row_stats["nnz"])
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self.row_stats = dict(row_stats)
+
+    def _set_routed(self, A, kernel: str) -> None:
+        self.A = A
+        vdt = "df64" if self.dtype == "df64" or kernel.endswith("_df") else self.dtype
+        base = "routed_hier" if isinstance(
+            A, (_rs.RoutedMatHier, _rs.RoutedMatHierP)) else "routed"
+        self.kernel = base + ("_df" if vdt == "df64" else "")
+
+    def _routed_file(self, kernel, cache_key):
+        """(plan file path, value type, hierarchical) of a routed plan: a
+        single table up to 2^18 columns, hierarchical networks beyond (or
+        when asked for)."""
         from lilac_tpu_torch.config import cfg
-        from lilac_tpu_torch.kernels.factored import SINGLE_TABLE_MAX, _load_plans, plan_tag
+        from lilac_tpu_torch.kernels.factored import SINGLE_TABLE_MAX, plan_tag
 
         vdt = "df64" if self.dtype == "df64" or kernel.endswith("_df") else self.dtype
         hier = kernel.startswith("routed_hier") or self.shape[1] > SINGLE_TABLE_MAX
-        A = cache_path = None
-        if cache_key is not None:
-            conf = cfg()
-            ddir = conf.resolved_data_dir()
-            os.makedirs(ddir, exist_ok=True)
-            cache_path = os.path.join(
-                ddir, f"plan_{cache_key}_{vdt}{plan_tag(conf, hier)}.npz")
-            loaded = _load_plans([cache_path], self.device)
-            # a stale or colliding cache_key must not compute with another matrix
-            if loaded is not None and tuple(loaded[0].shape) == self.shape:
-                A = loaded[0]
+        if cache_key is None:
+            return None, vdt, hier
+        conf = cfg()
+        ddir = conf.resolved_data_dir()
+        os.makedirs(ddir, exist_ok=True)
+        return os.path.join(ddir, f"plan_{cache_key}_{vdt}{plan_tag(conf, hier)}.npz"), vdt, hier
+
+    def _read_routed(self, cache_path):
+        """The routed plan from its file, unpacked; None where there is none
+        of this shape (a stale or colliding cache_key must not compute with
+        another matrix)."""
+        from lilac_tpu_torch.kernels.factored import _load_plans
+
+        if cache_path is None:
+            return None
+        loaded = _load_plans([cache_path], self.device)
+        if loaded is not None and tuple(loaded[0].shape) == self.shape:
+            return loaded[0]
+        return None
+
+    def _routed(self, indptr, indices, data, kernel, cache_key):
+        """The routed plan, loaded from its plan file when `cache_key` names
+        one that holds this shape, else built (and saved there)."""
+        cache_path, vdt, hier = self._routed_file(kernel, cache_key)
+        A = self._read_routed(cache_path)
         if A is None:
-            if hier:
-                A = _rs.build_routed_csr_hier(indptr, indices, data, self.shape,
-                                              dtype=vdt, bl=_rs.hier_bl_cfg())
-            else:
-                A = _rs.build_routed_csr(indptr, indices, data, self.shape,
-                                         dtype=vdt, device=self.device)
-            if cache_path is not None:
-                _rs.save_routed(cache_path, A)
+            with _ROUTE(fence=self.device):
+                if hier:
+                    A = _rs.build_routed_csr_hier(indptr, indices, data, self.shape,
+                                                  dtype=vdt, bl=_rs.hier_bl_cfg())
+                else:
+                    A = _rs.build_routed_csr(indptr, indices, data, self.shape,
+                                             dtype=vdt, device=self.device)
+                if cache_path is not None:
+                    _rs.save_routed(cache_path, A)
         return _rs.maybe_pack_hier(A, self.device)
 
     def _select_kernel(self) -> str:
@@ -199,7 +241,8 @@ class SpmvPlan:
 
     def matvec_with(self, A, x):
         """The matvec with the container passed explicitly."""
-        return get_kernel(self.kernel).fn(A, x)
+        with _MATVEC:
+            return get_kernel(self.kernel).fn(A, x)
 
     def matvec_t_with(self, A, x):
         """y = Aᵀx through the registry's transpose slot. The routed kernels
@@ -212,7 +255,8 @@ class SpmvPlan:
                 f"kernel {self.kernel!r} has no registered transpose; use "
                 "lilac_tpu_torch.plan.transposed_plan(...) to stage A^T as its "
                 "own forward plan")
-        return t(A, x)
+        with _MATVEC, _ADJOINT:
+            return t(A, x)
 
     def matvec(self, x):
         return self.matvec_with(self.A, x)

@@ -20,6 +20,9 @@ The JAX package's `lax.while_loop` is a Python loop over eager torch ops
 here. Each iteration reads one predicate back to the host, the
 convergence test; nothing else is read. `hist` is float32, as in the
 reference.
+
+Spans: `lilac.solver.step` around each iteration (the norm through the
+update of rl), `lilac.solver.test` around its one read-back.
 """
 
 from __future__ import annotations
@@ -29,6 +32,10 @@ from typing import Callable
 import torch
 
 from lilac_tpu_torch.ops.dfloat import DF
+from lilac_tpu_torch.utils.profiling import span
+
+_STEP = span("lilac.solver.step")
+_TEST = span("lilac.solver.test")
 
 
 def bicg_solve(
@@ -71,35 +78,37 @@ def bicg_solve(
     rtol_s = alg.scalar(rtol)
 
     while it < limit and not done:
-        rn = alg.ssqrt(alg.dot(r, r))
-        hist[it] = _scal(alg, rn)
-        first = it == 0
-        if first:
-            rn0 = rn
-        # convergence threshold in the algebra's native precision; the
-        # reference freezes every update once it holds and leaves the loop
-        thresh = alg.smul(rtol_s, rn0)
-        it += 1
-        if bool(_lt(alg, rn, thresh)):  # the one read-back of the iteration
-            done = True
-            break
+        with _STEP:
+            rn = alg.ssqrt(alg.dot(r, r))
+            hist[it] = _scal(alg, rn)
+            first = it == 0
+            if first:
+                rn0 = rn
+            # convergence threshold in the algebra's native precision; the
+            # reference freezes every update once it holds and leaves the loop
+            thresh = alg.smul(rtol_s, rn0)
+            it += 1
+            with _TEST:  # the one read-back of the iteration
+                done = bool(_lt(alg, rn, thresh))
+            if done:
+                break
 
-        z, zl = zl_pair(r, rl)
-        rr_new = alg.dot(r, zl)
-        if first:
-            p_new, pl_new = z, zl
-        else:
-            beta = alg.sdiv(rr_new, rr)
-            p_new = alg.add(alg.smul(beta, p), z)
-            pl_new = alg.add(alg.smul(beta, pl), zl)
+            z, zl = zl_pair(r, rl)
+            rr_new = alg.dot(r, zl)
+            if first:
+                p_new, pl_new = z, zl
+            else:
+                beta = alg.sdiv(rr_new, rr)
+                p_new = alg.add(alg.smul(beta, p), z)
+                pl_new = alg.add(alg.smul(beta, pl), zl)
 
-        ap = matvec(A, p_new)
-        apl = matvec_t(A, pl_new)
-        alpha = alg.sdiv(rr_new, alg.dot(pl_new, ap))
-        x = alg.sub(x, alg.smul(alpha, p_new))
-        r = alg.sub(r, alg.smul(alpha, ap))
-        rl = alg.sub(rl, alg.smul(alpha, apl))
-        p, pl, rr = p_new, pl_new, rr_new
+            ap = matvec(A, p_new)
+            apl = matvec_t(A, pl_new)
+            alpha = alg.sdiv(rr_new, alg.dot(pl_new, ap))
+            x = alg.sub(x, alg.smul(alpha, p_new))
+            r = alg.sub(r, alg.smul(alpha, ap))
+            rl = alg.sub(rl, alg.smul(alpha, apl))
+            p, pl, rr = p_new, pl_new, rr_new
 
     out = (x, r, rl, p, pl, rr, it, done, rn0, hist)
     rn_final = alg.ssqrt(alg.dot(r, r))

@@ -23,13 +23,16 @@ ILU-D triangular sweeps run level-scheduled on the device (solvers/tri.py).
 BiCG through `SpmvPlan` (routed plans run the CUDA kernels K1-K11), one
 warm-up solve, one timed solve synchronised on the card, and the in-run
 true-residual check against the host CSR in f64. The solve is one
-`bicg_solve` call: the JAX package cuts it into chunks for a TPU worker's
-watchdog, which the card does not have.
+`bicg_solve` call (`BenchSolver.solve`, which a benchmark driver also
+runs): the JAX package cuts it into chunks for a TPU worker's watchdog,
+which the card does not have.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
 from typing import Dict, Optional, Tuple
 
@@ -40,6 +43,7 @@ from lilac_tpu_torch.formats.convert import csr_device
 from lilac_tpu_torch.generate import sparsebench_gen as gen
 from lilac_tpu_torch.kernels.gather import csr_spmv
 from lilac_tpu_torch.solvers import sb_iter, tri
+from lilac_tpu_torch.solvers.bicg import bicg_solve
 
 MAXIT = 10  # main_symm.f:25 (the validated runs; main.f reads its own)
 RTOL = 1e-6  # main_symm.f:353 / main.f:365
@@ -307,26 +311,52 @@ def bench_cache_tag(size: int, seed: int, sigma_relabel: bool) -> str:
     return f"sb{size}s{seed}r{int(sigma_relabel)}{geometry}"
 
 
-def build_bench_plans(size: int, *, dtype="df64", seed=0, kernel="auto",
-                      sigma_relabel=None, device="cuda"):
-    """Stage the benchmark-mode operator pair (A, and Aᵀ as its own forward
-    plan or None). Returns (plan, plan_t, n, (indptr, indices, data,
-    shape)): the host CSR is handed back so callers can run f64 validation
-    against it."""
-    from lilac_tpu_torch.config import cfg
+def bench_csr(size: int, seed: int = 0, sigma_relabel: bool = False):
+    """The benchmark matrix on the host, (indptr, indices, data, shape):
+    big_gen's random CRS matrix, relabelled by row length where asked."""
     from lilac_tpu_torch.generate.random_crs import random_crs
-    from lilac_tpu_torch.plan import SpmvPlan, transposed_plan
 
     indptr, indices, data, shape = random_crs(size, seed=seed)
-    n = shape[0]
-    if sigma_relabel is None:
-        sigma_relabel = kernel.startswith("routed")
     if sigma_relabel:
         from lilac_tpu_torch.formats.convert import length_relabel_csr
 
         indptr, indices, data, _order, _rank = length_relabel_csr(
             indptr, indices, data, shape
         )
+    return indptr, indices, data, shape
+
+
+def _transpose_mode(kernel: str) -> str:
+    """'adj' (the forward plan run in reverse) or 'plan' (Aᵀ its own plan)."""
+    from lilac_tpu_torch.config import cfg
+
+    tmode = cfg().sb_transpose
+    if tmode == "auto":
+        tmode = "adj" if kernel.startswith("routed") else "plan"
+    return tmode
+
+
+def _meta_path(tag: str) -> str:
+    """The file beside a benchmark matrix's routed plans that holds its
+    shape and row statistics, so a later run reads the plan without the
+    matrix."""
+    from lilac_tpu_torch.config import cfg
+
+    return os.path.join(cfg().resolved_data_dir(), f"plan_{tag}_meta.json")
+
+
+def build_bench_plans(size: int, *, dtype="df64", seed=0, kernel="auto",
+                      sigma_relabel=None, device="cuda"):
+    """Stage the benchmark-mode operator pair (A, and Aᵀ as its own forward
+    plan or None). Returns (plan, plan_t, n, (indptr, indices, data,
+    shape)): the host CSR is handed back so callers can run f64 validation
+    against it."""
+    from lilac_tpu_torch.plan import SpmvPlan, transposed_plan
+
+    if sigma_relabel is None:
+        sigma_relabel = kernel.startswith("routed")
+    indptr, indices, data, shape = bench_csr(size, seed, sigma_relabel)
+    n = shape[0]
     ck = ckt = None
     if kernel.startswith("routed"):
         # key the routed plan file on everything that shapes the container:
@@ -335,15 +365,15 @@ def build_bench_plans(size: int, *, dtype="df64", seed=0, kernel="auto",
         ck, ckt = tag + "_F", tag + "_T"
     plan = SpmvPlan(indptr, indices, data, shape, dtype=dtype, kernel=kernel,
                     cache_key=ck, device=device)
+    if ck is not None:
+        with open(_meta_path(tag), "w") as f:
+            json.dump({"shape": list(shape), "row_stats": plan.row_stats}, f)
     # Aᵀp for BiCG: 'adj' (default for routed kernels) runs the FORWARD
     # plan's network in reverse with add-merges: zero extra plan bytes,
     # half the plan build / upload (the registry transpose slot, kernels
     # K7-K11); 'plan' stages the true transpose as its own forward plan
     # (the reference's BiCG silently substitutes A for Aᵀ instead)
-    tmode = cfg().sb_transpose
-    if tmode == "auto":
-        tmode = "adj" if plan.kernel.startswith("routed") else "plan"
-    if tmode == "adj":
+    if _transpose_mode(plan.kernel) == "adj":
         plan_t = None
     else:
         plan_t = transposed_plan(indptr, indices, data, shape, dtype=dtype,
@@ -351,13 +381,115 @@ def build_bench_plans(size: int, *, dtype="df64", seed=0, kernel="auto",
     return plan, plan_t, n, (indptr, indices, data, shape)
 
 
+def read_bench_plans(size: int, *, dtype="df64", seed=0, kernel="routed",
+                     sigma_relabel=True, device="cuda"):
+    """The benchmark's routed plan read from its file, the matrix neither
+    generated nor relabelled: (plan, None, n), or None where a run of
+    `build_bench_plans` left no plan file and shape of this matrix, or Aᵀ
+    would be its own plan."""
+    from lilac_tpu_torch.plan import SpmvPlan
+
+    if not kernel.startswith("routed") or _transpose_mode(kernel) != "adj":
+        return None
+    tag = bench_cache_tag(size, seed, sigma_relabel)
+    try:
+        with open(_meta_path(tag)) as f:
+            meta = json.load(f)
+    except (OSError, ValueError):
+        return None
+    plan = SpmvPlan.read(tag + "_F", meta["shape"], meta["row_stats"], dtype=dtype,
+                         kernel=kernel, device=device)
+    if plan is None:
+        return None
+    return plan, None, plan.shape[0]
+
+
+class BenchSolver:
+    """The timed protocol's solver, set up once and run many times: the
+    operator pair of `build_bench_plans` (a routed plan read from its file
+    without generating the matrix where an earlier run left one), the
+    algebra, x0 = 0, and the one `bicg_solve` call of the protocol (maxit,
+    rtol, Aᵀ by the plan in reverse or by its own plan). `benchmark` times
+    it; a benchmark driver sets it up once and solves again and again
+    through the same code.
+
+    Vectors are in the plan's numbering: with the σ relabel on (the routed
+    default), position i' holds row order[i'] of the generated matrix
+    (formats/convert.py:length_relabel_csr). After a solve, `pl` holds its
+    last shadow direction p̃, the vector its last Aᵀ product took."""
+
+    def __init__(self, size: int, *, maxit=100, rtol=1e-6, dtype="df64", seed=0,
+                 kernel="auto", sigma_relabel=None, device="cuda"):
+        from lilac_tpu_torch.solvers.algebra import get_algebra
+
+        if sigma_relabel is None:
+            sigma_relabel = kernel.startswith("routed")
+        self.size, self.seed, self.sigma_relabel = size, seed, sigma_relabel
+        self.maxit, self.rtol, self.device = maxit, rtol, device
+        t0 = time.perf_counter()
+        self._host_csr = None
+        kw = dict(dtype=dtype, seed=seed, kernel=kernel, sigma_relabel=sigma_relabel,
+                  device=device)
+        read = read_bench_plans(size, **kw)
+        if read is None:
+            self.plan, self.plan_t, self.n, self._host_csr = build_bench_plans(size, **kw)
+        else:
+            self.plan, self.plan_t, self.n = read
+        self.build_s = time.perf_counter() - t0
+        self.nnz = self.plan.nnz
+        self.alg = get_algebra(dtype, device=device)
+        self.x0 = self.plan.vec_in(np.zeros(self.n))
+        self.pl = None
+        if self.plan_t is None:
+            self.As = (self.plan.A,)
+        else:
+            self.As = (self.plan.A, self.plan_t.A)
+
+    @property
+    def host_csr(self):
+        """The matrix on the host as the plan numbers it (generated again
+        where the plan was read from its file)."""
+        if self._host_csr is None:
+            self._host_csr = bench_csr(self.size, self.seed, self.sigma_relabel)
+        return self._host_csr
+
+    def matvec(self, As, v):
+        """A v with the containers `As` (bicg_solve's operator argument)."""
+        return self.plan.matvec_with(As[0], v)
+
+    def matvec_t(self, As, v):
+        """Aᵀ v: the plan's registry transpose, or Aᵀ's own plan."""
+        if self.plan_t is None:
+            return self.plan.matvec_t_with(As[0], v)
+        return self.plan_t.matvec_with(As[1], v)
+
+    def solve(self, b, *, stop_at: Optional[int] = None):
+        """BiCG from x0 = 0 on A x = b (b in the plan's value type and
+        numbering), synchronised: (x, its, hist, rn), rn the last
+        recurrence residual norm as an algebra scalar. `stop_at` pauses
+        after that many iterations, as `bicg_solve` does."""
+        self.pl = None  # the last solve's, freed before this one runs
+        x, its, hist, rn, state = bicg_solve(
+            self.matvec, self.matvec_t, self.alg, self.As, b, self.x0,
+            maxit=self.maxit, rtol=self.rtol, stop_at=stop_at,
+        )
+        self.pl = state[4]
+        _sync(self.device)
+        return x, its, hist, rn
+
+    def flops(self, its: int) -> float:
+        """SparseBench's count of a solve of |its| iterations (main.f:523-556):
+        4·nnz − 2n a mat + matᵀ pair, 2n a dot or axpy."""
+        return abs(its) * (4.0 * self.nnz + 10.0 * self.n) + 2.0 * self.nnz
+
+
 def benchmark(size: int, *, maxit=100, rtol=1e-6, dtype="df64", seed=0,
               kernel="auto", sigma_relabel=None, device="cuda") -> SBBenchResult:
     """The reference's benchmark protocol (SparseBench/run_all:36-42): a
     big_gen random CRS matrix (big_gen.py:59-83 semantics), BiCG with
     maxit=100 / rtol=1e-6, x0=0, b=1 (main.f:341-345), scraped metric =
-    Mflop rate (main.f:523-556). Flops use the reference's per-op model:
-    4·nnz−2n per mat+matᵀ pair and 2n per dot/axpy.
+    Mflop rate (main.f:523-556), through `BenchSolver`: one warm-up solve,
+    one timed solve.
 
     sigma_relabel (default: on for routed kernels): solve the
     row/column-relabeled system A' = P A Pᵀ with P ordering rows by
@@ -366,55 +498,29 @@ def benchmark(size: int, *, maxit=100, rtol=1e-6, dtype="df64", seed=0,
     Permutations preserve every BiCG scalar (dots, norms, residuals) and
     b = ones is permutation-invariant, so iteration count and history are
     unchanged; only the unreturned x would need a final un-permute."""
-    from lilac_tpu_torch.solvers.algebra import get_algebra
-    from lilac_tpu_torch.solvers.bicg import bicg_solve
-
-    t0 = time.perf_counter()
-    plan, plan_t, n, host_csr = build_bench_plans(
-        size, dtype=dtype, seed=seed, kernel=kernel,
-        sigma_relabel=sigma_relabel, device=device,
-    )
-    build_s = time.perf_counter() - t0
-    alg = get_algebra(dtype, device=device)
+    sol = BenchSolver(size, maxit=maxit, rtol=rtol, dtype=dtype, seed=seed,
+                      kernel=kernel, sigma_relabel=sigma_relabel, device=device)
+    n, plan = sol.n, sol.plan
     b = plan.vec_in(np.ones(n))
-    x0 = plan.vec_in(np.zeros(n))
 
-    if plan_t is None:
-        matvec_t = lambda _A, v: plan.matvec_t_with(_A[0], v)  # noqa: E731
-        As = (plan.A,)
-    else:
-        matvec_t = lambda _A, v: plan_t.matvec_with(_A[1], v)  # noqa: E731
-        As = (plan.A, plan_t.A)
-
-    def full():
-        x, its, hist, rn, _state = bicg_solve(
-            lambda _A, v: plan.matvec_with(_A[0], v),
-            matvec_t,
-            alg, As, b, x0, maxit=maxit, rtol=rtol,
-        )
-        _sync(device)
-        return x, its, hist, rn
-
-    full()  # warm-up
+    sol.solve(b)  # warm-up
     t0 = time.perf_counter()
-    x, its, hist, rn = full()
+    x, its, hist, rn = sol.solve(b)
     t = time.perf_counter() - t0
 
-    nit = abs(its)
-    flops = nit * (2 * (2.0 * plan.nnz) + 10.0 * n) + 2.0 * plan.nnz
     # oracle-validate the TIMED path itself (see SBBenchResult): true
     # residual in f64 on the host vs the solver's recurrence residual
     import scipy.sparse as sp
 
-    ip, ix, dv, shp = host_csr
+    ip, ix, dv, shp = sol.host_csr
     Ah = sp.csr_matrix((dv, ix, ip), shape=shp)
     xh = plan.vec_out(x)
     true_res = float(np.linalg.norm(np.ones(n) - Ah @ xh))
-    rec_res = float(alg.to_f64(rn))
+    rec_res = float(sol.alg.to_f64(rn))
     gap = abs(true_res - rec_res) / max(true_res, 1e-300)
     return SBBenchResult(
-        size=size, n=n, nnz=plan.nnz, iterations=its, time_s=t,
-        mflop_rate=flops / t / 1e6, kernel=plan.kernel,
+        size=size, n=n, nnz=sol.nnz, iterations=its, time_s=t,
+        mflop_rate=sol.flops(its) / t / 1e6, kernel=plan.kernel,
         residual=rec_res, true_residual_rel_gap=gap,
-        hist=hist.cpu().numpy(), build_s=build_s, plans=(plan, plan_t),
+        hist=hist.cpu().numpy(), build_s=sol.build_s, plans=(plan, sol.plan_t),
     )
