@@ -15,6 +15,12 @@ proves on the card that
 * the solvers' df64 dot (kernels/dfdot.py, two launches) is the eager
   df.dot bit for bit at NPB class C's and D's na, at odd sizes and on
   adversarial planes, and is timed against it,
+* the solvers' other df64 arithmetic (kernels/dfops.py: DF64Alg's add,
+  sub, smul, sdiv and ssqrt, one launch a call) is DF64Alg's eager op
+  chains bit for bit at the same sizes, on random, adversarial and edge
+  planes, scalar with vector and with scalar, and is timed against them;
+  NPB CG class C (76 outer steps) and D (100), and one SparseBench 160
+  solve, give bit for bit the histories and the last x of the chains,
 * each kernel agrees with its plain PyTorch version (and the routing
   appliers with the numpy applier of the networks) at the shapes the main
   path gives it and at a small size; the routing kernels bit for bit, the
@@ -137,7 +143,9 @@ layout (class D against 3 steps of adj), "mixed" = the mixed layout
 general matrix through column-segmented routing, "sparsebench" = the SparseBench
 phase, "graphs" = PageRank and BFS, "pathsample" = PATHSAMPLE, "tools" =
 the tooling phase, "dist" = the distribution phase, "dfdot" = the df64
-dot's two-launch kernel against df.dot and timed; opt-in,
+dot's two-launch kernel against df.dot and timed, "dfops" = the df64
+algebra's kernels against the op chains and timed, "dfops_runs" = NPB C
+and D and SparseBench 160 through them and through the chains; opt-in,
 never in the whole run: "graph_profile" = torch.profiler over 1 and 10
 PageRank iterations at n = 1 000 000, routed and gather, "sb_profile" = torch.profiler over
 A p, A^T p and 3 BiCG iterations at size 160, routed and gather,
@@ -437,6 +445,301 @@ def phase_dfdot() -> dict:
         "library": "none: no single PyTorch call computes a df64 dot",
         "shape": {"n": c["n"], "depth": c["depth"], "dtype": "float32 (hi, lo)"},
         "bytes": 16 * c["n"], "timed": timed}
+
+
+# the solvers' df64 algebra by kernels/dfops.py: each entry and the DF64Alg
+# method whose chain it replaces, and the calls of a df64 NPB outer step
+# (CG's 25 iterations, the residual, the zeta update)
+DFOPS_ENTRIES = {"add": "add", "sub": "sub", "mul": "smul", "div": "sdiv",
+                 "sqrt": "ssqrt"}
+DFOPS_PER_NPB_STEP = {"add": 51, "sub": 26, "mul": 76, "div": 52, "sqrt": 2}
+
+
+class _ChainOnly:
+    """Inside: DF64Alg refuses the kernels of kernels/dfops.py and runs the
+    eager op chains, as the package did before them (the dot stays dfdot's)."""
+
+    def __enter__(self):
+        from lilac_tpu_torch.kernels import dfops
+
+        self._shape = dfops.result_shape
+        dfops.result_shape = lambda *operands: None
+        return self
+
+    def __exit__(self, *exc):
+        from lilac_tpu_torch.kernels import dfops
+
+        dfops.result_shape = self._shape
+        return False
+
+
+def _same_df(got, want) -> bool:
+    """The same shape and bits in both planes, NaN where want is NaN."""
+    for g, w in zip(got, want):
+        g, w = g.contiguous(), w.contiguous()
+        if g.shape != w.shape or g.dtype != w.dtype:
+            return False
+        same = (g.view(torch.int32) == w.view(torch.int32)) | (torch.isnan(g) & torch.isnan(w))
+        if not bool(same.all()):
+            return False
+    return True
+
+
+def _dfops_operands(n: int, seed: int, kind: str):
+    """Two df vectors of n terms on the card: `random` and `adversarial` as
+    _dfdot_planes makes them; `edge`: adversarial planes with +-inf in some
+    hi words and the second vector's hi words the first's negated (they
+    cancel) at every third term."""
+    from lilac_tpu_torch.ops import dfloat as df
+
+    u, v = _dfdot_planes(n, seed, kind != "random")
+    if kind == "edge":
+        uh, vh = u.hi.clone(), v.hi.clone()
+        uh[::97] = float("inf")
+        vh[3::89] = float("-inf")
+        vh[1::3] = -uh[1::3]
+        u, v = df.DF(uh, u.lo), df.DF(vh, v.lo)
+    return u, v
+
+
+def _dfops_checks(n: int, kind: str, seed: int) -> int:
+    """Each entry against DF64Alg's chain on the same operands, bit for bit:
+    vector with vector (every entry, elementwise), a 0-dim scalar times the
+    vector, strided planes, and at small sizes and on edge planes 0-dim
+    with 0-dim over 24 scalars drawn from the planes. Returns the
+    comparisons made."""
+    from lilac_tpu_torch.kernels import dfops
+    from lilac_tpu_torch.ops import dfloat as df
+    from lilac_tpu_torch.solvers.algebra import DF64Alg
+
+    alg = DF64Alg(DEVICE)
+    u, v = _dfops_operands(n, seed, kind)
+    s = df.DF(v.hi[n // 2].clone(), v.lo[n // 2].clone())
+    wide = [torch.zeros(2 * n, dtype=torch.float32, device=DEVICE) for _ in range(2)]
+    for w, t in zip(wide, u):
+        w[::2] = t
+    strided = df.DF(wide[0][::2], wide[1][::2])
+    cases = [(e, (u,) if e == "sqrt" else (u, v)) for e in DFOPS_ENTRIES] + [
+        ("mul", (s, v)), ("add", (strided, v)), ("sub", (v, strided)),
+        ("sqrt", (strided,))]
+    if n <= 4097 or kind == "edge":
+        for i in range(min(n, 24)):
+            a = df.DF(u.hi[i].clone(), u.lo[i].clone())
+            b = df.DF(v.hi[-1 - i].clone(), v.lo[-1 - i].clone())
+            cases += [(e, (a, b)) for e in ("add", "sub", "mul", "div")] + [("sqrt", (a,))]
+    for entry, args in cases:
+        got = getattr(dfops, entry)(*args)
+        with _ChainOnly():
+            want = getattr(alg, DFOPS_ENTRIES[entry])(*args)
+        if not _same_df(got, want):
+            shapes = [tuple(a.hi.shape) for a in args]
+            raise AssertionError(f"dfops.{entry} at n = {n} ({kind}, operands {shapes}) "
+                                 "!= DF64Alg's op chain")
+    return len(cases)
+
+
+def _dfops_zero_checks() -> int:
+    """sdiv of +-0 over +-0 and over finite divisors (the chain's bits, the
+    numerator's zero), ssqrt of +-0 (df.sqrt's bits)."""
+    from lilac_tpu_torch.kernels import dfops
+    from lilac_tpu_torch.ops import dfloat as df
+    from lilac_tpu_torch.solvers.algebra import DF64Alg
+
+    alg = DF64Alg(DEVICE)
+    scalar = lambda v: df.full((), v, device=DEVICE)  # noqa: E731
+    zeros = [scalar(0.0), df.neg(scalar(0.0))]
+    made = 0
+    for num in zeros:
+        for den in zeros + [scalar(2.5), scalar(-3e-40), scalar(1e30)]:
+            got = dfops.div(num, den)
+            with _ChainOnly():
+                want = alg.sdiv(num, den)
+            if not (_same_df(got, want) and _bits_equal(got.hi, num.hi)
+                    and _bits_equal(got.lo, num.hi)):
+                raise AssertionError(f"dfops.div({num.hi.item()}, {den.hi.item()}) "
+                                     f"= {(got.hi.item(), got.lo.item())}")
+            made += 1
+        if not _same_df(dfops.sqrt(num), df.sqrt(num)):
+            raise AssertionError(f"dfops.sqrt({num.hi.item()}) != df.sqrt")
+        made += 1
+    return made
+
+
+def phase_dfops() -> dict:
+    """The solvers' df64 algebra at one launch a call (kernels/dfops.py,
+    csrc/dfops.cu) held to DF64Alg's eager op chains on the card bit for
+    bit (NaN where the chain gives NaN) at DFDOT_SIZES, on random,
+    adversarial and edge planes (+-inf, cancelling hi words), 0-dim scalar
+    with vector and with 0-dim, strided planes, and sdiv / ssqrt at zero;
+    then timed at NPB class C's and D's na, L2 flushed and back to back,
+    against the chain, beside the bound (the planes' bytes over the card's
+    peak), the kernels each ran and the host's microseconds a call. Returns
+    the kernel's row of the `kernels` line (its launches are the main
+    paths')."""
+    from lilac_tpu_torch.kernels import dfops
+    from lilac_tpu_torch.ops import dfloat as df
+    from lilac_tpu_torch.solvers.algebra import DF64Alg
+
+    checks = _dfops_zero_checks()
+    for n in DFDOT_SIZES:
+        for k, kind in enumerate(("random", "adversarial", "edge")):
+            checks += _dfops_checks(n, kind, 3 * n + k)
+    alg = DF64Alg(DEVICE)
+    timed = []
+    for n in DFDOT_SIZES[:2]:
+        u, v = _dfops_operands(n, n, "random")
+        s = df.DF(v.hi[0].clone(), v.lo[0].clone())
+        t = df.DF(u.hi[1].clone(), u.lo[1].clone())
+        for entry, args, nbytes in (("add", (u, v), 24 * n), ("sub", (u, v), 24 * n),
+                                    ("mul", (s, v), 16 * n), ("div", (s, t), 24),
+                                    ("sqrt", (s,), 16)):
+            if n != DFDOT_SIZES[0] and nbytes <= 24:
+                continue  # a 0-dim call is timed once
+            fused = functools.partial(getattr(dfops, entry), *args)
+            chain_fn = getattr(alg, DFOPS_ENTRIES[entry])
+
+            def eager(chain_fn=chain_fn, args=args):
+                with _ChainOnly():
+                    return chain_fn(*args)
+
+            timed.append({
+                "entry": entry, "n": n if nbytes > 24 else 1,
+                "ms": time_cold_ms(fused, 50), "warm_ms": time_ms(fused, 200),
+                "bound_ms": nbytes / PEAK_BYTES_S * 1e3, "bound_by": "bytes",
+                "eager_ms": time_cold_ms(eager, 5), "eager_warm_ms": time_ms(eager, 20),
+                "kernels": _device_kernels(fused), "eager_kernels": _device_kernels(eager),
+                "host_us": _host_us(fused, 200), "eager_host_us": _host_us(eager, 20)})
+            before = dfops.launches[entry]
+            fused()
+            if dfops.launches[entry] != before + 1:
+                raise AssertionError(f"dfops.{entry} launched "
+                                     f"{dfops.launches[entry] - before} times a call")
+    emit({"phase": "dfops", "checks": checks, "timed": timed})
+    by = {(r["entry"], r["n"]): r for r in timed}
+    c, d = by[("add", DFDOT_SIZES[0])], by[("add", DFDOT_SIZES[1])]
+    return {
+        "name": "dfops", "route": "cuda", "source": "lilac_tpu_torch/csrc/dfops.cu",
+        "replaces": "none: the JAX package leaves ops/dfloat.py's chains to XLA",
+        "launches": 0, "ms": c["ms"], "plain_ms": c["eager_ms"],
+        "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": None,
+        "library": "none: no single PyTorch call computes a df64 add",
+        "shape": {"entry": "add", "n": c["n"], "dtype": "float32 (hi, lo)"},
+        "ms_class_d": d["ms"], "bound_ms_class_d": d["bound_ms"],
+        "bytes": 24 * c["n"], "timed": timed}
+
+
+def _reset_dfops_counts() -> None:
+    from lilac_tpu_torch.kernels import dfops
+
+    for k in dfops.launches:
+        dfops.launches[k] = 0
+
+
+def _check_dfops(kernels: dict, steps: int, what: str, main: bool = True) -> int:
+    """dfops's launches in `steps` df64 NPB outer steps just run, held to
+    DFOPS_PER_NPB_STEP entry by entry; into the `kernels` line's dfops row
+    under `launches_<what>`, and into its `launches` where the run was a
+    main path's."""
+    from lilac_tpu_torch.kernels import dfops
+
+    want = {k: steps * v for k, v in DFOPS_PER_NPB_STEP.items()}
+    if dfops.launches != want:
+        raise AssertionError(f"dfops launched {dfops.launches} in {steps} outer steps "
+                             f"of {what} ({want} expected)")
+    got = sum(dfops.launches.values())
+    row = kernels.setdefault("dfops", {"name": "dfops", "launches": 0})
+    row[f"launches_{what}"] = got
+    row["launches_per_npb_step"] = got // steps
+    if main:
+        row["launches"] += got
+    return got
+
+
+def _npb_chain_vs_fused(kernels: dict, plan, class_name: str, steps: int) -> dict:
+    """`steps` outer steps of NPB CG in df64 from x0 = ones on `plan`,
+    through the kernels and through the eager chains (the dot dfdot's in
+    both): zeta, rnorm and the last x bit for bit the same; the step walls
+    beside each other."""
+    from lilac_tpu_torch.generate.npb import CLASSES
+    from lilac_tpu_torch.solvers.algebra import DF64Alg
+    from lilac_tpu_torch.solvers.cg import npb_power_method
+
+    cls = CLASSES[class_name]
+    alg = DF64Alg(DEVICE)
+    x0 = plan.vec_in(np.ones(cls.na, dtype=np.float64))
+
+    def run(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = npb_power_method(plan.matvec_with, alg, plan.A, x0, cls.shift, n)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    run(1)  # every kernel of the path loaded
+    _reset_dfops_counts()
+    (zf, rf, xf), fused_s = run(steps)
+    launches = _check_dfops(kernels, steps, f"runs_class_{class_name.lower()}_{steps}_steps",
+                            main=False)
+    with _ChainOnly():
+        (zc, rc, xc), chain_s = run(steps)
+    for got, want, what in ((zf, zc, "zeta"), (rf, rc, "rnorm"), (xf, xc, "x")):
+        if not (_bits_equal(got.hi, want.hi) and _bits_equal(got.lo, want.lo)):
+            raise AssertionError(f"class {class_name}, {steps} steps: {what} through "
+                                 "dfops != through the op chains")
+    zeta = float(zf.hi[-1].double() + zf.lo[-1].double())
+    return {"class": class_name, "steps": steps, "bit_identical": ["zeta", "rnorm", "x"],
+            "zeta": zeta, "zeta_rel_err": abs(zeta - cls.zeta_verify) / cls.zeta_verify,
+            "fused_step_s": fused_s / steps, "chain_step_s": chain_s / steps,
+            "dfops_launches": launches}
+
+
+def _sb_chain_vs_fused(kernels: dict, size: int = 160) -> dict:
+    """One timed-protocol BiCG solve of SparseBench `size` (routed, df64,
+    b = 1) through the kernels and through the eager chains: its, hist and
+    x bit for bit the same, the kernels' launches those of the solve
+    (_sb_dfops), into the dfops row under `launches_runs_sb<size>`."""
+    from lilac_tpu_torch.kernels import dfops
+    from lilac_tpu_torch.workloads.sparsebench import BenchSolver
+
+    sol = BenchSolver(size, maxit=100, rtol=1e-6, dtype="df64", seed=0, kernel="routed",
+                      sigma_relabel=True, device=DEVICE)
+    b = sol.plan.vec_in(np.ones(sol.n))
+    sol.solve(b)  # every kernel of the path loaded
+    _reset_dfops_counts()
+    t0 = time.perf_counter()
+    xf, its_f, hist_f, _ = sol.solve(b)
+    fused_s = time.perf_counter() - t0
+    counts = dict(dfops.launches)
+    with _ChainOnly():
+        t0 = time.perf_counter()
+        xc, its_c, hist_c, _ = sol.solve(b)
+        chain_s = time.perf_counter() - t0
+    if counts != _sb_dfops(its_f):
+        raise AssertionError(f"SparseBench {size}: dfops launched {counts} in one solve "
+                             f"of its {its_f} ({_sb_dfops(its_f)} expected)")
+    row = kernels.setdefault("dfops", {"name": "dfops", "launches": 0})
+    row[f"launches_runs_sb{size}"] = sum(counts.values())
+    if its_f != its_c or not _bits_equal(hist_f, hist_c) or not (
+            _bits_equal(xf.hi, xc.hi) and _bits_equal(xf.lo, xc.lo)):
+        raise AssertionError(f"SparseBench {size}: its / hist / x through dfops != "
+                             f"through the op chains (its {its_f} / {its_c})")
+    return {"size": size, "its": its_f, "bit_identical": ["its", "hist", "x"],
+            "fused_solve_s": fused_s, "chain_solve_s": chain_s, "dfops_launches": counts}
+
+
+def phase_dfops_runs(kernels: dict, plan_d=None) -> dict:
+    """NPB CG class C for 76 outer steps and class D for 100 in df64, and one
+    SparseBench 160 solve, each through dfops and through the op chains,
+    bit for bit (class D's plan built where not given)."""
+    runs = [_npb_chain_vs_fused(kernels, build_plan_c(), "C", 76)]
+    torch.cuda.empty_cache()
+    runs.append(_npb_chain_vs_fused(kernels, plan_d or build_plan_d(), "D", 100))
+    torch.cuda.empty_cache()
+    runs.append(_sb_chain_vs_fused(kernels))
+    torch.cuda.empty_cache()
+    line = {"phase": "dfops_runs", "runs": runs}
+    emit(line)
+    return line
 
 
 def _unpack_masks(masks: torch.Tensor, S: int) -> np.ndarray:
@@ -1250,6 +1553,7 @@ def _reset_hier_counts(rd, dfk) -> None:
     dfk.dfmulred.launches = 0
     from lilac_tpu_torch.kernels import dfdot as kd
     kd.dfdot.launches = 0
+    _reset_dfops_counts()
 
 
 def _check_dfdot(kernels: dict, res, class_name: str) -> int:
@@ -2974,6 +3278,7 @@ def phase_main_path_c(kernels: dict) -> dict:
     kernels["routed_apply"]["grid_launches"] = rd.routed_apply.stage_launches
     k2_c = dfk.dfmulred.launches
     dot_c = _check_dfdot(kernels, res, "C")
+    _check_dfops(kernels, res.niter + 1, "class_c")
     matvecs = (res.niter + 1) * 26  # the untimed warm-up step included
     line = _npb_line(
         res, phase="npb", wall_s=wall, matvecs=matvecs,
@@ -3219,6 +3524,7 @@ def phase_main_path_d(kernels: dict, plan_d):
     counts = _hier_counts(rd)
     k2_d = dfk.dfmulred.launches
     dot_d = _check_dfdot(kernels, res, "D")
+    _check_dfops(kernels, res.niter + 1, "class_d")
     matvecs = (res.niter + 1) * 26
     line = _npb_line(
         res, phase="npb", wall_s=wall, matvecs=matvecs, launches=counts,
@@ -3530,14 +3836,30 @@ def _sb_dots(its: int) -> int:
     return 3 * -its + 1 if its < 0 else 3 * (its - 1) + 2
 
 
+def _sb_dfops(its: int) -> dict:
+    """dfops's launches by entry in one df64 BiCG solve that ended at `its`
+    (solvers/bicg.py): the start's residual (sub); in each iteration the
+    norm (sqrt) and the threshold (mul); in each run whole the three
+    updates (three mul, three sub) and alpha (div), and after the first
+    beta (div) and the two directions (two mul, two add); the final norm
+    (sqrt). A converged last iteration stops after its threshold."""
+    run = abs(its)
+    whole = run if its < 0 else max(run - 1, 0)
+    later = max(whole - 1, 0)
+    return {"add": 2 * later, "sub": 1 + 3 * whole, "mul": run + 3 * whole + 2 * later,
+            "div": whole + later, "sqrt": run + 1}
+
+
 def _sb_run(size: int, kernel: str, env: dict | None = None):
     """sparsebench.benchmark(size) in df64 through `kernel`, launch counts
     set to 0 just before and read just after; returns (result, counts).
     dfdot's launches are held to the dots of its two solves (the warm-up
     and the timed one), each two launches where the library splits the
-    tree, one where it does not."""
+    tree, one where it does not; dfops's, entry by entry, to _sb_dfops of
+    the two solves."""
     from lilac_tpu_torch.kernels import dfdot as kd
     from lilac_tpu_torch.kernels import dfmulred as dfk
+    from lilac_tpu_torch.kernels import dfops
     from lilac_tpu_torch.kernels import routed as rd
     from lilac_tpu_torch.workloads import sparsebench as sb
 
@@ -3546,7 +3868,8 @@ def _sb_run(size: int, kernel: str, env: dict | None = None):
         size, kernel=kernel, dtype="df64", device=DEVICE))
     counts = {**_hier_counts(rd), "routed_apply": rd.routed_apply.launches,
               "routed_apply_t": rd.routed_apply_t.launches,
-              "dfmulred": dfk.dfmulred.launches, "dfdot": kd.dfdot.launches}
+              "dfmulred": dfk.dfmulred.launches, "dfdot": kd.dfdot.launches,
+              "dfops": sum(dfops.launches.values())}
     if not np.isfinite(res.hist).all() or not res.validated:
         raise AssertionError(f"sparsebench {size} {kernel}: not validated: {res}")
     depth = kd.kernel_depth(res.n, kd.device_sms(torch.cuda.current_device()))
@@ -3554,6 +3877,10 @@ def _sb_run(size: int, kernel: str, env: dict | None = None):
     if counts["dfdot"] != want:
         raise AssertionError(f"sparsebench {size} {kernel}: dfdot launched "
                              f"{counts['dfdot']} times in two solves ({want} expected)")
+    want = {k: 2 * v for k, v in _sb_dfops(res.iterations).items()}
+    if dfops.launches != want:
+        raise AssertionError(f"sparsebench {size} {kernel}: dfops launched "
+                             f"{dfops.launches} in two solves ({want} expected)")
     return res, counts
 
 
@@ -3784,6 +4111,9 @@ def _sparsebench(kernels: dict, t_phase: float, replica) -> dict:
     dfdot_row = kernels.setdefault("dfdot", {"name": "dfdot", "launches": 0})
     dfdot_row["launches_sb160"] = counts["dfdot"]
     dfdot_row["launches"] += counts["dfdot"]
+    dfops_row = kernels.setdefault("dfops", {"name": "dfops", "launches": 0})
+    dfops_row["launches_sb160"] = counts["dfops"]
+    dfops_row["launches"] += counts["dfops"]
     t0 = time.time()
     host, replica_s = replica.result()
     replica_wait_s = time.time() - t0
@@ -5243,7 +5573,7 @@ def phase_dist(kernels: dict) -> dict:
 PARTS = {"hier", "inner", "inner_diag", "window", "window_diag", "window_bt_diag", "k11",
          "tiles", "c", "d", "gemm", "gemm_diag", "parboil", "exchange_diag", "cg", "scan",
          "mixed", "seg", "sparsebench", "sb_profile", "graphs", "graph_profile",
-         "pathsample", "tools", "dist", "dfdot"}
+         "pathsample", "tools", "dist", "dfdot", "dfops", "dfops_runs"}
 
 
 def main(argv) -> int:
@@ -5261,6 +5591,10 @@ def main(argv) -> int:
     kernels: dict = {}
     if "dfdot" in only:
         kernels["dfdot"] = phase_dfdot()
+    if "dfops" in only:
+        kernels["dfops"] = phase_dfops()
+    if "dfops_runs" in only:
+        phase_dfops_runs(kernels)
     if "mixed" in only:
         from lilac_tpu_torch.kernels import routed_spmv as rs
         from lilac_tpu_torch.workloads import npb_cg
@@ -5345,12 +5679,14 @@ def main(argv) -> int:
 
     phase_eft()
     dfdot_row = phase_dfdot()
+    dfops_row = phase_dfops()
 
     plan_c = build_plan_c()
     phase_k11_small()
     phase_tiles()
     kernels = phase_kernels(plan_c)
     kernels["dfdot"] = dfdot_row
+    kernels["dfops"] = dfops_row
     del plan_c
     torch.cuda.empty_cache()
 
@@ -5373,6 +5709,7 @@ def main(argv) -> int:
     d_build_s = time.time() - t0
     phase_hier_class_d(plan_d, kernels)
     line_d, res_d = phase_main_path_d(kernels, plan_d)
+    phase_dfops_runs(kernels, plan_d)
     del plan_d
     torch.cuda.empty_cache()
     line_mixed, res_mixed = phase_mixed_d(kernels, res_d, line_d["plan_bytes_on_card"])
@@ -5393,7 +5730,7 @@ def main(argv) -> int:
     phase_tools(kernels)
     phase_dist(kernels)
 
-    names = ["routed_apply", "dfmulred", "dfdot"] + [
+    names = ["routed_apply", "dfmulred", "dfdot", "dfops"] + [
         PASS_FNS[k][i] for i in (0, 1) for k in PASS_FNS] + ADJ_NAMES + [
         "routed_apply_t", "matmul_nt"]
     for name in names:

@@ -24,13 +24,13 @@
 // operations a term; at n = 150 000 the planes fit in the 50 MB L2, and the
 // two launches' own latency exceeds the bound.
 //
-// Exact rounding: every step of the error-free transformations is written
-// with the __f*_rn intrinsics, which the compiler never contracts into an
-// FMA, and the build passes --fmad=false as well (kernels/_cuda.py), as in
-// csrc/dfmulred.cu, whose two_sum / split / two_prod these repeat.
+// Exact rounding: the error-free transformations and df_add / df_mul are
+// csrc/df_eft.cuh's, every step an __f*_rn intrinsic under --fmad=false.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "df_eft.cuh"
 
 namespace {
 
@@ -41,62 +41,6 @@ constexpr int kFirstThreads = 32;   // a thread block of the first launch
 constexpr int kLastThreads = 1024;  // the second launch's one thread block
 constexpr long long kLastMax = 1ll << 16;  // values the second launch takes
 constexpr int kBatch = 4;           // leaves whose loads are in flight together
-
-struct df {
-  float hi, lo;
-};
-
-__device__ __forceinline__ void two_sum(float a, float b, float& s, float& e) {
-  s = __fadd_rn(a, b);
-  const float bb = __fsub_rn(s, a);
-  e = __fadd_rn(__fsub_rn(a, __fsub_rn(s, bb)), __fsub_rn(b, bb));
-}
-
-__device__ __forceinline__ void quick_two_sum(float a, float b, float& s,
-                                              float& e) {
-  s = __fadd_rn(a, b);
-  e = __fsub_rn(b, __fsub_rn(s, a));
-}
-
-__device__ __forceinline__ void split(float a, float& hi, float& lo) {
-  const float t = __fmul_rn(4097.0f, a);  // 2^12 + 1
-  hi = __fsub_rn(t, __fsub_rn(t, a));
-  lo = __fsub_rn(a, hi);
-}
-
-__device__ __forceinline__ void two_prod(float a, float b, float& p, float& e) {
-  p = __fmul_rn(a, b);
-  float ahi, alo, bhi, blo;
-  split(a, ahi, alo);
-  split(b, bhi, blo);
-  e = __fsub_rn(__fmul_rn(ahi, bhi), p);
-  e = __fadd_rn(e, __fmul_rn(ahi, blo));
-  e = __fadd_rn(e, __fmul_rn(alo, bhi));
-  e = __fadd_rn(e, __fmul_rn(alo, blo));
-}
-
-// df.add: the QD "ieee" sequence
-__device__ __forceinline__ df df_add(df a, df b) {
-  float s1, s2, t1, t2;
-  two_sum(a.hi, b.hi, s1, s2);
-  two_sum(a.lo, b.lo, t1, t2);
-  s2 = __fadd_rn(s2, t1);
-  quick_two_sum(s1, s2, s1, s2);
-  s2 = __fadd_rn(s2, t2);
-  df r;
-  quick_two_sum(s1, s2, r.hi, r.lo);
-  return r;
-}
-
-// df.mul: e + (a.hi * b.lo + a.lo * b.hi), grouped as written
-__device__ __forceinline__ df df_mul(float ah, float al, float bh, float bl) {
-  float p, e;
-  two_prod(ah, bh, p, e);
-  e = __fadd_rn(e, __fadd_rn(__fmul_rn(ah, bl), __fmul_rn(al, bh)));
-  df r;
-  quick_two_sum(p, e, r.hi, r.lo);
-  return r;
-}
 
 // ceil(m / 2^k): the size of level k of a tree over m values
 __device__ __host__ __forceinline__ long long level(long long m, int k) {

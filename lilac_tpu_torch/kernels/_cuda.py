@@ -28,7 +28,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(os.path.dirname(_PKG), "build", "lilac_tpu_torch")
 
-SOURCES = ("routed", "dfmulred", "hier", "adjoint", "gemm", "dfdot")
+SOURCES = ("routed", "dfmulred", "hier", "adjoint", "gemm", "dfdot", "dfops")
 
 # --fmad=false holds for EVERY source: no contraction of a*b+c into FMA
 # anywhere (the error-free transformations of the df64 kernel and of the
@@ -122,6 +122,23 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(so)
         _libs[name] = lib
     return lib
+
+
+def launch_on(index: int, launch):
+    """launch(stream) with card `index` the current device (a kernel goes
+    to the current device's context) and `stream` the raw cudaStream_t of
+    its current stream, as torch.cuda.current_stream(index).cuda_stream
+    gives it. The device is switched only where it is another, and the
+    Stream object is not made: each costs 4 to 9 us of host time a call
+    on an H100's host, and the solvers' df64 kernels launch hundreds of
+    times a step."""
+    import torch
+
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == torch.cuda.current_device():
+        return launch(stream)
+    with torch.cuda.device(index):
+        return launch(stream)
 
 
 def check(err: int, what: str) -> None:

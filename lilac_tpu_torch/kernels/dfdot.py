@@ -117,11 +117,9 @@ def dfdot(u: df.DF, v: df.DF) -> df.DF:
     out = torch.empty(2, dtype=torch.float32, device=dev)
     part = (torch.empty(2 * level_size(n, depth), dtype=torch.float32, device=dev)
             if depth else None)
-    with torch.cuda.device(dev):
-        err = _lib().lilac_dfdot(
-            *(t.data_ptr() for t in planes), n, sms,
-            None if part is None else part.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+    err = _cuda.launch_on(dev.index, lambda stream: _lib().lilac_dfdot(
+        *(t.data_ptr() for t in planes), n, sms,
+        None if part is None else part.data_ptr(), out.data_ptr(), stream))
     _cuda.check(err, "dfdot")
     dfdot.launches += 2 if depth else 1
     hi, lo = out.unbind()

@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from lilac_tpu_torch.kernels import dfops
 from lilac_tpu_torch.kernels.dfdot import dfdot
 from lilac_tpu_torch.ops import dfloat as df
 from lilac_tpu_torch.utils.profiling import span
@@ -21,6 +22,12 @@ _SUB = span("lilac.solver.sub")
 _SMUL = span("lilac.solver.smul")
 _SDIV = span("lilac.solver.sdiv")
 _SSQRT = span("lilac.solver.ssqrt")
+# a call that DF64Alg hands to kernels/dfops.py, one a method
+_ADD_FUSED = span("lilac.solver.add.fused")
+_SUB_FUSED = span("lilac.solver.sub.fused")
+_SMUL_FUSED = span("lilac.solver.smul.fused")
+_SDIV_FUSED = span("lilac.solver.sdiv.fused")
+_SSQRT_FUSED = span("lilac.solver.ssqrt.fused")
 
 
 class FloatAlg:
@@ -69,6 +76,28 @@ class FloatAlg:
         return s.detach().cpu().numpy().astype(np.float64)
 
 
+def _guarded_div(a, b):
+    """df.div, but a zero numerator gives that zero, not 0/0 = NaN: a df64
+    word keeps f32's exponent range, so a converged CG's rho (r.r)
+    underflows to 0 and beta = rho_new / rho would be 0/0 (NPB class C,
+    from some start vectors, after a few dozen outer steps). Any other
+    quotient is df.div's, bit for bit. The JAX package's df.div gives the
+    NaN: here the port parts from it on purpose. dfops.div has the guard."""
+    q = df.div(a, b)
+    zero = a.hi == 0
+    return df.DF(torch.where(zero, a.hi, q.hi), torch.where(zero, a.hi, q.lo))
+
+
+def _fused(fused_span, entry, chain, *operands):
+    """kernels/dfops.py's `entry` in fused_span where it takes the operands,
+    else chain(*operands): the same bits either way."""
+    shape = dfops.result_shape(*operands)
+    if shape is None:
+        return chain(*operands)
+    with fused_span:
+        return dfops._launch(entry, operands, shape)
+
+
 class DF64Alg:
     """Double-word f32 arithmetic (see lilac_tpu_torch.ops.dfloat)."""
 
@@ -86,34 +115,30 @@ class DF64Alg:
                     return dfdot(u, v)
             return df.dot(u, v)
 
+    # The other methods: where kernels/dfops.py takes the operands (float32
+    # CUDA planes, 1-D of one length or 0-dim) one launch of the chain's
+    # bits; elsewhere the op chain itself.
+
     def add(self, u, v):
         with _ADD:
-            return df.add(u, v)
+            return _fused(_ADD_FUSED, "add", df.add, u, v)
 
     def sub(self, u, v):
         with _SUB:
-            return df.sub(u, v)
+            return _fused(_SUB_FUSED, "sub", df.sub, u, v)
 
     def smul(self, s, u):
         # scalar DF times vector DF: 0-dim tensors broadcast through mul
         with _SMUL:
-            return df.mul(s, u)
+            return _fused(_SMUL_FUSED, "mul", df.mul, s, u)
 
     def sdiv(self, a, b):
-        # a zero numerator gives that zero, not 0/0 = NaN: a df64 word keeps
-        # f32's exponent range, so a converged CG's rho (r.r) underflows to
-        # 0 and beta = rho_new / rho would be 0/0 (NPB class C, from some
-        # start vectors, after a few dozen outer steps). Any other quotient
-        # is df.div's, bit for bit. The JAX package's df.div gives the NaN:
-        # here the port parts from it on purpose.
         with _SDIV:
-            q = df.div(a, b)
-            zero = a.hi == 0
-            return df.DF(torch.where(zero, a.hi, q.hi), torch.where(zero, a.hi, q.lo))
+            return _fused(_SDIV_FUSED, "div", _guarded_div, a, b)
 
     def ssqrt(self, a):
         with _SSQRT:
-            return df.sqrt(a)
+            return _fused(_SSQRT_FUSED, "sqrt", df.sqrt, a)
 
     def scalar(self, v):
         return df.full((), float(v), device=self.device)

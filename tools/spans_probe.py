@@ -158,7 +158,10 @@ def cell(name: str, device: str = "cuda") -> dict:
     kernels_in_steps = sum(1 for k in t.kernels if k[1] >= lo)
 
     def one_step():
-        run._steps(run.x, 1)
+        if hasattr(run, "_steps"):  # an NPB outer step
+            run._steps(run.x, 1)
+        else:  # a BiCG iteration: a solve paused after its first
+            run.sol.solve(run.b, stop_at=1)
 
     out = {
         "cell": name, "setup_s": setup, "profiled_steps": n,
