@@ -33,9 +33,10 @@ proves on the card that
   exchange passes equal the gather on the index they compose (timed as
   their library yardstick),
 * a general sparse matrix (unsorted rows, a column dense enough to need
-  block-aligned shifts) multiplies right through the hierarchical plans,
-  packed (kernels K3-K6) and net by net (their un-batched forms K3u-K6u),
-  and its transpose through the same plans in reverse (kernels K7-K10);
+  block-aligned shifts) multiplies right through the hierarchical plan
+  (kernels K3-K6; one net of it through their un-batched forms K3u-K6u
+  equals its packed group's row bit for bit), and its transpose through
+  the same plan in reverse (kernels K7-K10);
   the same matrix through column-segmented routing (two segments of 2^18
   columns, K1 on each, bit for bit against its plain version and timed;
   K2 in df64) in f32 and df64 against the gather plan, and its plan file
@@ -2194,10 +2195,21 @@ def _general_matrix(rng, n: int) -> tuple:
 EXCHANGE_SHAPES = ((4, 256), (4, 64), (4, 32), (2, 128), (2, 64), (1, 128), (1, 64))
 
 
+def _bigshift_net(M):
+    """A device copy of the first net of host-staged hier plan M whose
+    schedule holds a block-aligned shift: the net that the un-batched
+    kernels K3u-K6u (rs.hier_net_apply) are held and timed on."""
+    from lilac_tpu_torch.kernels import routed_spmv as rs
+
+    i = next(i for i, g in enumerate(M.nets)
+             if any(mt[0] == "bigshift" for mt in g.pass_meta))
+    return rs._net_to_device(M.nets[i], DEVICE), i
+
+
 def phase_exchange_diag() -> dict:
-    """K4u and K6u on the general matrix's net-by-net plan (opt-in,
+    """K4u and K6u on one net of the general matrix's plan (opt-in,
     `exchange_diag`; not in the whole run): the first butterfly pass and
-    the first block-aligned shift of a net's schedule, with L2 flushed and
+    the first block-aligned shift of the net's schedule, with L2 flushed and
     back to back, beside a flushed copy_ of the same bytes, at the default
     launch shape and at every (slots, threads) of EXCHANGE_SHAPES, each
     held bit for bit against the plain version. (4, 256) is the shape K4u
@@ -2215,12 +2227,7 @@ def phase_exchange_diag() -> dict:
     indptr, indices, data = _general_matrix(rng, n)
     x = rng.standard_normal(n)
     M = rs.build_routed_csr_hier(indptr, indices, data, (n, n), dtype="df64")
-    os.environ["LILAC_HIER_PACK"] = "0"
-    try:
-        P = rs.maybe_pack_hier(M, DEVICE)
-    finally:
-        del os.environ["LILAC_HIER_PACK"]
-    net = next(g for g in P.nets if any(mt[0] == "bigshift" for mt in g.pass_meta))
+    net, _ = _bigshift_net(M)
     xh, xl = df.from_f64(x, device=DEVICE)
     planes = (_plane(xh, M.m), _plane(xl, M.m))
     shapes = [None]
@@ -2265,14 +2272,16 @@ def phase_hier_general(kernels: dict, n: int = 400_000, bl: int | None = None) -
     """The second driven path: y = A x for a general sparse matrix through
     build_routed_csr_hier at the default block length. Rows come unsorted (so
     the un-permute network runs) and one column is dense enough that its
-    broadcast run needs block-aligned shifts. Run net by net (LILAC_HIER_PACK
-    =0: kernels K3u-K6u) and packed (K3-K6), in df64 and f64, against the
-    f64 CSR product; launch counts are set to 0 before each run and read
-    after it. K6 and the four un-batched kernels are timed here, on this
-    plan's own passes (every pass again held against its plain version).
-    The transpose product A^T u runs through the same plans in reverse
-    (kernels K7-K10, packed and at N = 1 net by net) against scipy's A^T u;
-    K10, which no NPB plan reaches, is timed and counted here."""
+    broadcast run needs block-aligned shifts. The packed plan (K3-K6) runs
+    in df64 and f64 against the f64 CSR product; launch counts are set to 0
+    before each run and read after it. The un-batched kernels K3u-K6u are
+    held on one net of the plan, a device copy of it through
+    rs.hier_net_apply: its output equals the packed group's row for that net
+    bit for bit, and every pass equals its plain version. K6 and the four
+    un-batched kernels are timed here, on this plan's own passes. The
+    transpose product A^T u runs through the same plan in reverse (kernels
+    K7-K10) against scipy's A^T u, and one net's schedule in reverse at
+    N = 1; K10, which no NPB plan reaches, is timed and counted here."""
     import scipy.sparse as sp
 
     from lilac_tpu_torch.kernels import dfmulred as dfk
@@ -2295,6 +2304,9 @@ def phase_hier_general(kernels: dict, n: int = 400_000, bl: int | None = None) -
     line = {"phase": "hier_general", "n": n, "nnz": int(indptr[-1]), "runs": []}
     timed: dict = {}
     launches: dict = {}  # per kernel, from the df64 runs
+    unperm_launches: dict = {}  # K3u-K6u in the df64 product: the un-permute network's
+    batched = [PASS_FNS[k][0] for k in PASS_FNS]
+    single = [PASS_FNS[k][1] for k in PASS_FNS]
     for dtype, tol in (("df64", 4e-14), ("f64", 1e-13)):
         t0 = time.time()
         M = rs.build_routed_csr_hier(
@@ -2302,97 +2314,119 @@ def phase_hier_general(kernels: dict, n: int = 400_000, bl: int | None = None) -
         build_s = time.time() - t0
         if M.unperm is None:
             raise AssertionError("general matrix: rows came sorted, no un-permute")
-        for pack in (False, True):
-            os.environ["LILAC_HIER_PACK"] = "1" if pack else "0"
-            try:
-                P = rs.maybe_pack_hier(M, DEVICE)
-            finally:
-                del os.environ["LILAC_HIER_PACK"]
-            if isinstance(P, rs.RoutedMatHierP) != pack:
-                raise AssertionError("LILAC_HIER_PACK did not reach maybe_pack_hier")
-            _reset_hier_counts(rd, dfk)
-            if dtype == "df64":
-                got = df.to_f64(rs.routed_hier_spmv_df(P, df.from_f64(x, device=DEVICE)))
-            else:
-                got = rs.routed_hier_spmv(
-                    P, torch.as_tensor(x, device=DEVICE)).cpu().numpy()
-            torch.cuda.synchronize()
-            counts_run = _hier_counts(rd)
-            err = float((np.abs(got - want) / scale).max())
-            line["runs"].append({
-                "dtype": dtype, "packed": pack, "build_s": round(build_s, 2),
-                "m": M.m, "m_out": M.m_out, "bl": M.bl, "nets": len(M.nets),
-                "groups": len(P.groups) if pack else None,
-                "max_err_over_sum_abs": err, "tol": tol, "launches": counts_run,
-                "dfmulred_launches": dfk.dfmulred.launches})
-            if got.shape != (n,) or not np.isfinite(got).all() or err > tol:
-                raise AssertionError(f"general matrix {dtype} packed={pack}: {err}")
-            batched = [PASS_FNS[k][0] for k in PASS_FNS]
-            single = [PASS_FNS[k][1] for k in PASS_FNS]
-            for name in single if not pack else batched:
-                if counts_run[name] <= 0:
-                    raise AssertionError(
-                        f"general matrix {dtype} packed={pack}: {name} not launched")
-            if not pack and any(counts_run[name] for name in batched):
-                raise AssertionError("net-by-net run launched a net-batched kernel")
-            # the transpose product through the same plan in reverse
-            _reset_hier_counts(rd, dfk)
-            if dtype == "df64":
-                got_t = df.to_f64(
-                    rs.routed_hier_spmv_adj_t_df(P, df.from_f64(u, device=DEVICE)))
-            else:
-                got_t = rs.routed_hier_spmv_adj_t(
-                    P, torch.as_tensor(u, device=DEVICE)).cpu().numpy()
-            torch.cuda.synchronize()
-            counts_t = _hier_counts(rd)
-            # columns no row touches have scale 0 and must come out exactly 0
-            err_t = float((np.abs(got_t - want_t) / np.maximum(scale_t, 1e-300)).max())
-            line["runs"][-1].update(
-                adjoint_max_err_over_sum_abs=err_t,
-                adjoint_launches={k: counts_t[k] for k in ADJ_NAMES})
-            if got_t.shape != (ncol,) or not np.isfinite(got_t).all() or err_t > tol:
-                raise AssertionError(
-                    f"general matrix {dtype} packed={pack}: adjoint error {err_t}")
-            if any(counts_t[name] <= 0 for name in ADJ_NAMES) or any(
-                    counts_t[name] for name in batched + single):
-                raise AssertionError(
-                    f"general matrix {dtype} packed={pack}: adjoint launches {counts_t}")
-            if dtype == "df64" and pack:
-                launches.update({name: counts_t[name] for name in ADJ_NAMES})
-            if dtype == "df64":
-                launches.update(
-                    {name: counts_run[name] for name in (batched if pack else single)})
-                # time on this plan's own passes, on the first net (or packed
-                # group) whose schedule holds a block-aligned shift
-                xh, xl = df.from_f64(x, device=DEVICE)
-                planes = (_plane(xh, M.m), _plane(xl, M.m))
-                net = next(g for g in (P.groups if pack else P.nets)
-                           if any(mt[0] == "bigshift" for mt in g.pass_meta))
-                _walk_schedule(
-                    rd, planes, net.pass_meta, net.pass_masks, M.bl, pack,
-                    "general matrix, " + ("packed group" if pack else "one net"),
-                    timed, 10)
-                # the same schedule in reverse on per-net cotangents (one net:
-                # the adjoint kernels at N = 1)
-                masks_t = (net.pass_masks if pack
-                           else tuple(mk.unsqueeze(0) for mk in net.pass_masks))
-                nets = masks_t[0].shape[0]
-                _walk_schedule_t(
-                    rd, _adj_planes(rng, (nets, M.m // 128, 128), np.float32, 2, True),
-                    net.pass_meta, masks_t, M.bl, True,
-                    "general matrix, " + ("packed group" if pack else "one net (N = 1)"),
-                    timed if pack else None, 10)
-            del P
-        del M
+        net, net_id = _bigshift_net(M)
+        P = rs.maybe_pack_hier(M, DEVICE)
+        if not isinstance(P, rs.RoutedMatHierP):
+            raise AssertionError(f"maybe_pack_hier gave a {type(P).__name__}")
+        if dtype == "df64":
+            xh, xl = df.from_f64(x, device=DEVICE)
+            planes = (_plane(xh, M.m), _plane(xl, M.m))
+        else:
+            planes = (_plane(torch.as_tensor(x, device=DEVICE), M.m),)
+        # one net through the un-batched kernels, against its packed group
+        _reset_hier_counts(rd, dfk)
+        outs = rs.hier_net_apply(net, planes, M.bl)
+        torch.cuda.synchronize()
+        counts_net = _hier_counts(rd)
+        if any(counts_net[name] <= 0 for name in single) or any(
+                counts_net[name] for name in batched):
+            raise AssertionError(
+                f"general matrix {dtype}: one net's launches {counts_net}")
+        grp = next(g for g in P.groups if net_id in g.net_ids)
+        outs_g = rd.hier_apply_batched(planes, grp.pass_meta, grp.pass_masks, M.bl)
+        li = grp.net_ids.index(net_id)
+        if not all(_bits_equal(o.reshape(-1), og[li].reshape(-1))
+                   for o, og in zip(outs, outs_g)):
+            raise AssertionError(
+                f"general matrix {dtype}: net {net_id} through hier_net_apply != "
+                "its packed group's row")
+        del outs, outs_g
+        what = f"general matrix {dtype}, one net"
+        _walk_schedule(rd, planes, net.pass_meta, net.pass_masks, M.bl, False, what,
+                       timed if dtype == "df64" else None, 10)
+        # the same schedule in reverse on one net's cotangents (the adjoint
+        # kernels at N = 1)
+        _walk_schedule_t(
+            rd, _adj_planes(rng, (1, M.m // 128, 128), np.float32, 2, True),
+            net.pass_meta, tuple(mk.unsqueeze(0) for mk in net.pass_masks), M.bl,
+            True, f"general matrix {dtype}, one net (N = 1)", None, 10)
+        if dtype == "df64":
+            launches.update({name: counts_net[name] for name in single})
+        del net
+
+        _reset_hier_counts(rd, dfk)
+        if dtype == "df64":
+            got = df.to_f64(rs.routed_hier_spmv_df(P, df.from_f64(x, device=DEVICE)))
+        else:
+            got = rs.routed_hier_spmv(
+                P, torch.as_tensor(x, device=DEVICE)).cpu().numpy()
+        torch.cuda.synchronize()
+        counts_run = _hier_counts(rd)
+        err = float((np.abs(got - want) / scale).max())
+        line["runs"].append({
+            "dtype": dtype, "build_s": round(build_s, 2),
+            "m": M.m, "m_out": M.m_out, "bl": M.bl, "nets": len(M.nets),
+            "groups": len(P.groups),
+            "max_err_over_sum_abs": err, "tol": tol, "launches": counts_run,
+            "dfmulred_launches": dfk.dfmulred.launches,
+            "one_net": {"net": net_id, "passes": len(grp.pass_meta),
+                        "launches": {k: counts_net[k] for k in single}}})
+        if got.shape != (n,) or not np.isfinite(got).all() or err > tol:
+            raise AssertionError(f"general matrix {dtype}: {err}")
+        for name in batched:
+            if counts_run[name] <= 0:
+                raise AssertionError(f"general matrix {dtype}: {name} not launched")
+        # the transpose product through the same plan in reverse
+        _reset_hier_counts(rd, dfk)
+        if dtype == "df64":
+            got_t = df.to_f64(
+                rs.routed_hier_spmv_adj_t_df(P, df.from_f64(u, device=DEVICE)))
+        else:
+            got_t = rs.routed_hier_spmv_adj_t(
+                P, torch.as_tensor(u, device=DEVICE)).cpu().numpy()
+        torch.cuda.synchronize()
+        counts_t = _hier_counts(rd)
+        # columns no row touches have scale 0 and must come out exactly 0
+        err_t = float((np.abs(got_t - want_t) / np.maximum(scale_t, 1e-300)).max())
+        line["runs"][-1].update(
+            adjoint_max_err_over_sum_abs=err_t,
+            adjoint_launches={k: counts_t[k] for k in ADJ_NAMES})
+        if got_t.shape != (ncol,) or not np.isfinite(got_t).all() or err_t > tol:
+            raise AssertionError(f"general matrix {dtype}: adjoint error {err_t}")
+        if any(counts_t[name] <= 0 for name in ADJ_NAMES) or any(
+                counts_t[name] for name in batched + single):
+            raise AssertionError(
+                f"general matrix {dtype}: adjoint launches {counts_t}")
+        if dtype == "df64":
+            launches.update({name: counts_t[name] for name in ADJ_NAMES})
+            launches.update({name: counts_run[name] for name in batched})
+            unperm_launches.update({name: counts_run[name] for name in single})
+            # time on this plan's own passes, on the first packed group whose
+            # schedule holds a block-aligned shift, forwards and in reverse
+            g = next(g for g in P.groups
+                     if any(mt[0] == "bigshift" for mt in g.pass_meta))
+            _walk_schedule(rd, planes, g.pass_meta, g.pass_masks, M.bl, True,
+                           "general matrix, packed group", timed, 10)
+            _walk_schedule_t(
+                rd, _adj_planes(rng, (g.pass_masks[0].shape[0], M.m // 128, 128),
+                                np.float32, 2, True),
+                g.pass_meta, g.pass_masks, M.bl, True, "general matrix, packed group",
+                timed, 10)
+        del P, M, planes
         torch.cuda.empty_cache()
-    for name in [PASS_FNS[k][1] for k in PASS_FNS] + ["bigshift_apply_b"] + ADJ_NAMES:
+    for name in single + ["bigshift_apply_b"] + ADJ_NAMES:
         if name not in timed:
             raise AssertionError(f"general matrix: no {name} pass to time")
         kernels[name] = timed[name]
         kernels[name]["launches"] = launches[name]
         kernels[name]["launches_on"] = "general-matrix hier SpMV (df64)" + (
-            ", transpose product, packed" if name in ADJ_NAMES else "")
+            ", transpose product" if name in ADJ_NAMES else "")
+        if name in single:
+            kernels[name]["launches_on"] = (
+                "one net of the general-matrix hier plan (df64) through hier_net_apply")
+            kernels[name]["launches_unperm"] = unperm_launches[name]
     line["general_launches"] = launches
+    line["unperm_launches"] = unperm_launches
     emit(line)
     return line
 
@@ -3589,7 +3623,7 @@ def phase_mixed_d(kernels: dict, adj_res, adj_bytes: int, class_name: str = "D")
 
     env = {"LILAC_FACTORED_SEGMODE": "mixed", "LILAC_FACTORED_VT": "plan"}
     path = os.path.join(cfg().resolved_data_dir(),
-                        f"routed2_{class_name}_df64_V{fac.plan_tag(cfg(), hier=True)}.npz")
+                        f"routed2_{class_name}_df64_V{rs.plan_tag(cfg(), hier=True)}.npz")
     if not os.path.exists(path):
         raise AssertionError(f"class {class_name} mixed: no V plan file {path} from the "
                              "adj run")

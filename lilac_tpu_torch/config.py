@@ -60,14 +60,6 @@ KNOBS = (
          "memory). Each butterfly pass costs about one mask byte per slot "
          "whatever its stage count, so larger g = fewer passes = smaller "
          "plans and fewer streams through device memory."),
-    Knob("hier_pack", "LILAC_HIER_PACK", bool, True,
-         "Pack hierarchical routed nets that share a pass schedule into "
-         "net-batched launches (one kernel launch per pass for the whole "
-         "group). Set 0 only to run the per-net appliers."),
-    Knob("df_fused", "LILAC_DF_FUSED", bool, True,
-         "Run the df64 multiply+row-sum glue of column-major routed plans "
-         "as the fused CUDA kernel (kernels/dfmulred.py) instead of the "
-         "eager op chain (df.mul + pairwise df-sum tree)."),
     Knob("steps_per_dispatch", "LILAC_STEPS_PER_DISPATCH", Optional[int], None,
          "NPB CG outer iterations between host read-backs of the zeta and "
          "rnorm histories (None = the whole loop, one read-back at the "
@@ -120,8 +112,6 @@ class Config:
     net_mode: str
     hier_bl: Optional[int]
     hier_gmax: Optional[int]
-    hier_pack: bool
-    df_fused: bool
     steps_per_dispatch: Optional[int]
     factored_segmode: str
     factored_vt: str

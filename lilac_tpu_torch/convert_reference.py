@@ -19,7 +19,7 @@ from lilac_tpu_torch.kernels.routed_spmv import (
     HierNet,
     RoutedMat,
     RoutedMatHier,
-    hier_to_device,
+    RoutedMatHierP,
     pack_hier,
 )
 from lilac_tpu_torch.ops.dfloat import DF
@@ -68,15 +68,15 @@ def _detuple(x):
 
 def hier_mat_from_arrays(
     nets_masks, nets_meta, vals, unperm_masks, unperm_meta, chunks, shape,
-    m, m_out, bl, n_nz, colmajor, device="cuda", pack=True,
-):
-    """A hierarchical plan from its per-net arrays, put on `device`.
+    m, m_out, bl, n_nz, colmajor, device="cuda",
+) -> RoutedMatHierP:
+    """A hierarchical plan from its per-net arrays, packed on `device`
+    (pack_hier).
 
     nets_masks[i][j]: net i's pass j mask array (int8, the plan file's
     layout); nets_meta[i]: its static pass descriptors; vals[i]: [m] or
     [m, 2]; unperm_masks / unperm_meta: the un-permute network or None;
-    chunks[i] = ((slot0, rows_c, K), ...). pack: True = RoutedMatHierP
-    (pack_hier), False = RoutedMatHier net by net."""
+    chunks[i] = ((slot0, rows_c, K), ...)."""
     def host(a):
         return np.array(a, order="C")
 
@@ -91,7 +91,7 @@ def hier_mat_from_arrays(
         chunks=_detuple(chunks), shape=tuple(int(v) for v in shape), m=int(m),
         m_out=int(m_out), bl=int(bl), n_nz=int(n_nz), colmajor=bool(colmajor),
     )
-    return pack_hier(M, device) if pack else hier_to_device(M, device)
+    return pack_hier(M, device)
 
 
 def seg_bucket_ell_from_arrays(

@@ -1,6 +1,6 @@
 // The error-free transformations of ops/dfloat.py and its df.add / df.mul,
-// operation for operation, for the df64 kernels of the solvers
-// (csrc/dfdot.cu, csrc/dfops.cu).
+// operation for operation, for the df64 kernels (csrc/dfmulred.cu,
+// csrc/dfdot.cu, csrc/dfops.cu).
 //
 // Exact rounding: every step is written with the __f*_rn intrinsics, which
 // the compiler never contracts into an FMA, and the build passes

@@ -34,34 +34,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// two_sum, split and Dekker's two_prod: the same sequences as the plain
+// version, so that the two agree bit for bit. (__fmaf_rn(a, b, -p) gives
+// the same TwoProd error term in one instruction; the kernel is bound by
+// bytes, so the longer form costs nothing.)
+#include "df_eft.cuh"
+
 namespace {
-
-__device__ __forceinline__ void two_sum(float a, float b, float& s, float& e) {
-  s = __fadd_rn(a, b);
-  const float bb = __fsub_rn(s, a);
-  e = __fadd_rn(__fsub_rn(a, __fsub_rn(s, bb)), __fsub_rn(b, bb));
-}
-
-__device__ __forceinline__ void split(float a, float& hi, float& lo) {
-  const float t = __fmul_rn(4097.0f, a);  // 2^12 + 1
-  hi = __fsub_rn(t, __fsub_rn(t, a));
-  lo = __fsub_rn(a, hi);
-}
-
-// Dekker TwoProd, the same sequence as the plain version so that the two
-// agree bit for bit. (__fmaf_rn(a, b, -p) gives the same error term in one
-// instruction; the kernel is bound by bytes, so the longer form costs
-// nothing.)
-__device__ __forceinline__ void two_prod(float a, float b, float& p, float& e) {
-  p = __fmul_rn(a, b);
-  float ahi, alo, bhi, blo;
-  split(a, ahi, alo);
-  split(b, bhi, blo);
-  e = __fsub_rn(__fmul_rn(ahi, bhi), p);
-  e = __fadd_rn(e, __fmul_rn(ahi, blo));
-  e = __fadd_rn(e, __fmul_rn(alo, bhi));
-  e = __fadd_rn(e, __fmul_rn(alo, blo));
-}
 
 constexpr int kRows = 256;  // rows of one thread block, one a thread
 

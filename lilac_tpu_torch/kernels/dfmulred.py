@@ -262,24 +262,19 @@ def chunk_reduce_net_df(prod: df.DF, chlist, colmajor=False):
     return hi, lo
 
 
-def chunk_mulreduce_df(vals, o_hi, o_lo, chlist, colmajor, *, fused=None):
+def chunk_mulreduce_df(vals, o_hi, o_lo, chlist, colmajor):
     """df64 per-net ELL mul+row-sum: vals [m, 2] (or a (hi, lo) tuple of
     [m] planes), o planes [m] -> (hi, lo) concatenated row sums over the
     (s0, rows_c, K) chunks.
 
-    Column-major chunks take dfmulred_chunks (one launch for all of them)
-    when the df_fused knob is on; with df_fused=0, or a row-major plan, they
-    take the op chain (df.mul + pairwise df-sum tree). `fused` overrides the
-    knob."""
+    Column-major chunks take dfmulred_chunks (one launch for all of them);
+    row-major chunks, whose terms K2 cannot read, take the op chain (df.mul
+    + pairwise df-sum tree)."""
     if isinstance(vals, tuple):
         vh_m, vl_m = vals
     else:
         vh_m, vl_m = vals[..., 0], vals[..., 1]
-    if fused is None:
-        from lilac_tpu_torch.config import cfg
-
-        fused = cfg().df_fused
-    if not (colmajor and fused):
+    if not colmajor:
         prod = df.mul(df.DF(vh_m, vl_m), df.DF(o_hi, o_lo))
         return chunk_reduce_net_df(prod, chlist, colmajor)
     return dfmulred_chunks(vh_m, vl_m, o_hi, o_lo, chunk_list_table(tuple(chlist)))

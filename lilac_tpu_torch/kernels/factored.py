@@ -49,7 +49,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import zipfile
 from typing import Tuple, Union
 
 import numpy as np
@@ -63,16 +62,16 @@ from lilac_tpu_torch.kernels.gather import (
     seg_ell_scan_spmv,
     seg_ell_scan_spmv_df,
 )
+from lilac_tpu_torch.kernels import routed_spmv as _rs
 from lilac_tpu_torch.kernels.routed_spmv import (
     RoutedMat,
-    RoutedMatHier,
     RoutedMatHierP,
     RoutedMatSeg,
     hier_bl_cfg,
     build_routed_csr,
     build_routed_csr_hier,
-    load_routed,
     maybe_pack_hier,
+    plan_tag,
     routed_hier_spmv,
     routed_hier_spmv_adj_t,
     routed_hier_spmv_adj_t_df,
@@ -91,19 +90,15 @@ from lilac_tpu_torch.utils.profiling import BUILD, span
 _MATVEC = span("lilac.operator.matvec")
 _V = span("lilac.operator.V")
 _VT = span("lilac.operator.VT")  # VT's own plan, or V's run in reverse
-_PLAN_READ = span("lilac.build.plan.read", BUILD)
+_PLAN_READ = span("lilac.build.plan.read", BUILD)  # the sidecar of s and nnz_eff
 _PLAN_MAKEA = span("lilac.build.plan.makea", BUILD)
 _PLAN_ROUTE = span("lilac.build.plan.route", BUILD)
 
-SINGLE_TABLE_MAX = 1 << 18  # largest n the reference serves with one table
 # Columns a segment of the scan layout. A layout constant: it fixes the
 # order of the sums the tests compare with the reference. The value is the
 # reference's, chosen for the TPU's gather (a 1.25 MB table a segment); it
 # has not been tuned on an H100.
 SEG_SIZE = 163840
-
-# what a damaged, truncated or foreign plan file raises while it is read
-_LOAD_ERRORS = (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile)
 
 
 @dataclasses.dataclass
@@ -112,10 +107,9 @@ class FactoredNPB:
 
     # [n x n] sparse with rows a_i, and its transpose; VT None
     # (factored_vt=adj) = apply V's own routed plan in reverse
-    V: Union[RoutedMat, RoutedMatHier, RoutedMatHierP, RoutedMatSeg, SegBucketELL,
-             SegELLScan]
-    VT: Union[RoutedMat, RoutedMatHier, RoutedMatHierP, RoutedMatSeg, SegBucketELL,
-              SegELLScan, JagELLT, None]
+    V: Union[RoutedMat, RoutedMatHierP, RoutedMatSeg, SegBucketELL, SegELLScan]
+    VT: Union[RoutedMat, RoutedMatHierP, RoutedMatSeg, SegBucketELL, SegELLScan,
+              JagELLT, None]
     s: torch.Tensor  # [n] outer-product weights (f32/f64 or [n, 2] df)
     d0: torch.Tensor  # scalar diagonal shift rcond - shift (or [2] df)
 
@@ -137,7 +131,7 @@ def _resolve_modes(conf, n: int, device) -> Tuple[str, str]:
     if vt_mode == "auto":
         # one hier plan for both directions beyond a single table; the
         # single-table classes keep the dedicated VT plan
-        vt_mode = ("adj" if mode in ("routed", "mixed") and n > SINGLE_TABLE_MAX
+        vt_mode = ("adj" if mode in ("routed", "mixed") and n > _rs.SINGLE_TABLE_MAX
                    else "plan")
     if vt_mode not in ("plan", "adj"):
         raise ValueError(f"unknown factored_vt {vt_mode!r}")
@@ -148,37 +142,6 @@ def _resolve_modes(conf, n: int, device) -> Tuple[str, str]:
     if mode != "routed":
         vt_mode = "plan"  # a gather layout has no network to run in reverse
     return mode, vt_mode
-
-
-def plan_tag(conf, hier: bool) -> str:
-    """The geometry tag of a routed plan file name (the reference's cache
-    schema v2 names). Single-table plans carry the net-mode tag (monotone
-    schedules differ from Benes). Hier plans always build Benes and ALWAYS
-    carry their (bl, gmax) tag: the port's default block length differs
-    from the reference's, so an untagged name would alias a plan of another
-    geometry."""
-    if not hier:
-        return "_m" if conf.net_mode == "monotone" else ""
-    g = conf.hier_gmax if conf.hier_gmax is not None else "a"
-    return f"_bl{hier_bl_cfg()}g{g}"
-
-
-def _load_plans(paths, device):
-    """The plan files (V, VT; V alone for factored_vt=adj) as RoutedMats or
-    host-staged RoutedMatHiers, or None when one is missing, unreadable, of
-    another cache version, in the old row-major layout or infeasible on
-    this device. Only errors of reading the files are caught here."""
-    if not all(os.path.exists(p) for p in paths):
-        return None
-    try:
-        # a single table is uploaded inside load_routed, a hier plan later
-        with _PLAN_READ(fence=device):
-            plans = [load_routed(p, device=device) for p in paths]
-    except _LOAD_ERRORS:
-        return None
-    if any(p is None for p in plans) or not plans[0].colmajor:
-        return None
-    return plans
 
 
 def _build_hier_plan(path, indptr, indices, vals, n, dtype, device):
@@ -218,7 +181,7 @@ def build_factored(
         cache_dir = conf.resolved_data_dir()
         os.makedirs(cache_dir, exist_ok=True)
         # mixed's V is a hier plan at every n
-        tag = plan_tag(conf, hier=mode == "mixed" or n > SINGLE_TABLE_MAX)
+        tag = plan_tag(conf, hier=mode == "mixed" or n > _rs.SINGLE_TABLE_MAX)
         # adj and mixed need, and write, V's file alone
         paths = [
             os.path.join(cache_dir, f"routed2_{cls.name}_{dtype}_{t}{tag}.npz")
@@ -230,12 +193,12 @@ def build_factored(
         if mode == "routed" and os.path.exists(meta_path):
             # full cache hit: the sidecar carries the already-permuted s
             # and nnz_eff, so the makea triples are not regenerated
-            plans = _load_plans(paths, device)
+            plans = _rs._load_plans(paths, device)
             try:
                 with _PLAN_READ:
                     z = np.load(meta_path, allow_pickle=False)
                     s_meta, nnz_meta = z["s"], int(z["nnz_eff"])
-            except _LOAD_ERRORS:
+            except _rs._LOAD_ERRORS:
                 plans = None
             if plans is not None:
                 V, VT = [maybe_pack_hier(p, device) for p in plans] + [None] * adj
@@ -279,10 +242,10 @@ def build_factored(
         plans = []
         for path, (ip, ix, vv) in zip(
                 paths, ((v_ip, v_ix, v_v), (t_ip, t_ix, t_v))):
-            cached = _load_plans([path], device)
+            cached = _rs._load_plans([path], device)
             if cached is not None:
                 plans.append(maybe_pack_hier(cached[0], device))
-            elif n <= SINGLE_TABLE_MAX:
+            elif n <= _rs.SINGLE_TABLE_MAX:
                 with _PLAN_ROUTE(fence=device):
                     plans.append(build_routed_csr(
                         ip, ix, vv, (n, n), dtype=dtype, device=device))
@@ -294,7 +257,7 @@ def build_factored(
         # V routed (its hier plan file loaded, or built and saved), V^T a
         # gather layout: its rows are the sigma-sorted j space, already
         # length-sorted, as JagELLT needs
-        cached = _load_plans(paths, device)
+        cached = _rs._load_plans(paths, device)
         if cached is not None:
             V = maybe_pack_hier(cached[0], device)
         else:
@@ -341,7 +304,7 @@ def build_factored(
 def _spmv_any(A, x):
     if isinstance(A, RoutedMat):
         return routed_spmv(A, x)
-    if isinstance(A, (RoutedMatHier, RoutedMatHierP)):
+    if isinstance(A, RoutedMatHierP):
         return routed_hier_spmv(A, x)
     if isinstance(A, RoutedMatSeg):
         return routed_seg_spmv(A, x)
@@ -355,7 +318,7 @@ def _spmv_any_df(A, x):
         return jag_ellt_spmv_df(A, x)
     if isinstance(A, RoutedMat):
         return routed_spmv_df(A, x)
-    if isinstance(A, (RoutedMatHier, RoutedMatHierP)):
+    if isinstance(A, RoutedMatHierP):
         return routed_hier_spmv_df(A, x)
     if isinstance(A, RoutedMatSeg):
         return routed_seg_spmv_df(A, x)
@@ -369,7 +332,7 @@ def _spmv_adj_any(A, u):
     FactoredNPB.VT is None (factored_vt=adj)."""
     if isinstance(A, RoutedMat):
         return routed_spmv_adj_t(A, u)
-    if isinstance(A, (RoutedMatHier, RoutedMatHierP)):
+    if isinstance(A, RoutedMatHierP):
         return routed_hier_spmv_adj_t(A, u)
     raise TypeError(f"no VT and V is a {type(A).__name__}, not a routed plan")
 
@@ -377,7 +340,7 @@ def _spmv_adj_any(A, u):
 def _spmv_adj_any_df(A, u):
     if isinstance(A, RoutedMat):
         return routed_spmv_adj_t_df(A, u)
-    if isinstance(A, (RoutedMatHier, RoutedMatHierP)):
+    if isinstance(A, RoutedMatHierP):
         return routed_hier_spmv_adj_t_df(A, u)
     raise TypeError(f"no VT and V is a {type(A).__name__}, not a routed plan")
 

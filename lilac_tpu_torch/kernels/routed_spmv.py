@@ -19,7 +19,8 @@ over that segment's slice of x, all segments sharing one row order. Hierarchical
 serve larger tables: one full-size network per m-slot super-block of
 terms, applied pass by pass (kernels/routed.py), rows globally sorted by
 length, an un-permute network at the end where the rows were not sorted
-already.
+already. On a device the nets that share a pass schedule are packed into
+groups (RoutedMatHierP), one launch a pass for a whole group.
 
 The transpose products (`routed_spmv_adj_t(_df)`, `routed_hier_spmv_adj_t
 (_df)`) run the FORWARD plan backwards: Aᵀu = Gᵀ(vals ⊙ expand(u)), with
@@ -39,6 +40,7 @@ import glob
 import json
 import os
 import time
+import zipfile
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Tuple
 
@@ -56,6 +58,7 @@ from lilac_tpu_torch.utils.profiling import BUILD, span
 _ROUTE = span("lilac.kernels.route")
 _MULRED = span("lilac.kernels.mulred")
 _UPLOAD = span("lilac.build.plan.upload", BUILD)
+_READ = span("lilac.build.plan.read", BUILD)
 
 
 @dataclasses.dataclass
@@ -277,11 +280,9 @@ def _single_table_k2(chunks, m: int) -> dfk.ChunkTable:
 def _mulreduce_df_2d(vals, oh, ol, chunks, m: int, colmajor: bool):
     """df64 mul+row-sum for the [B, m] single-table and segment containers:
     chunk c is net-row c's leading rows_c * k_c slots. Column-major plans
-    with the df_fused knob on take the fused kernel, all chunks in one
-    launch; else the op chain."""
-    from lilac_tpu_torch.config import cfg
-
-    if colmajor and cfg().df_fused:
+    take the fused kernel, all chunks in one launch; row-major plans the op
+    chain."""
+    if colmajor:
         v = vals.reshape(-1, 2)
         with _MULRED:
             return dfk.dfmulred_chunks(v[:, 0], v[:, 1], oh.reshape(-1),
@@ -420,8 +421,6 @@ def build_routed_csr_seg(
     table of m = seg_size slots (check_table_feasible) of at most 2^18
     slots, and the card's shared memory must take a tile of the kernel for
     the plan's words (routed_tile)."""
-    from lilac_tpu_torch.kernels.factored import SINGLE_TABLE_MAX
-
     n, ncol = shape
     m = seg_size
     if m > SINGLE_TABLE_MAX:
@@ -545,7 +544,7 @@ def routed_seg_spmv(A: RoutedMatSeg, x: torch.Tensor) -> torch.Tensor:
 
 def routed_seg_spmv_df(A: RoutedMatSeg, x: df.DF) -> df.DF:
     """df64 y = A x: K1 on the hi and lo planes of each segment, K2 on the
-    segment's chunk table (the op chain with df_fused off), the segments
+    segment's chunk table (the op chain for a row-major plan), the segments
     combined by a compensated df.add in order, then one gather by
     inv_perm."""
     hs, ls = _seg_planes(x.hi, A), _seg_planes(x.lo, A)
@@ -713,7 +712,7 @@ def _load_seg(path: str, z, device) -> RoutedMatSeg:
 
 
 def save_routed(path: str, M) -> None:
-    """Write a RoutedMat, a RoutedMatSeg or an unpacked RoutedMatHier in the
+    """Write a RoutedMat, a RoutedMatSeg or a host-staged RoutedMatHier in the
     JAX package's npz format (hier plans per net, so packing happens after
     the save)."""
     if isinstance(M, RoutedMatHier):
@@ -722,7 +721,7 @@ def save_routed(path: str, M) -> None:
         return _save_seg(path, M)
     if not isinstance(M, RoutedMat):
         raise TypeError(
-            f"save_routed takes a RoutedMat, a RoutedMatSeg or an unpacked "
+            f"save_routed takes a RoutedMat, a RoutedMatSeg or a host-staged "
             f"RoutedMatHier, got {type(M).__name__}")
     _savez_atomic(
         path,
@@ -770,6 +769,43 @@ def load_routed(path: str, device="cuda"):
     )
 
 
+SINGLE_TABLE_MAX = 1 << 18  # largest n the reference serves with one table
+
+# what a damaged, truncated or foreign plan file raises while it is read
+_LOAD_ERRORS = (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile)
+
+
+def plan_tag(conf, hier: bool) -> str:
+    """The geometry tag of a routed plan file name (the reference's cache
+    schema v2 names). Single-table plans carry the net-mode tag (monotone
+    schedules differ from Benes). Hier plans always build Benes and ALWAYS
+    carry their (bl, gmax) tag: the port's default block length differs
+    from the reference's, so an untagged name would alias a plan of another
+    geometry."""
+    if not hier:
+        return "_m" if conf.net_mode == "monotone" else ""
+    g = conf.hier_gmax if conf.hier_gmax is not None else "a"
+    return f"_bl{hier_bl_cfg()}g{g}"
+
+
+def _load_plans(paths, device):
+    """The plan files as RoutedMats, RoutedMatSegs or host-staged
+    RoutedMatHiers, or None when one is missing, unreadable, of another
+    cache version, in the old row-major layout or infeasible on this
+    device. Only errors of reading the files are caught here."""
+    if not all(os.path.exists(p) for p in paths):
+        return None
+    try:
+        # a single table is uploaded inside load_routed, a hier plan later
+        with _READ(fence=device):
+            plans = [load_routed(p, device=device) for p in paths]
+    except _LOAD_ERRORS:
+        return None
+    if any(p is None for p in plans) or not plans[0].colmajor:
+        return None
+    return plans
+
+
 # ---------------------------------------------------------------------------
 # hierarchical routing: one full-size network per term super-block (no
 # column segmentation: stage distances above the block length run as
@@ -815,7 +851,7 @@ class RoutedMatHier:
     (what the fused df64 reduction reads coalesced).
 
     The builder and load_routed return it host-staged (numpy leaves);
-    maybe_pack_hier puts it on a device, packed or not."""
+    maybe_pack_hier puts it on a device as a RoutedMatHierP."""
 
     nets: tuple
     vals: tuple
@@ -844,11 +880,11 @@ class HierGroup:
 
 @dataclasses.dataclass
 class RoutedMatHierP:
-    """RoutedMatHier with its nets packed into schedule groups: each pass
-    over a group is ONE kernel launch (grid over blocks x nets) instead of
-    one per net. The plan file is unchanged (per-net masks); packing happens
-    at build / load (maybe_pack_hier), stacked on the host so the upload is
-    a few large transfers."""
+    """A hier plan on a device: RoutedMatHier with its nets packed into
+    schedule groups, so each pass over a group is ONE kernel launch (grid
+    over blocks x nets) instead of one per net. The plan file is unchanged
+    (per-net masks); packing happens at build / load (maybe_pack_hier),
+    stacked on the host so the upload is a few large transfers."""
 
     groups: tuple  # HierGroup
     unperm: Optional[HierNet]
@@ -872,15 +908,14 @@ def _net_to_device(net: Optional[HierNet], device) -> Optional[HierNet]:
 
 def plan_bytes(M) -> int:
     """Bytes of a hier plan's masks and values (host-staged or on a device)."""
-    def nb(a):
-        return a.numel() * a.element_size() if isinstance(a, torch.Tensor) else a.nbytes
-
-    nets = M.groups if isinstance(M, RoutedMatHierP) else M.nets
-    total = sum(nb(mk) for net in nets for mk in net.pass_masks)
-    total += sum(nb(v) for v in (
-        [g.vals for g in M.groups] if isinstance(M, RoutedMatHierP) else M.vals))
+    if isinstance(M, RoutedMatHierP):
+        nets, vals = M.groups, [g.vals for g in M.groups]
+    else:
+        nets, vals = M.nets, M.vals
+    total = sum(mk.nbytes for net in nets for mk in net.pass_masks)
+    total += sum(v.nbytes for v in vals)
     if M.unperm is not None:
-        total += sum(nb(mk) for mk in M.unperm.pass_masks)
+        total += sum(mk.nbytes for mk in M.unperm.pass_masks)
     return total
 
 
@@ -943,27 +978,14 @@ def pack_hier(M: RoutedMatHier, device="cuda") -> RoutedMatHierP:
     )
 
 
-def hier_to_device(M: RoutedMatHier, device="cuda") -> RoutedMatHier:
-    """An unpacked hier plan with every leaf as a tensor on `device`."""
-    return dataclasses.replace(
-        M,
-        nets=tuple(_net_to_device(net, device) for net in M.nets),
-        vals=tuple(torch.as_tensor(v, device=device) for v in M.vals),
-        unperm=_net_to_device(M.unperm, device),
-    )
-
-
 def maybe_pack_hier(M, device="cuda"):
-    """Put a hier plan on `device`: packed when the (default-on)
-    LILAC_HIER_PACK knob is set, else net by net. Anything that is not a
-    RoutedMatHier passes through unchanged. Either way the plan ends with
-    exactly one copy on the device."""
-    from lilac_tpu_torch.config import cfg
-
+    """Put a host-staged hier plan on `device`, packed (pack_hier); anything
+    that is not a RoutedMatHier passes through unchanged. The plan ends
+    with exactly one copy on the device."""
     if not isinstance(M, RoutedMatHier):
         return M
     with _UPLOAD(fence=device):
-        return pack_hier(M, device) if cfg().hier_pack else hier_to_device(M, device)
+        return pack_hier(M, device)
 
 
 def hier_bl_cfg() -> int:
@@ -1143,8 +1165,7 @@ def _pad_to(y: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _require_device_plan(A) -> None:
-    leaf = A.groups[0].vals if isinstance(A, RoutedMatHierP) else A.vals[0]
-    if not isinstance(leaf, torch.Tensor):
+    if not isinstance(A, RoutedMatHierP):
         raise TypeError(
             "hier plan is staged on the host (numpy): put it on a device with "
             "maybe_pack_hier(M, device) first")
@@ -1161,21 +1182,10 @@ def _hier_unperm(A, ys):
     return tuple(u.reshape(A.m_out)[:n] for u in outs)
 
 
-def routed_hier_spmv(A, x: torch.Tensor) -> torch.Tensor:
-    """y = A x for a RoutedMatHier (net by net, kernels K3u-K6u) or a
-    RoutedMatHierP (group by group, kernels K3-K6), plain floats."""
+def routed_hier_spmv(A: RoutedMatHierP, x: torch.Tensor) -> torch.Tensor:
+    """y = A x for a hier plan, group by group (kernels K3-K6), plain
+    floats."""
     _require_device_plan(A)
-    if isinstance(A, RoutedMatHierP):
-        return _routed_hier_spmv_packed(A, x)
-    xp = _pad_plane(x.to(A.vals[0].dtype), A.m)
-    parts = []
-    for net, vals, chlist in zip(A.nets, A.vals, A.chunks):
-        (o,) = hier_net_apply(net, (xp,), A.bl)
-        parts.append(_chunk_reduce_net(vals * o.reshape(A.m), chlist, A.colmajor))
-    return _hier_unperm(A, (torch.cat(parts),))[0]
-
-
-def _routed_hier_spmv_packed(A: RoutedMatHierP, x):
     xp = _pad_plane(x.to(A.groups[0].vals.dtype), A.m)
     parts = [None] * len(A.chunks)
     for grp in A.groups:
@@ -1214,11 +1224,15 @@ def _k2_outputs(tables, like: torch.Tensor):
                  for _ in range(2))
 
 
-def _routed_hier_spmv_packed_df(A: RoutedMatHierP, x: df.DF) -> df.DF:
-    from lilac_tpu_torch.config import cfg
-
+def routed_hier_spmv_df(A: RoutedMatHierP, x: df.DF) -> df.DF:
+    """df64 y = A x for a hier plan: the (hi, lo) planes go through
+    identical switches a group at a time, then the multiply + row sum. A
+    column-major plan takes K2 (kernels/dfmulred.py), one launch a group
+    into one pair of output planes; a row-major plan the op chain, net by
+    net."""
+    _require_device_plan(A)
     planes = (_pad_plane(x.hi, A.m), _pad_plane(x.lo, A.m))
-    if not (A.colmajor and cfg().df_fused):
+    if not A.colmajor:
         nnets = len(A.chunks)
         parts_h, parts_l = [None] * nnets, [None] * nnets
         for grp in A.groups:
@@ -1240,37 +1254,6 @@ def _routed_hier_spmv_packed_df(A: RoutedMatHierP, x: df.DF) -> df.DF:
         with _MULRED:
             out = dfk.dfmulred_chunks(grp.vals[0].reshape(-1), grp.vals[1].reshape(-1),
                                       oh.reshape(-1), ol.reshape(-1), table, out)
-    return df.DF(*_hier_unperm(A, out))
-
-
-def routed_hier_spmv_df(A, x: df.DF) -> df.DF:
-    """df64 y = A x for a RoutedMatHier or a RoutedMatHierP: the (hi, lo)
-    planes go through identical switches, then the fused multiply + row sum
-    (kernels/dfmulred.py), one launch a packed group (or a net, unpacked)
-    into one pair of output planes."""
-    from lilac_tpu_torch.config import cfg
-
-    _require_device_plan(A)
-    if isinstance(A, RoutedMatHierP):
-        return _routed_hier_spmv_packed_df(A, x)
-    planes = (_pad_plane(x.hi, A.m), _pad_plane(x.lo, A.m))
-    if not (A.colmajor and cfg().df_fused):
-        his, los = [], []
-        for net, vals, chlist in zip(A.nets, A.vals, A.chunks):
-            oh, ol = hier_net_apply(net, planes, A.bl)
-            with _MULRED:
-                h, l_ = dfk.chunk_mulreduce_df(
-                    vals, oh.reshape(A.m), ol.reshape(A.m), chlist, A.colmajor)
-            his.append(h)
-            los.append(l_)
-        return df.DF(*_hier_unperm(A, (torch.cat(his), torch.cat(los))))
-    tables = _hier_k2(A.chunks, tuple((ni,) for ni in range(len(A.nets))), A.m)
-    out = _k2_outputs(tables, planes[0])
-    for net, vals, table in zip(A.nets, A.vals, tables):
-        oh, ol = hier_net_apply(net, planes, A.bl)
-        with _MULRED:
-            out = dfk.dfmulred_chunks(vals[:, 0], vals[:, 1], oh.reshape(-1),
-                                      ol.reshape(-1), table, out)
     return df.DF(*_hier_unperm(A, out))
 
 
@@ -1313,22 +1296,6 @@ def _hier_adj_unperm(A, u: torch.Tensor, dfpair: bool) -> torch.Tensor:
     return torch.stack([o.reshape(A.m_out)[: A.n_nz] for o in outs])
 
 
-def _hier_adj_groups(A):
-    """(net ids, pass_meta, pass_masks [N, ...], vals) per launch group: the
-    packed groups, or every net of an unpacked plan as a group of one. vals
-    are [N, m] or, for df64, the ([N, m] hi, [N, m] lo) words."""
-    if isinstance(A, RoutedMatHierP):
-        for grp in A.groups:
-            v = grp.vals
-            yield grp.net_ids, grp.pass_meta, grp.pass_masks, (
-                (v[0], v[1]) if v.dim() == 4 else v)
-    else:
-        for ni, (net, v) in enumerate(zip(A.nets, A.vals)):
-            yield (ni,), net.pass_meta, tuple(
-                mk.unsqueeze(0) for mk in net.pass_masks), (
-                    (v[None, :, 0], v[None, :, 1]) if v.dim() == 2 else v[None])
-
-
 def _hier_adj_slots(A, us, net_ids):
     """us [P, n_nz] -> [P, Ng, m] slot cotangents of one group's nets."""
     offs = np.concatenate([[0], np.cumsum(_hier_net_rows(A.chunks))])
@@ -1339,25 +1306,26 @@ def _hier_adj_slots(A, us, net_ids):
     return sl
 
 
-def routed_hier_spmv_adj_t(A, u: torch.Tensor) -> torch.Tensor:
-    """y = Aᵀ u for a hier plan (plain floats), packed or net by net: every
-    net's network in reverse (kernels K7-K10), summed over the nets."""
+def routed_hier_spmv_adj_t(A: RoutedMatHierP, u: torch.Tensor) -> torch.Tensor:
+    """y = Aᵀ u for a hier plan (plain floats): every net's network in
+    reverse (kernels K7-K10), summed over the nets."""
     _require_device_plan(A)
     R = A.m // 128
     us = _hier_adj_unperm(A, u[: A.shape[0]].unsqueeze(0), False)
     y = None
-    for net_ids, meta, masks, vals in _hier_adj_groups(A):
-        sl = _hier_adj_slots(A, us, net_ids)[0]
-        prod = (vals.reshape(len(net_ids), A.m) * sl).to(u.dtype)
+    for grp in A.groups:
+        N = len(grp.net_ids)
+        sl = _hier_adj_slots(A, us, grp.net_ids)[0]
+        prod = (grp.vals.reshape(N, A.m) * sl).to(u.dtype)
         with _ROUTE:
             (o,) = rd.hier_apply_batched_t(
-                (prod.reshape(len(net_ids), R, 128),), meta, masks, A.bl)
+                (prod.reshape(N, R, 128),), grp.pass_meta, grp.pass_masks, A.bl)
         t = o.sum(dim=0).reshape(A.m)
         y = t if y is None else y + t
     return y[: A.shape[1]]
 
 
-def routed_hier_spmv_adj_t_df(A, u: df.DF) -> df.DF:
+def routed_hier_spmv_adj_t_df(A: RoutedMatHierP, u: df.DF) -> df.DF:
     """df64 y = Aᵀ u for a hier plan: expand the row cotangents to slots,
     TwoProd by the slot-ordered values (a whole group at once; _group_cap
     leaves room for its intermediates), every net's network in reverse with
@@ -1367,16 +1335,16 @@ def routed_hier_spmv_adj_t_df(A, u: df.DF) -> df.DF:
     n = A.shape[0]
     us = _hier_adj_unperm(A, torch.stack([u.hi[:n], u.lo[:n]]), True)
     y = None
-    for net_ids, meta, masks, (vh, vl) in _hier_adj_groups(A):
-        N = len(net_ids)
-        sl = _hier_adj_slots(A, us, net_ids)
-        prod = df.mul(df.DF(vh.reshape(N, A.m), vl.reshape(N, A.m)),
+    for grp in A.groups:
+        N = len(grp.net_ids)
+        sl = _hier_adj_slots(A, us, grp.net_ids)
+        prod = df.mul(df.DF(grp.vals[0].reshape(N, A.m), grp.vals[1].reshape(N, A.m)),
                       df.DF(sl[0], sl[1]))
         del sl
         with _ROUTE:
             oh, ol = rd.hier_apply_batched_t(
-                (prod.hi.reshape(N, R, 128), prod.lo.reshape(N, R, 128)), meta,
-                masks, A.bl, dfpair=True)
+                (prod.hi.reshape(N, R, 128), prod.lo.reshape(N, R, 128)),
+                grp.pass_meta, grp.pass_masks, A.bl, dfpair=True)
         del prod
         t = df.sum_df0(df.DF(oh.view(N, A.m), ol.view(N, A.m)))
         y = t if y is None else df.add(y, t)
@@ -1390,7 +1358,7 @@ from lilac_tpu_torch.kernels.registry import register_kernel  # noqa: E402
 register_kernel("routed", routed_spmv, RoutedMat, transpose=routed_spmv_adj_t)
 register_kernel("routed_df", routed_spmv_df, RoutedMat, dfloat=True,
                 transpose=routed_spmv_adj_t_df)
-register_kernel("routed_hier", routed_hier_spmv, RoutedMatHier,
+register_kernel("routed_hier", routed_hier_spmv, RoutedMatHierP,
                 transpose=routed_hier_spmv_adj_t)
-register_kernel("routed_hier_df", routed_hier_spmv_df, RoutedMatHier, dfloat=True,
+register_kernel("routed_hier_df", routed_hier_spmv_df, RoutedMatHierP, dfloat=True,
                 transpose=routed_hier_spmv_adj_t_df)

@@ -139,8 +139,7 @@ class SpmvPlan:
     def _set_routed(self, A, kernel: str) -> None:
         self.A = A
         vdt = "df64" if self.dtype == "df64" or kernel.endswith("_df") else self.dtype
-        base = "routed_hier" if isinstance(
-            A, (_rs.RoutedMatHier, _rs.RoutedMatHierP)) else "routed"
+        base = "routed_hier" if isinstance(A, _rs.RoutedMatHierP) else "routed"
         self.kernel = base + ("_df" if vdt == "df64" else "")
 
     def _routed_file(self, kernel, cache_key):
@@ -148,26 +147,23 @@ class SpmvPlan:
         single table up to 2^18 columns, hierarchical networks beyond (or
         when asked for)."""
         from lilac_tpu_torch.config import cfg
-        from lilac_tpu_torch.kernels.factored import SINGLE_TABLE_MAX, plan_tag
 
         vdt = "df64" if self.dtype == "df64" or kernel.endswith("_df") else self.dtype
-        hier = kernel.startswith("routed_hier") or self.shape[1] > SINGLE_TABLE_MAX
+        hier = kernel.startswith("routed_hier") or self.shape[1] > _rs.SINGLE_TABLE_MAX
         if cache_key is None:
             return None, vdt, hier
         conf = cfg()
         ddir = conf.resolved_data_dir()
         os.makedirs(ddir, exist_ok=True)
-        return os.path.join(ddir, f"plan_{cache_key}_{vdt}{plan_tag(conf, hier)}.npz"), vdt, hier
+        return os.path.join(ddir, f"plan_{cache_key}_{vdt}{_rs.plan_tag(conf, hier)}.npz"), vdt, hier
 
     def _read_routed(self, cache_path):
         """The routed plan from its file, unpacked; None where there is none
         of this shape (a stale or colliding cache_key must not compute with
         another matrix)."""
-        from lilac_tpu_torch.kernels.factored import _load_plans
-
         if cache_path is None:
             return None
-        loaded = _load_plans([cache_path], self.device)
+        loaded = _rs._load_plans([cache_path], self.device)
         if loaded is not None and tuple(loaded[0].shape) == self.shape:
             return loaded[0]
         return None
@@ -206,11 +202,10 @@ class SpmvPlan:
         4. the heuristic: ELL for near-uniform rows, bucketed ELL where row
            lengths spread."""
         from lilac_tpu_torch import autotune
-        from lilac_tpu_torch.kernels.factored import SINGLE_TABLE_MAX
 
         s = self.row_stats
         if (self.reuse == "many" and self.device.type == "cuda"
-                and self.shape[1] <= SINGLE_TABLE_MAX and self.dtype != "bf16"):
+                and self.shape[1] <= _rs.SINGLE_TABLE_MAX and self.dtype != "bf16"):
             return "routed_df" if self.dtype == "df64" else "routed"
         # plain ELL pads every row to the longest; bucketed ELL caps the
         # waste when row lengths are spread
@@ -302,7 +297,6 @@ class FactoredNPBPlan:
         from lilac_tpu_torch.kernels import factored as _f
         from lilac_tpu_torch.kernels.routed_spmv import (
             RoutedMat,
-            RoutedMatHier,
             RoutedMatHierP,
             RoutedMatSeg,
         )
@@ -315,7 +309,7 @@ class FactoredNPBPlan:
             self.A, self.nnz = _f.build_factored(class_name, dtype=dtype, device=device)
         # label the sub-kernel serving the V / VT passes: "routed" = routing
         # networks through the CUDA kernels, "gather" = plain torch indexing
-        routed = (RoutedMat, RoutedMatHier, RoutedMatHierP, RoutedMatSeg)
+        routed = (RoutedMat, RoutedMatHierP, RoutedMatSeg)
         v_routed = isinstance(self.A.V, routed)
         # how V^T is applied: "adj" = V's own plan run in reverse (no VT
         # plan is held), "plan" = a dedicated forward plan

@@ -305,7 +305,7 @@ def bench_cache_tag(size: int, seed: int, sigma_relabel: bool) -> str:
     """The routed plan file key of a benchmark matrix: the reference's
     sb{size}s{seed}r{relabel}bl{bl}g{g}, the geometry from plan_tag."""
     from lilac_tpu_torch.config import cfg
-    from lilac_tpu_torch.kernels.factored import plan_tag
+    from lilac_tpu_torch.kernels.routed_spmv import plan_tag
 
     geometry = plan_tag(cfg(), hier=True).lstrip("_")
     return f"sb{size}s{seed}r{int(sigma_relabel)}{geometry}"

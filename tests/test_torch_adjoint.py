@@ -341,7 +341,13 @@ def test_routed_spmv_adj_t_matches_reference_on_same_plan(dtype, sort_rows):
     assert (np.abs(yt - want) <= tol * scale + 1e-300).all()
 
 
-def _carry_hier(M, pack):
+def _one_net_a_group(monkeypatch):
+    """Pack every net as a group of its own: the split _group_cap makes on a
+    card whose memory is short, so every pass launches net by net."""
+    monkeypatch.setattr(trs, "_group_cap", lambda M, device: 1)
+
+
+def _carry_hier(M):
     return cr.hier_mat_from_arrays(
         [[np.asarray(mk) for mk in net.pass_masks] for net in M.nets],
         [net.pass_meta for net in M.nets],
@@ -349,24 +355,29 @@ def _carry_hier(M, pack):
         None if M.unperm is None else [np.asarray(mk) for mk in M.unperm.pass_masks],
         None if M.unperm is None else M.unperm.pass_meta,
         M.chunks, M.shape, M.m, M.m_out, M.bl, M.n_nz, M.colmajor,
-        device="cpu", pack=pack)
+        device="cpu")
 
 
 @pytest.mark.parametrize("pack", [True, False], ids=["packed", "net_by_net"])
 @pytest.mark.parametrize("dtype", ["f32", "df64"])
-def test_routed_hier_spmv_adj_t_matches_reference_on_same_plan(dtype, pack):
-    """Hierarchical transpose product on a JAX-built plan: unsorted rows (the
-    un-permute network runs in reverse too), a dense column (bigshift
-    adjoints), several nets (the cross-net sum). Tolerances as for the
-    single table."""
+def test_routed_hier_spmv_adj_t_matches_reference_on_same_plan(dtype, pack, monkeypatch):
+    """Hierarchical transpose product on a JAX-built plan, the nets packed
+    in groups or one net a group (against the JAX package's net by net
+    product): unsorted rows (the un-permute network runs in reverse too), a
+    dense column (bigshift adjoints), several nets (the cross-net sum).
+    Tolerances as for the single table."""
     indptr, indices, data, shape = _csr(50, 800, 800, 1, 4, dense_rows=700)
     u = np.random.default_rng(51).standard_normal(shape[0])
     want, scale = _transpose_product(indptr, indices, data, shape, u)
     J = jrs.build_routed_csr_hier(indptr, indices, data, shape, dtype=dtype, bl=BL)
     assert J.unperm is not None and len(J.nets) > 1
     assert any(mt[0] == "bigshift" for net in J.nets for mt in net.pass_meta)
-    T = _carry_hier(J, pack)
-    assert isinstance(T, trs.RoutedMatHierP if pack else trs.RoutedMatHier)
+    if not pack:
+        _one_net_a_group(monkeypatch)
+    T = _carry_hier(J)
+    assert isinstance(T, trs.RoutedMatHierP)
+    if not pack:
+        assert [g.net_ids for g in T.groups] == [(i,) for i in range(len(J.nets))]
     Jr = jrs.pack_hier(J) if pack else J
     if dtype == "df64":
         yj = jdf.to_f64(jrs.routed_hier_spmv_adj_t_df(Jr, jdf.from_f64(u), interpret=True))
@@ -382,9 +393,10 @@ def test_routed_hier_spmv_adj_t_matches_reference_on_same_plan(dtype, pack):
     assert (np.abs(yt - want) <= tol * scale + 1e-300).all()
 
 
-def test_hier_adjoint_of_sorted_rows_and_host_plan():
-    """Rows that come length-sorted need no un-permute: its adjoint is a cut.
-    A plan still staged on the host is refused."""
+def test_hier_adjoint_of_sorted_rows_and_host_plan(monkeypatch):
+    """Rows that come length-sorted need no un-permute: its adjoint is a cut,
+    the nets packed in groups or one net a group. A plan still staged on
+    the host is refused."""
     n = 500
     counts = np.sort(np.random.default_rng(52).integers(1, 6, size=n))[::-1]
     indptr = np.zeros(n + 1, dtype=np.int64)
@@ -399,9 +411,12 @@ def test_hier_adjoint_of_sorted_rows_and_host_plan():
         trs.routed_hier_spmv_adj_t(M, torch.as_tensor(u))
     want, scale = _transpose_product(indptr, indices, data, (n, n), u)
     for pack in ("1", "0"):
-        P = trs.pack_hier(M, "cpu") if pack == "1" else trs.hier_to_device(M, "cpu")
+        if pack == "0":
+            _one_net_a_group(monkeypatch)
+        P = trs.pack_hier(M, "cpu")
         got = trs.routed_hier_spmv_adj_t(P, torch.as_tensor(u)).numpy()
         assert (np.abs(got - want) <= 1e-13 * scale + 1e-300).all()
+    assert len(P.groups) == len(M.nets)
 
 
 @pytest.fixture
@@ -415,7 +430,7 @@ def _force_hier(monkeypatch):
     """Class S (na = 1400) through hierarchical plans: the single-table limit
     lowered to 1024 and a forced block of 256 slots (m = 2048: 8 blocks)."""
     monkeypatch.setenv("LILAC_HIER_BL", str(BL))
-    monkeypatch.setattr(tfac, "SINGLE_TABLE_MAX", 1024)
+    monkeypatch.setattr(trs, "SINGLE_TABLE_MAX", 1024)
 
 
 @pytest.mark.parametrize("layout", ["hier_packed", "hier_net_by_net", "single_table"])
@@ -426,13 +441,15 @@ def test_factored_adj_matches_plan_and_gather(layout, routed_class_s, monkeypatc
     relative."""
     if layout != "single_table":
         _force_hier(monkeypatch)
-        monkeypatch.setenv("LILAC_HIER_PACK", "1" if layout == "hier_packed" else "0")
+        if layout == "hier_net_by_net":
+            _one_net_a_group(monkeypatch)
     else:
         monkeypatch.setenv("LILAC_FACTORED_VT", "adj")  # auto is plan for one table
     Aa, nnz = tfac.build_factored("S", dtype="df64", device="cpu")
-    kind = {"hier_packed": trs.RoutedMatHierP, "hier_net_by_net": trs.RoutedMatHier,
-            "single_table": trs.RoutedMat}[layout]
+    kind = trs.RoutedMat if layout == "single_table" else trs.RoutedMatHierP
     assert Aa.VT is None and isinstance(Aa.V, kind)
+    if layout == "hier_net_by_net":
+        assert all(len(g.net_ids) == 1 for g in Aa.V.groups)
     names = sorted(f.name for f in routed_class_s.iterdir())
     assert len(names) == 2 and not any("_VT" in f for f in names), names
     monkeypatch.setattr(

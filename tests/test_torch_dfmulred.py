@@ -61,7 +61,7 @@ def test_dfmulred_plain_matches_pallas_interpret(K, R):
     assert (np.abs(b - exact.astype(np.float64)) <= 4e-14 * mag).all()
 
 
-def test_chunk_mulreduce_matches_reference_fused_and_chain(monkeypatch):
+def test_chunk_mulreduce_matches_reference_fused_and_chain():
     chlist = ((0, 400, 5), (2000, 100, 13))
     m = 4096
     rng = np.random.default_rng(42)
@@ -75,11 +75,13 @@ def test_chunk_mulreduce_matches_reference_fused_and_chain(monkeypatch):
     jf = jdk.chunk_mulreduce_df(jv, joh, jol, chlist, True, interpret=True,
                                 force_fused=True)
     jc = jdk.chunk_mulreduce_df(jv, joh, jol, chlist, True, force_fused=False)
-    tf = tdk.chunk_mulreduce_df(tv, toh, tol_, chlist, True, fused=True)
-    tc = tdk.chunk_mulreduce_df(tv, toh, tol_, chlist, True, fused=False)
+    table = tdk.chunk_list_table(chlist)
+    tf = tdk.dfmulred_chunks(tv[:, 0], tv[:, 1], toh, tol_, table)
+    tc = tdk.chunk_reduce_net_df(
+        tdf.mul(tdf.DF(tv[:, 0], tv[:, 1]), tdf.DF(toh, tol_)), chlist, True)
     # interleaved [m, 2] values and a (hi, lo) tuple of planes agree
-    tt = tdk.chunk_mulreduce_df((tv[:, 0].contiguous(), tv[:, 1].contiguous()),
-                                toh, tol_, chlist, True, fused=True)
+    tt = tdk.dfmulred_chunks(tv[:, 0].contiguous(), tv[:, 1].contiguous(),
+                             toh, tol_, table)
     assert torch.equal(tf[0], tt[0]) and torch.equal(tf[1], tt[1])
 
     # fused against fused: same loop, hi equal, value within 4e-14 * sum|terms|
@@ -100,14 +102,11 @@ def test_chunk_mulreduce_matches_reference_fused_and_chain(monkeypatch):
         for s0, r, K in chlist])
     np.testing.assert_allclose(b, want, rtol=1e-12, atol=1e-15)
 
-    # the df_fused knob selects the path when `fused` is not given
-    monkeypatch.setenv("LILAC_DF_FUSED", "0")
-    tk = tdk.chunk_mulreduce_df(tv, toh, tol_, chlist, True)
-    assert torch.equal(tk[0], tc[0]) and torch.equal(tk[1], tc[1])
-    monkeypatch.setenv("LILAC_DF_FUSED", "1")
-    tk = tdk.chunk_mulreduce_df(tv, toh, tol_, chlist, True)
-    assert torch.equal(tk[1], tf[1])
-    # row-major chunks always take the chain
+    # the slot layout selects the path: column-major chunks take K2 (values
+    # interleaved or as a tuple of planes), row-major chunks the chain
+    for vals in (tv, (tv[:, 0].contiguous(), tv[:, 1].contiguous())):
+        tk = tdk.chunk_mulreduce_df(vals, toh, tol_, chlist, True)
+        assert torch.equal(tk[0], tf[0]) and torch.equal(tk[1], tf[1])
     tr = tdk.chunk_mulreduce_df(tv, toh, tol_, chlist, False)
     jr = jdk.chunk_mulreduce_df(jv, joh, jol, chlist, False, force_fused=False)
     np.testing.assert_array_equal(np.asarray(jr[0]), tr[0].numpy())

@@ -242,7 +242,7 @@ def test_single_table_chunk_table_and_product():
     assert (np.abs(tdf.to_f64(yt) - yj) <= 4e-14 * scale).all()
 
 
-def _hier(pack):
+def _hier():
     indptr, indices, data, shape = _csr(28, 600, 600, 1, 6, dense_rows=150)
     J = jrs.build_routed_csr_hier(indptr, indices, data, shape, dtype="df64", bl=BL)
     T = cr.hier_mat_from_arrays(
@@ -251,21 +251,25 @@ def _hier(pack):
         None if J.unperm is None else [np.asarray(mk) for mk in J.unperm.pass_masks],
         None if J.unperm is None else J.unperm.pass_meta,
         J.chunks, J.shape, J.m, J.m_out, J.bl, J.n_nz, J.colmajor,
-        device="cpu", pack=pack)
+        device="cpu")
     return (indptr, indices, data, shape), J, T
 
 
 @pytest.mark.parametrize("pack", [True, False], ids=["packed", "net_by_net"])
-def test_hier_chunk_tables_and_product(pack):
-    """RoutedMatHierP (a table a packed group: net ids[li]'s chunks at slots
-    li * m + s0 of the group's planes) and RoutedMatHier (a table a net):
-    rows where the chunk-concatenated sorted output puts them; the product
-    equals the per-chunk path bit for bit and the JAX package's within 4e-14
+def test_hier_chunk_tables_and_product(pack, monkeypatch):
+    """A table a packed group, the nets packed in groups or one net a group
+    (the split _group_cap makes on a short card): net ids[li]'s chunks at
+    slots li * m + s0 of the group's planes, rows where the
+    chunk-concatenated sorted output puts them; the product equals the
+    per-chunk path bit for bit and the JAX package's within 4e-14
     sum|v x|."""
-    (indptr, indices, data, shape), J, T = _hier(pack)
+    if not pack:
+        monkeypatch.setattr(trs, "_group_cap", lambda M, device: 1)
+    (indptr, indices, data, shape), J, T = _hier()
     assert T.colmajor and len(T.chunks) > 1
-    groups = (tuple(g.net_ids for g in T.groups) if pack
-              else tuple((ni,) for ni in range(len(T.nets))))
+    groups = tuple(g.net_ids for g in T.groups)
+    if not pack:
+        assert groups == tuple((ni,) for ni in range(len(T.chunks)))
     tables = trs._hier_k2(T.chunks, groups, T.m)
     assert trs._hier_k2(T.chunks, groups, T.m) is tables
     offs = np.concatenate([[0], np.cumsum(trs._hier_net_rows(T.chunks))])
@@ -279,12 +283,11 @@ def test_hier_chunk_tables_and_product(pack):
                 row0 += rows
         assert table.spec == tuple(want)
         # the group's flat value planes at those slots are the net's chunk
-        vh = T.groups[gi].vals[0].reshape(-1) if pack else T.vals[net_ids[0]][:, 0]
+        vh = T.groups[gi].vals[0].reshape(-1)
         for (slot0, rows, K, _), (li, ni) in zip(
                 table.spec, [(li, ni) for li, ni in enumerate(net_ids)
                              for _ in T.chunks[ni]]):
-            net_vals = (T.groups[gi].vals[0, li].reshape(-1) if pack
-                        else T.vals[ni][:, 0])
+            net_vals = T.groups[gi].vals[0, li].reshape(-1)
             s0 = slot0 - li * T.m
             assert torch.equal(vh[slot0:slot0 + K * rows], net_vals[s0:s0 + K * rows])
     x = np.random.default_rng(29).standard_normal(shape[1])
@@ -294,17 +297,12 @@ def test_hier_chunk_tables_and_product(pack):
     planes = (trs._pad_plane(xd.hi, T.m), trs._pad_plane(xd.lo, T.m))
     hs, ls = [], []
     for ni in range(len(T.chunks)):
-        if pack:
-            gi = next(g for g, ids in enumerate(groups) if ni in ids)
-            li = groups[gi].index(ni)
-            grp = T.groups[gi]
-            oh, ol = trd.hier_apply_batched(planes, grp.pass_meta, grp.pass_masks, T.bl)
-            oh, ol = oh[li].reshape(-1), ol[li].reshape(-1)
-            vh, vl = grp.vals[0, li].reshape(-1), grp.vals[1, li].reshape(-1)
-        else:
-            oh, ol = trs.hier_net_apply(T.nets[ni], planes, T.bl)
-            oh, ol = oh.reshape(-1), ol.reshape(-1)
-            vh, vl = T.vals[ni][:, 0], T.vals[ni][:, 1]
+        gi = next(g for g, ids in enumerate(groups) if ni in ids)
+        li = groups[gi].index(ni)
+        grp = T.groups[gi]
+        oh, ol = trd.hier_apply_batched(planes, grp.pass_meta, grp.pass_masks, T.bl)
+        oh, ol = oh[li].reshape(-1), ol[li].reshape(-1)
+        vh, vl = grp.vals[0, li].reshape(-1), grp.vals[1, li].reshape(-1)
         h, l_ = _per_chunk(vh, vl, oh, ol, T.chunks[ni])
         hs.append(h)
         ls.append(l_)

@@ -239,7 +239,13 @@ def _jax_hier(indptr, indices, data, shape, dtype):
     return jrs.build_routed_csr_hier(indptr, indices, data, shape, dtype=dtype, bl=BL)
 
 
-def _carry(M, pack):
+def _one_net_a_group(monkeypatch):
+    """Pack every net as a group of its own: the split _group_cap makes on a
+    card whose memory is short, so every pass launches net by net."""
+    monkeypatch.setattr(trs, "_group_cap", lambda M, device: 1)
+
+
+def _carry(M):
     """A JAX-built RoutedMatHier as the port's container, on the CPU."""
     return cr.hier_mat_from_arrays(
         [[np.asarray(mk) for mk in net.pass_masks] for net in M.nets],
@@ -248,7 +254,7 @@ def _carry(M, pack):
         None if M.unperm is None else [np.asarray(mk) for mk in M.unperm.pass_masks],
         None if M.unperm is None else M.unperm.pass_meta,
         M.chunks, M.shape, M.m, M.m_out, M.bl, M.n_nz, M.colmajor,
-        device="cpu", pack=pack)
+        device="cpu")
 
 
 @pytest.mark.parametrize("dtype", ["f32", "f64", "df64"])
@@ -270,17 +276,23 @@ def test_build_routed_csr_hier_bit_identical(dtype, monkeypatch):
 
 @pytest.mark.parametrize("pack", [True, False], ids=["packed", "net_by_net"])
 @pytest.mark.parametrize("dtype", ["f32", "df64"])
-def test_routed_hier_spmv_matches_reference_on_same_plan(dtype, pack):
-    """Unsorted rows (the un-permute network runs) and a dense column. f32:
-    the routed values are identical, the row sums differ by summation order,
-    1e-6 * sum|v x|. df64: the JAX CPU path sums by the op chain, the port by
-    the compensated dot: 4e-14 * sum|v x|, also against the f64 product."""
+def test_routed_hier_spmv_matches_reference_on_same_plan(dtype, pack, monkeypatch):
+    """Unsorted rows (the un-permute network runs) and a dense column, the
+    nets packed in groups or one net a group (against the JAX package's net
+    by net product). f32: the routed values are identical, the row sums
+    differ by summation order, 1e-6 * sum|v x|. df64: the JAX CPU path sums
+    by the op chain, the port by the compensated dot: 4e-14 * sum|v x|, also
+    against the f64 product."""
     indptr, indices, data, shape = _csr(28, 1000, 1000, 1, 3, dense_rows=300)
     x = np.random.default_rng(29).standard_normal(shape[1])
     want, scale = _dense_product(indptr, indices, data, shape, x)
     J = _jax_hier(indptr, indices, data, shape, dtype)
-    T = _carry(J, pack)
-    assert isinstance(T, trs.RoutedMatHierP if pack else trs.RoutedMatHier)
+    if not pack:
+        _one_net_a_group(monkeypatch)
+    T = _carry(J)
+    assert isinstance(T, trs.RoutedMatHierP)
+    if not pack:
+        assert [g.net_ids for g in T.groups] == [(i,) for i in range(len(J.nets))]
     Jr = jrs.pack_hier(J) if pack else J
     if dtype == "df64":
         yj = jdf.to_f64(jrs.routed_hier_spmv_df(Jr, jdf.from_f64(x), interpret=True))
@@ -296,7 +308,7 @@ def test_routed_hier_spmv_matches_reference_on_same_plan(dtype, pack):
     assert (np.abs(yt - want) <= tol * scale).all()
 
 
-def test_hier_pack_knob_and_host_staging(monkeypatch):
+def test_pack_hier_and_host_staging(monkeypatch):
     indptr, indices, data, shape = _csr(30, 600, 600, 1, 6)
     M = trs.build_routed_csr_hier(indptr, indices, data, shape, dtype="f32", bl=BL)
     assert all(isinstance(mk, np.ndarray) for net in M.nets for mk in net.pass_masks)
@@ -304,10 +316,11 @@ def test_hier_pack_knob_and_host_staging(monkeypatch):
         trs.routed_hier_spmv(M, torch.zeros(shape[1]))
     P = trs.maybe_pack_hier(M, "cpu")
     assert isinstance(P, trs.RoutedMatHierP)
-    assert sum(len(g.net_ids) for g in P.groups) == len(M.nets)
-    monkeypatch.setenv("LILAC_HIER_PACK", "0")
+    assert sum(len(g.net_ids) for g in P.groups) == len(M.nets) > len(P.groups)
+    _one_net_a_group(monkeypatch)
     U = trs.maybe_pack_hier(M, "cpu")
-    assert isinstance(U, trs.RoutedMatHier) and isinstance(U.vals[0], torch.Tensor)
+    assert isinstance(U, trs.RoutedMatHierP) and isinstance(U.groups[0].vals, torch.Tensor)
+    assert [g.net_ids for g in U.groups] == [(i,) for i in range(len(M.nets))]
     x = torch.as_tensor(np.random.default_rng(31).standard_normal(shape[1]),
                         dtype=torch.float32)
     # packing only batches the launches: the same words, the same sums
@@ -377,21 +390,24 @@ def small_hier_classes(tmp_path, monkeypatch):
     monkeypatch.setenv("LILAC_DATA_DIR", str(tmp_path))
     monkeypatch.setenv("LILAC_FACTORED_SEGMODE", "routed")
     monkeypatch.setenv("LILAC_HIER_BL", str(BL))
-    monkeypatch.setattr(tfac, "SINGLE_TABLE_MAX", 1024)
+    monkeypatch.setattr(trs, "SINGLE_TABLE_MAX", 1024)
     return tmp_path
 
 
 @pytest.mark.parametrize("pack", ["1", "0"], ids=["packed", "net_by_net"])
 def test_factored_hier_matches_gather_operator(pack, small_hier_classes, monkeypatch):
-    """The slice as a whole: hier V and VT from class S's factors give the
-    factored df64 product of the gather operator to 1e-13 relative, the
-    plans persist under names that carry (bl, gmax), and a second build
-    loads them."""
-    monkeypatch.setenv("LILAC_HIER_PACK", pack)
+    """The slice as a whole: hier V and VT from class S's factors, packed in
+    groups or one net a group, give the factored df64 product of the gather
+    operator to 1e-13 relative, the plans persist under names that carry
+    (bl, gmax), and a second build loads them."""
+    if pack == "0":
+        _one_net_a_group(monkeypatch)
     monkeypatch.setenv("LILAC_FACTORED_VT", "plan")  # auto is adj beyond one table
     H, nnz = tfac.build_factored("S", dtype="df64", device="cpu")
-    kind = trs.RoutedMatHierP if pack == "1" else trs.RoutedMatHier
+    kind = trs.RoutedMatHierP
     assert isinstance(H.V, kind) and isinstance(H.VT, kind)
+    if pack == "0":
+        assert all(len(g.net_ids) == 1 for g in H.V.groups + H.VT.groups)
     assert H.V.unperm is None and H.VT.unperm is None  # rows relabelled sorted
     assert H.V.bl == BL and H.V.m == 2048
     names = sorted(f.name for f in small_hier_classes.iterdir())
@@ -405,7 +421,7 @@ def test_factored_hier_matches_gather_operator(pack, small_hier_classes, monkeyp
     monkeypatch.undo()
 
     G, nnz_g = tfac.build_factored("S", dtype="df64", device="cpu")  # auto = gather
-    assert nnz_g == nnz and not isinstance(G.V, (trs.RoutedMatHier, trs.RoutedMatHierP))
+    assert nnz_g == nnz and not isinstance(G.V, trs.RoutedMatHierP)
     # the routed operator lives in the relabelled (sigma) space, where only
     # permutation-invariant vectors compare: take x = ones, as NPB does, and
     # compare the sorted entries of y

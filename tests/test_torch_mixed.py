@@ -154,7 +154,7 @@ def test_mixed_class_s_df64_verifies_and_matches_the_gather_operator(
     assert r.kernel == "factored_mixed_df" and r.factored_vt == "plan"
     # V's hier plan file alone, under the hier tag; the second build loads it
     assert os.listdir(str(d)) == [
-        f"routed2_S_df64_V{tfac.plan_tag(tcfg(), hier=True)}.npz"]
+        f"routed2_S_df64_V{trs.plan_tag(tcfg(), hier=True)}.npz"]
 
     def no_build(*a, **k):
         raise AssertionError("V was rebuilt, not loaded")

@@ -302,8 +302,8 @@ def test_config_is_a_subset_of_the_reference_catalogue(monkeypatch):
     assert tcfg.cfg().resolved_data_dir() == os.path.join(REPO, "data", "torch")
     monkeypatch.setenv("LILAC_CACHE", "/tmp/x")
     assert tcfg.cfg().resolved_data_dir() == "/tmp/x"
-    monkeypatch.setenv("LILAC_DF_FUSED", "0")
-    assert tcfg.cfg().df_fused is False and "LILAC_DF_FUSED" in tcfg.cfg().describe()
+    monkeypatch.setenv("LILAC_HIER_GMAX", "2")
+    assert tcfg.cfg().hier_gmax == 2 and "LILAC_HIER_GMAX" in tcfg.cfg().describe()
 
 
 def test_bench_line_has_the_reference_keys(data_dirs):

@@ -176,17 +176,32 @@ def test_routed_spmv_matches_reference_on_same_plan():
         assert np.abs(yt - want).max() <= 10 * tol * scale
 
 
+def _chain_product(T: trs.RoutedMat, x: tdf.DF) -> tdf.DF:
+    """routed_spmv_df with the op chain (df.mul + pairwise df-sum tree) for
+    the row sums, on the plan's own slot products."""
+    oh, ol = trd.routed_apply([trs._pad_plane(x.hi, T.m), trs._pad_plane(x.lo, T.m)],
+                              T.masks, T.kinds, T.dists)
+    B = len(T.chunks)
+    prod = tdf.mul(tdf.DF(T.vals[..., 0], T.vals[..., 1]),
+                   tdf.DF(oh.view(B, T.m), ol.view(B, T.m)))
+    hi, lo = trs._chunk_reduce_df(prod, T.chunks, T.colmajor)
+    if T.inv_perm is not None:
+        hi, lo = hi[T.inv_perm], lo[T.inv_perm]
+    return tdf.DF(hi[: T.shape[0]], lo[: T.shape[0]])
+
+
 @pytest.mark.parametrize("fused", ["1", "0"])
-def test_routed_spmv_df_matches_reference_on_same_plan(fused, monkeypatch):
+def test_routed_spmv_df_matches_reference_on_same_plan(fused):
     """df64: the JAX CPU path sums by the op chain; the port by dot2
-    (df_fused=1) or the same chain (df_fused=0, then bit-identical)."""
-    monkeypatch.setenv("LILAC_DF_FUSED", fused)
+    (routed_spmv_df, "1") and, on the same slot products, by the same
+    chain ("0", then bit-identical)."""
     indptr, indices, data, shape = _csr(13, 200, 600, 1, 12)
     x = np.random.default_rng(14).standard_normal(shape[1])
     J = jrs.build_routed_csr(indptr, indices, data, shape, dtype="df64")
     T = _to_torch_mat(J)
     yj = jrs.routed_spmv_df(J, jdf.from_f64(x), interpret=True)
-    yt = trs.routed_spmv_df(T, tdf.from_f64(x, device="cpu"))
+    xt = tdf.from_f64(x, device="cpu")
+    yt = trs.routed_spmv_df(T, xt) if fused == "1" else _chain_product(T, xt)
     if fused == "0":
         np.testing.assert_array_equal(np.asarray(yj.hi), yt.hi.numpy())
         np.testing.assert_array_equal(np.asarray(yj.lo), yt.lo.numpy())

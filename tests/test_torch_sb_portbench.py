@@ -56,7 +56,7 @@ MAXIT = 30
 def hier(tmp_path, monkeypatch):
     monkeypatch.setenv("LILAC_DATA_DIR", str(tmp_path))
     monkeypatch.setenv("LILAC_HIER_BL", "256")
-    for k in ("LILAC_SB_TRANSPOSE", "LILAC_HIER_GMAX", "LILAC_HIER_PACK"):
+    for k in ("LILAC_SB_TRANSPOSE", "LILAC_HIER_GMAX"):
         monkeypatch.delenv(k, raising=False)
     return tmp_path
 

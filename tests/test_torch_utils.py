@@ -136,9 +136,9 @@ def test_stage_probes_run_k1_and_the_hier_passes(monkeypatch, crs12):
     for dtype in ("f32", "df64"):
         plan = SpmvPlan(*crs12, dtype=dtype, kernel="routed", device=CPU)
         assert tprof.measure_plan_stage_time(plan, reps=2) > 0
-    from lilac_tpu_torch.kernels import factored as tf
+    from lilac_tpu_torch.kernels import routed_spmv as trs
 
-    monkeypatch.setattr(tf, "SINGLE_TABLE_MAX", 1 << 10)
+    monkeypatch.setattr(trs, "SINGLE_TABLE_MAX", 1 << 10)
     monkeypatch.setenv("LILAC_HIER_BL", "256")
     ip, ix, v, sh = random_crs(11, seed=2)
     hier = SpmvPlan(ip, ix, v, sh, dtype="f32", kernel="routed", device=CPU)
