@@ -457,20 +457,25 @@ DFOPS_PER_NPB_STEP = {"add": 51, "sub": 26, "mul": 76, "div": 52, "sqrt": 2}
 
 
 class _ChainOnly:
-    """Inside: DF64Alg refuses the kernels of kernels/dfops.py and runs the
-    eager op chains, as the package did before them (the dot stays dfdot's)."""
+    """Inside: DF64Alg refuses the kernels of kernels/dfops.py and the df64
+    adjoints refuse those of kernels/dfadj.py, so both run the eager op
+    chains, as the package did before those kernels (the dot stays
+    dfdot's)."""
 
     def __enter__(self):
         from lilac_tpu_torch.kernels import dfops
+        from lilac_tpu_torch.kernels import routed_spmv as rs
 
-        self._shape = dfops.result_shape
+        self._shape, self._takes = dfops.result_shape, rs._dfadj_takes
         dfops.result_shape = lambda *operands: None
+        rs._dfadj_takes = lambda A, us: False
         return self
 
     def __exit__(self, *exc):
         from lilac_tpu_torch.kernels import dfops
+        from lilac_tpu_torch.kernels import routed_spmv as rs
 
-        dfops.result_shape = self._shape
+        dfops.result_shape, rs._dfadj_takes = self._shape, self._takes
         return False
 
 
@@ -636,6 +641,13 @@ def _reset_dfops_counts() -> None:
         dfops.launches[k] = 0
 
 
+def _reset_dfadj_counts() -> None:
+    from lilac_tpu_torch.kernels import dfadj
+
+    for k in dfadj.launches:
+        dfadj.launches[k] = 0
+
+
 def _check_dfops(kernels: dict, steps: int, what: str, main: bool = True) -> int:
     """dfops's launches in `steps` df64 NPB outer steps just run, held to
     DFOPS_PER_NPB_STEP entry by entry; into the `kernels` line's dfops row
@@ -654,6 +666,134 @@ def _check_dfops(kernels: dict, steps: int, what: str, main: bool = True) -> int
     if main:
         row["launches"] += got
     return got
+
+
+def _dfadj_want(A, transposes: int) -> dict:
+    """kernels/dfadj.py's launches by entry in `transposes` df64 transpose
+    products through plan A run in reverse (A None: the transpose has a
+    forward plan of its own): a column-major plan's each group one
+    slots_mul and one netsum, and one netsum more a level of its tree above
+    MAX_NETS nets; a row-major plan none (it keeps the op chains)."""
+    from lilac_tpu_torch.kernels import dfadj
+
+    if not getattr(A, "colmajor", False):
+        return {"slots_mul": 0, "netsum": 0}
+    nets = ([len(g.net_ids) for g in A.groups] if hasattr(A, "groups")
+            else [len(A.chunks)])
+    levels = 0
+    for k in nets:
+        while k > dfadj.MAX_NETS:
+            k, levels = (k + 1) // 2, levels + 1
+    return {"slots_mul": transposes * len(nets),
+            "netsum": transposes * (len(nets) + levels)}
+
+
+def _check_dfadj(A, transposes: int, what: str) -> dict:
+    """dfadj's launches since its counts were set to 0, held to _dfadj_want."""
+    from lilac_tpu_torch.kernels import dfadj
+
+    want = _dfadj_want(A, transposes)
+    if dfadj.launches != want:
+        raise AssertionError(f"dfadj launched {dfadj.launches} in {transposes} transpose "
+                             f"products of {what} ({want} expected)")
+    return dict(dfadj.launches)
+
+
+DFADJ_ROWS = {
+    "slots_mul": ("none: the adjoint's expand (_hier_adj_slots / _adj_slots) and "
+                  "df.mul chain, which XLA fuses in the JAX package",
+                  "none: no single PyTorch call computes a df64 product"),
+    "netsum": ("none: the adjoint's df.sum_df0 over the nets and df.add over the "
+               "groups, which XLA fuses in the JAX package",
+               "none: no single PyTorch call computes a df64 sum"),
+}
+
+
+def _dfadj_time(A) -> dict:
+    """kernels/dfadj.py's two kernels on the planes a column-major hier
+    plan's adjoint hands them at its largest group (its values; cotangents
+    over 12 decades; the reverse network's output; the group's own sum as
+    the accumulator), each held to its op chain bit for bit, then timed L2
+    flushed and back to back against the chain, beside the bound (the
+    bytes each must move over the card's peak) and the host's microseconds
+    a call. (The profiler's kernel count, which the other rows give, read 0
+    for calls of either kernel on an H100: their launches are held by
+    dfadj.launches instead.)"""
+    from lilac_tpu_torch.kernels import dfadj
+    from lilac_tpu_torch.kernels import routed as rd
+    from lilac_tpu_torch.kernels import routed_spmv as rs
+    from lilac_tpu_torch.ops import dfloat as df
+
+    gi = max(range(len(A.groups)), key=lambda i: len(A.groups[i].net_ids))
+    grp, m = A.groups[gi], A.m
+    N, S = len(grp.net_ids), len(grp.net_ids) * A.m
+    table = rs._hier_k2(A.chunks, tuple(g.net_ids for g in A.groups), m)[gi]
+    rng = np.random.default_rng(23)
+    x = rng.standard_normal(A.shape[0]) * 10.0 ** rng.uniform(-6, 6, A.shape[0])
+    u = torch.as_tensor(np.ascontiguousarray(df.split_f64_np(x).T), device=DEVICE)
+    us = rs._hier_adj_unperm(A, u, True)
+    vh, vl = grp.vals[0].reshape(-1), grp.vals[1].reshape(-1)
+
+    def fused_mul():
+        return dfadj.slots_mul(vh, vl, us[0], us[1], table)
+
+    def chain_mul():
+        sl = rs._hier_adj_slots(A, us, grp.net_ids)
+        return df.mul(df.DF(grp.vals[0].reshape(N, m), grp.vals[1].reshape(N, m)),
+                      df.DF(sl[0], sl[1]))
+
+    prod, want = fused_mul(), chain_mul()
+    if not (_bits_equal(prod.hi, want.hi.reshape(-1))
+            and _bits_equal(prod.lo, want.lo.reshape(-1))):
+        raise AssertionError(f"dfadj.slots_mul != its chain at {N} nets of m = {m}")
+    R = m // 128
+    oh, ol = rd.hier_apply_batched_t((prod.hi.reshape(N, R, 128), prod.lo.reshape(N, R, 128)),
+                                     grp.pass_meta, grp.pass_masks, A.bl, dfpair=True)
+    oh, ol = oh.view(N, m), ol.view(N, m)
+    acc = dfadj.netsum(oh, ol)
+    for a in (None, acc):
+        got, want = dfadj.netsum(oh, ol, a), dfadj.netsum_plain(oh, ol, a)
+        if not (_bits_equal(got.hi, want.hi) and _bits_equal(got.lo, want.lo)):
+            raise AssertionError(f"dfadj.netsum != its chain at {N} nets of m = {m} "
+                                 f"(accumulator {a is not None})")
+    del prod, want, got
+
+    def timed(fused, chain, nbytes, **shape):
+        return {"shape": shape, "bytes": nbytes,
+                "ms": time_cold_ms(fused, 20), "warm_ms": time_ms(fused, 50),
+                "bound_ms": nbytes / PEAK_BYTES_S * 1e3,
+                "plain_ms": time_cold_ms(chain, 5), "plain_warm_ms": time_ms(chain, 5),
+                "host_us": _host_us(fused, 50)}
+
+    return {
+        "slots_mul": timed(fused_mul, chain_mul, 16 * S + 8 * table.rows, nets=N, m=m,
+                           slots=S, rows=table.rows, dtype="float32 (hi, lo)"),
+        "netsum": timed(lambda: dfadj.netsum(oh, ol), lambda: dfadj.netsum_plain(oh, ol),
+                        8 * S + 8 * m, nets=N, m=m, dtype="float32 (hi, lo)"),
+        "netsum_into_acc": timed(lambda: dfadj.netsum(oh, ol, acc),
+                                 lambda: dfadj.netsum_plain(oh, ol, acc),
+                                 8 * S + 16 * m, nets=N, m=m, dtype="float32 (hi, lo)")}
+
+
+def _dfadj_rows(kernels: dict, A, launches: dict, what: str) -> None:
+    """The `kernels` line's slots_mul and netsum rows: the launches of a
+    main path just run (`what`), and the kernels timed on its plan
+    (_dfadj_time); a row's ms, plain_ms and bound_ms are those of the
+    first main path timed (class D in the whole run)."""
+    t = _dfadj_time(A)
+    emit({"phase": "dfadj", "on": what, "timed": t})
+    for name, (replaces, library) in DFADJ_ROWS.items():
+        row = kernels.setdefault(name, {
+            "name": name, "route": "cuda", "source": "lilac_tpu_torch/csrc/dfadj.cu",
+            "replaces": replaces, "launches": 0, "bound_by": "bytes", "library_ms": None,
+            "library": library})
+        row["launches"] += launches[name]
+        row[f"launches_{what}"] = launches[name]
+        row[f"timed_{what}"] = [t[name]] + ([t["netsum_into_acc"]] if name == "netsum" else [])
+        if "ms" not in row:
+            row.update({k: t[name][k] for k in ("ms", "plain_ms", "bound_ms", "shape",
+                                                "bytes")})
+            row["on"] = what
 
 
 def _npb_chain_vs_fused(kernels: dict, plan, class_name: str, steps: int) -> dict:
@@ -678,11 +818,19 @@ def _npb_chain_vs_fused(kernels: dict, plan, class_name: str, steps: int) -> dic
 
     run(1)  # every kernel of the path loaded
     _reset_dfops_counts()
+    _reset_dfadj_counts()
     (zf, rf, xf), fused_s = run(steps)
+    adj_launches = _check_dfadj(plan.A.V if plan.A.VT is None else None, steps * 26,
+                                f"{steps} steps of class {class_name}")
+    if (plan.A.VT is None) != bool(adj_launches["slots_mul"]):
+        raise AssertionError(f"class {class_name}: dfadj launched {adj_launches} with "
+                             f"V^T {'by its own plan' if plan.A.VT is not None else 'by V'}")
     launches = _check_dfops(kernels, steps, f"runs_class_{class_name.lower()}_{steps}_steps",
                             main=False)
+    _reset_dfadj_counts()
     with _ChainOnly():
         (zc, rc, xc), chain_s = run(steps)
+    _check_dfadj(None, steps * 26, f"{steps} steps of class {class_name} through the chains")
     for got, want, what in ((zf, zc, "zeta"), (rf, rc, "rnorm"), (xf, xc, "x")):
         if not (_bits_equal(got.hi, want.hi) and _bits_equal(got.lo, want.lo)):
             raise AssertionError(f"class {class_name}, {steps} steps: {what} through "
@@ -691,7 +839,7 @@ def _npb_chain_vs_fused(kernels: dict, plan, class_name: str, steps: int) -> dic
     return {"class": class_name, "steps": steps, "bit_identical": ["zeta", "rnorm", "x"],
             "zeta": zeta, "zeta_rel_err": abs(zeta - cls.zeta_verify) / cls.zeta_verify,
             "fused_step_s": fused_s / steps, "chain_step_s": chain_s / steps,
-            "dfops_launches": launches}
+            "dfops_launches": launches, "dfadj_launches": adj_launches}
 
 
 def _sb_chain_vs_fused(kernels: dict, size: int = 160) -> dict:
@@ -707,14 +855,21 @@ def _sb_chain_vs_fused(kernels: dict, size: int = 160) -> dict:
     b = sol.plan.vec_in(np.ones(sol.n))
     sol.solve(b)  # every kernel of the path loaded
     _reset_dfops_counts()
+    _reset_dfadj_counts()
     t0 = time.perf_counter()
     xf, its_f, hist_f, _ = sol.solve(b)
     fused_s = time.perf_counter() - t0
     counts = dict(dfops.launches)
+    adj_launches = _check_dfadj(sol.plan.A if sol.plan_t is None else None,
+                                _sb_transposes(its_f), f"one SparseBench {size} solve")
+    if not adj_launches["slots_mul"]:
+        raise AssertionError(f"SparseBench {size}: the adjoint took no dfadj kernel")
+    _reset_dfadj_counts()
     with _ChainOnly():
         t0 = time.perf_counter()
         xc, its_c, hist_c, _ = sol.solve(b)
         chain_s = time.perf_counter() - t0
+    _check_dfadj(None, _sb_transposes(its_c), f"one SparseBench {size} solve through the chains")
     if counts != _sb_dfops(its_f):
         raise AssertionError(f"SparseBench {size}: dfops launched {counts} in one solve "
                              f"of its {its_f} ({_sb_dfops(its_f)} expected)")
@@ -725,7 +880,9 @@ def _sb_chain_vs_fused(kernels: dict, size: int = 160) -> dict:
         raise AssertionError(f"SparseBench {size}: its / hist / x through dfops != "
                              f"through the op chains (its {its_f} / {its_c})")
     return {"size": size, "its": its_f, "bit_identical": ["its", "hist", "x"],
-            "fused_solve_s": fused_s, "chain_solve_s": chain_s, "dfops_launches": counts}
+            "fused_solve_s": fused_s, "chain_solve_s": chain_s, "dfops_launches": counts,
+            "dfadj_launches": adj_launches,
+            "groups": len(getattr(sol.plan.A, "groups", ()))}
 
 
 def phase_dfops_runs(kernels: dict, plan_d=None) -> dict:
@@ -1555,6 +1712,7 @@ def _reset_hier_counts(rd, dfk) -> None:
     from lilac_tpu_torch.kernels import dfdot as kd
     kd.dfdot.launches = 0
     _reset_dfops_counts()
+    _reset_dfadj_counts()
 
 
 def _check_dfdot(kernels: dict, res, class_name: str) -> int:
@@ -3560,9 +3718,13 @@ def phase_main_path_d(kernels: dict, plan_d):
     dot_d = _check_dfdot(kernels, res, "D")
     _check_dfops(kernels, res.niter + 1, "class_d")
     matvecs = (res.niter + 1) * 26
+    adj_d = _check_dfadj(plan_d.A.V, matvecs, "class D's main path")  # V^T by V's adjoint
+    if not adj_d["slots_mul"]:
+        raise AssertionError("class D's adjoint took no dfadj kernel")
     line = _npb_line(
         res, phase="npb", wall_s=wall, matvecs=matvecs, launches=counts,
-        dfmulred_launches=k2_d, dfdot_launches=dot_d, full_width="class D, na = 1500000",
+        dfmulred_launches=k2_d, dfdot_launches=dot_d, dfadj_launches=adj_d,
+        full_width="class D, na = 1500000",
         outer_steps=steps, factored_vt=res.factored_vt,
         plan_bytes_on_card=rs.plan_bytes(plan_d.A.V),
         peak_device_bytes=torch.cuda.max_memory_allocated())
@@ -3588,6 +3750,7 @@ def phase_main_path_d(kernels: dict, plan_d):
                              f"class D (one a packed group, {ngroups} a matvec expected)")
     kernels["dfmulred"]["launches_class_d"] = k2_d
     kernels["dfmulred"]["launches"] += k2_d
+    _dfadj_rows(kernels, plan_d.A.V, adj_d, "class_d")
     return line, res
 
 
@@ -3870,6 +4033,12 @@ def _sb_dots(its: int) -> int:
     return 3 * -its + 1 if its < 0 else 3 * (its - 1) + 2
 
 
+def _sb_transposes(its: int) -> int:
+    """The iterations run whole of one BiCG solve that ended at `its`, each
+    one A p and one A^T p~ (a converged last iteration stops before them)."""
+    return abs(its) if its < 0 else max(its - 1, 0)
+
+
 def _sb_dfops(its: int) -> dict:
     """dfops's launches by entry in one df64 BiCG solve that ended at `its`
     (solvers/bicg.py): the start's residual (sub); in each iteration the
@@ -3877,8 +4046,7 @@ def _sb_dfops(its: int) -> dict:
     updates (three mul, three sub) and alpha (div), and after the first
     beta (div) and the two directions (two mul, two add); the final norm
     (sqrt). A converged last iteration stops after its threshold."""
-    run = abs(its)
-    whole = run if its < 0 else max(run - 1, 0)
+    run, whole = abs(its), _sb_transposes(its)
     later = max(whole - 1, 0)
     return {"add": 2 * later, "sub": 1 + 3 * whole, "mul": run + 3 * whole + 2 * later,
             "div": whole + later, "sqrt": run + 1}
@@ -3890,7 +4058,8 @@ def _sb_run(size: int, kernel: str, env: dict | None = None):
     dfdot's launches are held to the dots of its two solves (the warm-up
     and the timed one), each two launches where the library splits the
     tree, one where it does not; dfops's, entry by entry, to _sb_dfops of
-    the two solves."""
+    the two solves; dfadj's to _dfadj_want of their transpose products
+    where A^T runs through A's plan in reverse."""
     from lilac_tpu_torch.kernels import dfdot as kd
     from lilac_tpu_torch.kernels import dfmulred as dfk
     from lilac_tpu_torch.kernels import dfops
@@ -3904,6 +4073,9 @@ def _sb_run(size: int, kernel: str, env: dict | None = None):
               "routed_apply_t": rd.routed_apply_t.launches,
               "dfmulred": dfk.dfmulred.launches, "dfdot": kd.dfdot.launches,
               "dfops": sum(dfops.launches.values())}
+    counts.update(_check_dfadj(res.plans[0].A if res.plans[1] is None else None,
+                               2 * _sb_transposes(res.iterations), f"sparsebench {size} "
+                               f"{kernel}'s two solves"))
     if not np.isfinite(res.hist).all() or not res.validated:
         raise AssertionError(f"sparsebench {size} {kernel}: not validated: {res}")
     depth = kd.kernel_depth(res.n, kd.device_sms(torch.cuda.current_device()))
@@ -4122,7 +4294,7 @@ def _sparsebench(kernels: dict, t_phase: float, replica) -> dict:
                       "hist_max_rel_diff_all": _hist_rel(ra.hist, rp.hist, abs(ra.iterations)),
                       "time_s": {"adj": ra.time_s, "plan": rp.time_s},
                       "kernels_checked": _sb_single_table_checks(ra.plans[0], rng)}
-    for name in ("routed_apply", "routed_apply_t", "dfmulred"):
+    for name in ("routed_apply", "routed_apply_t", "dfmulred", "slots_mul", "netsum"):
         kernels.setdefault(name, {"name": name})["launches_sb40_adj"] = ca[name]
     del r40, ra, rp
     torch.cuda.empty_cache()
@@ -4135,7 +4307,7 @@ def _sparsebench(kernels: dict, t_phase: float, replica) -> dict:
         raise AssertionError(f"size 160: {res.kernel} / plan_t {res.plans[1]}")
     if res.n != 160 ** 3 or res.iterations != SB_REF_LOG_160["its"]:
         raise AssertionError(f"size 160: n {res.n}, its {res.iterations}")
-    for name in FWD_D + ADJ_D + ("dfmulred",):
+    for name in FWD_D + ADJ_D + ("dfmulred", "slots_mul", "netsum"):
         if counts[name] <= 0:
             raise AssertionError(f"size 160: {name} not launched: {counts}")
     if counts["routed_apply"] or counts["routed_apply_t"]:
@@ -4148,6 +4320,7 @@ def _sparsebench(kernels: dict, t_phase: float, replica) -> dict:
     dfops_row = kernels.setdefault("dfops", {"name": "dfops", "launches": 0})
     dfops_row["launches_sb160"] = counts["dfops"]
     dfops_row["launches"] += counts["dfops"]
+    _dfadj_rows(kernels, plan.A, counts, "sb160")
     t0 = time.time()
     host, replica_s = replica.result()
     replica_wait_s = time.time() - t0
@@ -5764,7 +5937,7 @@ def main(argv) -> int:
     phase_tools(kernels)
     phase_dist(kernels)
 
-    names = ["routed_apply", "dfmulred", "dfdot", "dfops"] + [
+    names = ["routed_apply", "dfmulred", "dfdot", "dfops", "slots_mul", "netsum"] + [
         PASS_FNS[k][i] for i in (0, 1) for k in PASS_FNS] + ADJ_NAMES + [
         "routed_apply_t", "matmul_nt"]
     for name in names:

@@ -28,7 +28,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(os.path.dirname(_PKG), "build", "lilac_tpu_torch")
 
-SOURCES = ("routed", "dfmulred", "hier", "adjoint", "gemm", "dfdot", "dfops")
+SOURCES = ("routed", "dfmulred", "hier", "adjoint", "gemm", "dfdot", "dfops", "dfadj")
 
 # --fmad=false holds for EVERY source: no contraction of a*b+c into FMA
 # anywhere (the error-free transformations of the df64 kernel and of the

@@ -59,6 +59,7 @@ def dfmulred_plain(vh, vl, xh, xl):
 
 
 K2_ROWS = 256  # rows of one thread block of the kernel, one a thread (kRows)
+GAP_SLOTS = 2048  # slots of one gap piece (ChunkTable.gap_pieces)
 
 
 class ChunkTable:
@@ -89,12 +90,34 @@ class ChunkTable:
                                    (np.int64(K) << 32) | n], axis=1))
         self.blocks = (np.concatenate(parts) if parts
                        else np.zeros((0, 4), dtype=np.int64))
-        self._on: Dict[str, torch.Tensor] = {}
+        self._on: Dict[Tuple[str, int], torch.Tensor] = {}
 
-    def blocks_on(self, device) -> torch.Tensor:
-        key = str(device)
+    def gap_pieces(self, slots: int) -> np.ndarray:
+        """The slots of [0, slots) no chunk covers, as pieces of at most
+        GAP_SLOTS: int64 rows (s0, -1, 0, n)."""
+        runs, pos = [], 0
+        for a, b in sorted((s0, s0 + K * rows) for s0, rows, K, _ in self.spec):
+            if a > pos:
+                runs.append((pos, a))
+            pos = max(pos, b)
+        if pos < slots:
+            runs.append((pos, slots))
+        parts = [np.zeros((0, 4), dtype=np.int64)]
+        for a, b in runs:
+            s0 = np.arange(a, b, GAP_SLOTS, dtype=np.int64)
+            n = np.minimum(GAP_SLOTS, b - s0)
+            parts.append(np.stack([s0, np.full_like(s0, -1), np.zeros_like(s0), n], axis=1))
+        return np.concatenate(parts)
+
+    def blocks_on(self, device, slots: int = 0) -> torch.Tensor:
+        """`blocks` on `device`; with `slots`, followed by gap_pieces(slots),
+        the block list of kernels/dfadj.py's slots_mul, which writes every
+        slot of its [slots] planes. Each is built and put there once."""
+        key = (str(device), int(slots))
         if key not in self._on:
-            self._on[key] = torch.as_tensor(self.blocks, device=device)
+            rows = (self.blocks if not slots
+                    else np.concatenate([self.blocks, self.gap_pieces(slots)]))
+            self._on[key] = torch.as_tensor(rows, device=device)
         return self._on[key]
 
 

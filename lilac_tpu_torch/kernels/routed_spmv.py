@@ -47,6 +47,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from lilac_tpu_torch.kernels import dfadj
 from lilac_tpu_torch.kernels import dfmulred as dfk
 from lilac_tpu_torch.kernels import routed as rd
 from lilac_tpu_torch.kernels import routenet as rn
@@ -365,16 +366,31 @@ def routed_spmv_adj_t(A: RoutedMat, u: torch.Tensor) -> torch.Tensor:
 def routed_spmv_adj_t_df(A: RoutedMat, u: df.DF) -> df.DF:
     """df64 y = Aᵀ u through the forward plan's masks: TwoProd by the slot
     values, the reverse network's merges compensated in the kernel, df sum
-    over the nets."""
+    over the nets. A column-major plan on a card takes kernels/dfadj.py's
+    two kernels around the network, K2's table for its slots."""
     B, R = len(A.chunks), A.m // 128
-    sl = _adj_slots(A, _adj_sorted(A, torch.stack([u.hi, u.lo])))
-    prod = df.mul(df.DF(A.vals[..., 0], A.vals[..., 1]), df.DF(sl[0], sl[1]))
+    us = _adj_sorted(A, torch.stack([u.hi, u.lo]))
+    fused = _dfadj_takes(A, us)
+    if fused:
+        v = A.vals.reshape(-1, 2)
+        prod = dfadj.slots_mul(v[:, 0], v[:, 1], us[0], us[1],
+                               _single_table_k2(A.chunks, A.m))
+    else:
+        sl = _adj_slots(A, us)
+        prod = df.mul(df.DF(A.vals[..., 0], A.vals[..., 1]), df.DF(sl[0], sl[1]))
     with _ROUTE:
         oh, ol = rd.routed_apply_t(
             [prod.hi.view(B, R, 128), prod.lo.view(B, R, 128)],
             A.masks, A.kinds, A.dists, dfpair=True)
-    y = df.sum_df0(df.DF(oh.view(B, A.m), ol.view(B, A.m)))
+    y = (dfadj.netsum if fused else dfadj.netsum_plain)(oh.view(B, A.m), ol.view(B, A.m))
     return df.DF(y.hi[: A.shape[1]], y.lo[: A.shape[1]])
+
+
+def _dfadj_takes(A, us: torch.Tensor) -> bool:
+    """Whether a df64 adjoint runs kernels/dfadj.py's kernels: for a
+    column-major plan on a card, as the forward product takes K2; the op
+    chains else."""
+    return A.colmajor and us.is_cuda
 
 
 # ---------------------------------------------------------------------------
@@ -1327,27 +1343,37 @@ def routed_hier_spmv_adj_t(A: RoutedMatHierP, u: torch.Tensor) -> torch.Tensor:
 
 def routed_hier_spmv_adj_t_df(A: RoutedMatHierP, u: df.DF) -> df.DF:
     """df64 y = Aᵀ u for a hier plan: expand the row cotangents to slots,
-    TwoProd by the slot-ordered values (a whole group at once; _group_cap
-    leaves room for its intermediates), every net's network in reverse with
-    compensated merges, df sum over the nets and the groups."""
+    TwoProd by the slot-ordered values (a whole group at once), every net's
+    network in reverse with compensated merges, df sum over the nets and
+    the groups. A column-major plan on a card takes kernels/dfadj.py's two
+    kernels around the network, each group's K2 table for its slots; a
+    row-major plan the op chains (_group_cap leaves room for their
+    intermediates)."""
     _require_device_plan(A)
     R = A.m // 128
     n = A.shape[0]
     us = _hier_adj_unperm(A, torch.stack([u.hi[:n], u.lo[:n]]), True)
+    fused = _dfadj_takes(A, us)
+    if fused:
+        tables = _hier_k2(A.chunks, tuple(g.net_ids for g in A.groups), A.m)
     y = None
-    for grp in A.groups:
+    for gi, grp in enumerate(A.groups):
         N = len(grp.net_ids)
-        sl = _hier_adj_slots(A, us, grp.net_ids)
-        prod = df.mul(df.DF(grp.vals[0].reshape(N, A.m), grp.vals[1].reshape(N, A.m)),
-                      df.DF(sl[0], sl[1]))
-        del sl
+        if fused:
+            prod = dfadj.slots_mul(grp.vals[0].reshape(-1), grp.vals[1].reshape(-1),
+                                   us[0], us[1], tables[gi])
+        else:
+            sl = _hier_adj_slots(A, us, grp.net_ids)
+            prod = df.mul(df.DF(grp.vals[0].reshape(N, A.m), grp.vals[1].reshape(N, A.m)),
+                          df.DF(sl[0], sl[1]))
+            del sl
         with _ROUTE:
             oh, ol = rd.hier_apply_batched_t(
                 (prod.hi.reshape(N, R, 128), prod.lo.reshape(N, R, 128)),
                 grp.pass_meta, grp.pass_masks, A.bl, dfpair=True)
         del prod
-        t = df.sum_df0(df.DF(oh.view(N, A.m), ol.view(N, A.m)))
-        y = t if y is None else df.add(y, t)
+        y = (dfadj.netsum if fused else dfadj.netsum_plain)(
+            oh.view(N, A.m), ol.view(N, A.m), y)
     return df.DF(y.hi[: A.shape[1]], y.lo[: A.shape[1]])
 
 

@@ -19,7 +19,8 @@ Prints one JSON object a line:
   name, the host's launch events inside the step spans against the
   kernels the device ran, the kernels whose launch left no host event (by
   correlation id, one outer step profiled again), the device's idle time by
-  innermost span, and the comparison with the reference.
+  innermost span, its 25 largest operations, and the comparison with the
+  reference.
 """
 
 from __future__ import annotations
@@ -177,6 +178,7 @@ def cell(name: str, device: str = "cuda") -> dict:
         "idle_by_span_s": sorted(([k, v] for k, v in spans.idle_by_span(t).items()),
                                  key=lambda kv: -kv[1])[:12],
         "idle_gaps_breakdown": _trace.idle_gaps(t),
+        "device_ops_top": _trace.top_device_ops(t, 25),
         "build": dict(profiling.BUILD.total),
         "build_report": profiling.BUILD.report(),
         "one_step": _uncorrelated(one_step) if on_card else None,
